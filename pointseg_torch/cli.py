@@ -3,6 +3,7 @@
 
     python -m pointseg_torch train PointNet++ [--synthetic] [--data-dir D]
         [--epochs E] [--device cuda] ...
+    python -m pointseg_torch train DeepGraphCnn [--static-graph] ...
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 8 (test 2), 4096 points, test area 6, 14 classes. Flags of the JAX
@@ -19,11 +20,12 @@ from datetime import datetime
 
 import torch
 
-from pointseg.data.s3dis import NUM_S3DIS_CLASSES
+from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES
 
-# the JAX CLI's model names; pointseg_torch.models says which are ported
+# the JAX package's model names; pointseg_torch.models says which are ported
 MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
-                 "PointNeXt-B", "PointNeXt-L", "DeepGraphCnn"]
+                 "PointNeXt-B", "PointNeXt-L", "DeepGraphCnn", "DGCNN"]
+DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 
 # JAX trainer flags not carried yet: (flag, argparse kwargs)
 _NOT_PORTED = (
@@ -36,7 +38,6 @@ _NOT_PORTED = (
     ("--resume", dict(default=None)),
     ("--model-dir", dict(default=None)),
     ("--data-parallel", dict(action="store_true")),
-    ("--static-graph", dict(action="store_true")),
     ("--warmup-steps", dict(type=int, default=0)),
     ("--grad-clip", dict(type=float, default=None)),
     ("--profile", dict(default=None)),
@@ -69,6 +70,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-interval", type=int, default=20)
     p.add_argument("--log-dir", default="saved_runs")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--static-graph", action="store_true",
+                   help="DGCNN models: compute the kNN graph once on xyz and "
+                        "reuse it in every EdgeConv.")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; the kernels' path) or 'cpu' "
                         "(plain PyTorch versions, for small runs and tests).")
@@ -100,8 +104,8 @@ def resolve_device(name: str) -> torch.device:
 
 def train_from_args(args: argparse.Namespace):
     """Runs the `train` subcommand; returns (TrainState, records)."""
-    from pointseg.data import synthetic
-    from pointseg.data.datasets import create_block_dataloaders
+    from pointseg_torch.data import synthetic
+    from pointseg_torch.data.datasets import create_block_dataloaders
     from pointseg_torch.models import create_model
     from pointseg_torch.train.logging import MetricsLogger, save_records
     from pointseg_torch.train.loop import train_model
@@ -109,7 +113,12 @@ def train_from_args(args: argparse.Namespace):
 
     _refuse_unported(args)
     device = resolve_device(args.device)
-    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES)
+    model_kwargs = {}
+    if args.static_graph:
+        if args.model not in DGCNN_NAMES:
+            raise SystemExit("--static-graph only applies to DGCNN models")
+        model_kwargs["static_graph"] = True
+    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, **model_kwargs)
     # TF32 would round the distances that selections compare
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -160,7 +169,7 @@ def train_from_args(args: argparse.Namespace):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
-        description="pointseg's PyTorch / CUDA port (PointNet++ training).")
+        description="pointseg's PyTorch / CUDA port: trains PointNet++ and the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")
     _add_train_args(train)

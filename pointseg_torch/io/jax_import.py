@@ -4,9 +4,11 @@
 `pointseg/io/torch_import.py::from_torch_state_dict`: it takes a flax
 `{"params", "batch_stats"}` tree, as numpy arrays, and returns the port
 model's `state_dict`. Each Dense kernel (in, out) becomes a Linear weight
-(out, in), and a GroupedFirstLayer's `w_rel` / `w_feat` are joined back
-into the reference's single (out, 3 + D) weight. Every leaf must be used
-exactly once: an unmapped or left-over leaf raises.
+(out, in), a GroupedFirstLayer's `w_rel` / `w_feat` are joined back
+into the reference's single (out, 3 + D) weight, and an EdgeConv's
+`w_edge` / `w_center` kernels go to the port's two Linears of the same
+names. Every leaf must be used exactly once: an unmapped or left-over
+leaf raises.
 """
 
 from __future__ import annotations
@@ -45,9 +47,10 @@ class _Reader:
     def put(self, key: str, value: np.ndarray) -> None:
         self.sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))  # a copy
 
-    def dense(self, fpath: str, tkey: str) -> None:
+    def dense(self, fpath: str, tkey: str, bias: bool = True) -> None:
         self.put(f"{tkey}.weight", self.take(f"params/{fpath}/kernel").T)
-        self.put(f"{tkey}.bias", self.take(f"params/{fpath}/bias"))
+        if bias:
+            self.put(f"{tkey}.bias", self.take(f"params/{fpath}/bias"))
 
     def bn(self, fpath: str, tkey: str) -> None:
         self.put(f"{tkey}.weight", self.take(f"params/{fpath}/scale"))
@@ -56,10 +59,10 @@ class _Reader:
         self.put(f"{tkey}.running_var", self.take(f"batch_stats/{fpath}/var"))
         self.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
-    def mlp(self, fpath: str, tkey: str, n: int, first: int = 0) -> None:
+    def mlp(self, fpath: str, tkey: str, n: int, first: int = 0, bias: bool = True) -> None:
         """flax SharedMLP Dense_i/BatchNorm_i -> conv.(first+i)/batch.(first+i)."""
         for i in range(n):
-            self.dense(f"{fpath}/Dense_{i}", f"{tkey}.conv.{first + i}")
+            self.dense(f"{fpath}/Dense_{i}", f"{tkey}.conv.{first + i}", bias=bias)
             self.bn(f"{fpath}/BatchNorm_{i}", f"{tkey}.batch.{first + i}")
 
     def set_abstraction(self, name: str, n_layers: int) -> None:
@@ -71,6 +74,11 @@ class _Reader:
         self.bn(f"{first}/bn", f"{name}.point_net.batch.0")
         self.mlp(f"{name}/point_net", f"{name}.point_net", n_layers - 1, first=1)
 
+    def edgeconv(self, name: str) -> None:
+        self.dense(f"{name}/w_edge", f"{name}.w_edge", bias=False)
+        self.dense(f"{name}/w_center", f"{name}.w_center", bias=False)
+        self.bn(f"{name}/bn", f"{name}.bn")
+
 
 def _pointnetpp(r: _Reader) -> None:
     for sa in ("sa1", "sa2", "sa3", "sa4"):
@@ -80,14 +88,26 @@ def _pointnetpp(r: _Reader) -> None:
     r.dense("conv", "conv")
 
 
-_IMPORTERS = {"PointNet++": _pointnetpp}
+def _dgcnn(r: _Reader, with_color: bool) -> None:
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        r.edgeconv(name)
+    for name in (("color_conv",) if with_color else ()) + ("conv5", "conv6", "conv7"):
+        r.mlp(name, name, 1, bias=False)
+    r.dense("conv8", "conv8")
+
+
+_IMPORTERS = {
+    "PointNet++": _pointnetpp,
+    "DGCNN": lambda r: _dgcnn(r, with_color=False),
+    "DeepGraphCnn": lambda r: _dgcnn(r, with_color=True),
+}
 
 
 def from_jax_variables(model_name: str, variables: Mapping) -> dict[str, torch.Tensor]:
     """Converts JAX-package variables into the port model's state_dict.
 
     Args:
-        model_name: CLI model name; only "PointNet++" is ported.
+        model_name: CLI model name: "PointNet++", "DGCNN" or "DeepGraphCnn".
         variables: {"params": ..., "batch_stats": ...} nested mappings of
             arrays (numpy, or anything `np.asarray` takes).
 
@@ -103,3 +123,4 @@ def from_jax_variables(model_name: str, variables: Mapping) -> dict[str, torch.T
     if reader.leaves:
         raise ValueError(f"JAX leaves with no home in the port: {sorted(reader.leaves)}")
     return reader.sd
+

@@ -1,13 +1,15 @@
-"""Model registry (port of `pointseg.models`). Only PointNet++ SSG is
-ported so far; ROADMAP.md lists the order of the rest."""
+"""Model registry (port of `pointseg.models`). PointNet++ SSG and the
+two DGCNNs are ported so far; ROADMAP.md lists the order of the rest."""
 
 from __future__ import annotations
 
 from torch import nn
 
+from pointseg_torch.models.dgcnn import DGCNN, DGCNNWithColor, get_model  # noqa: F401
 from pointseg_torch.models.pointnetpp import PointNetPP
 
-MODELS = {"PointNet++": PointNetPP}
+# CLI names as in the JAX package's registry
+MODELS = {"PointNet++": PointNetPP, "DeepGraphCnn": DGCNNWithColor, "DGCNN": DGCNN}
 
 
 def create_model(name: str, num_classes: int = 14, **kwargs) -> nn.Module:

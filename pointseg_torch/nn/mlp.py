@@ -7,7 +7,7 @@ BatchNorm normalises over every other axis, for (B, N, F) per-point and
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -50,23 +50,34 @@ class BatchNorm(nn.BatchNorm1d):
         return y.reshape(x.shape)
 
 
-class SharedMLP(nn.Module):
-    """Stack of [Linear -> BatchNorm -> ReLU] applied per point.
+def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2), the DGCNN activation."""
+    return F.leaky_relu(x, negative_slope=0.2)
 
-    The submodules are named `conv.i` and `batch.i`, the key layout of
-    the reference's torch MLPs that `pointseg/io/torch_import.py` reads.
+
+class SharedMLP(nn.Module):
+    """Stack of [Linear -> BatchNorm -> activation] applied per point.
+
+    `act` defaults to ReLU and `use_bias` to True, as in the reference's
+    PointNet++ MLPs; its DGCNN convolutions are bias-free with
+    `leaky_relu_02`. The submodules are named `conv.i` and `batch.i`, the
+    key layout of the reference's torch MLPs that
+    `pointseg/io/torch_import.py` reads.
     """
 
-    def __init__(self, in_features: int, widths: Sequence[int]):
+    def __init__(self, in_features: int, widths: Sequence[int],
+                 act: Callable[[torch.Tensor], torch.Tensor] = F.relu,
+                 use_bias: bool = True):
         super().__init__()
+        self.act = act
         self.conv = nn.ModuleList()
         self.batch = nn.ModuleList()
         for width in widths:
-            self.conv.append(nn.Linear(in_features, width))
+            self.conv.append(nn.Linear(in_features, width, bias=use_bias))
             self.batch.append(BatchNorm(width))
             in_features = width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, bn in zip(self.conv, self.batch):
-            x = F.relu(bn(conv(x)))
+            x = self.act(bn(conv(x)))
         return x

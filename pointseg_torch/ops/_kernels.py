@@ -6,10 +6,11 @@ device goes to the kernel, and any other device raises. There is no
 switch and no fallback: a kernel that fails to build or launch raises.
 
 The sources in `pointseg_torch/csrc/` are compiled at first use by
-`nvcc` into one shared library with a plain C interface, loaded with
-`ctypes`. The library goes to `build/pointseg_torch/<hash>/` at the root
-of the checkout, keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is compiled once. Each C entry point
+`nvcc`, one process per source and all at once, and linked into one
+shared library with a plain C interface, loaded with `ctypes`. The
+library goes to `build/pointseg_torch/<hash>/` at the root of the
+checkout, keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is compiled once. Each C entry point
 takes device pointers, ints and the current CUDA stream, launches without
 synchronising and returns `cudaGetLastError()`.
 
@@ -29,14 +30,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fps.cu", "ballquery.cu", "threenn.cu")
+SOURCES = ("fps.cu", "ballquery.cu", "threenn.cu", "knn.cu", "gather.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pointseg_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"fps": 0, "ball_query": 0, "three_nn": 0}
+LAUNCHES = {"fps": 0, "ball_query": 0, "three_nn": 0,
+            "knn": 0, "knn_2l": 0, "gather_rows": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +48,12 @@ _SIGNATURES = {
     "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # tgt, src, src_mask, out_d, out_i, B, N, M, stream
     "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, norms_scratch, mask, out, B, N, F, K, include_self, stream
+    "pointseg_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, norms_scratch, mask, out, B, N, F, K, include_self, depth, stream
+    "pointseg_knn_2l": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # table, idx, out, B, N, M, C, stream
+    "pointseg_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None
@@ -72,6 +80,11 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _check_nvcc(cmd: list[str], returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc exited with {returncode}:\n{' '.join(cmd)}\n{log}")
+
+
 def build() -> Path:
     """Compiles the kernels unless this exact build exists; returns the
     shared library's path."""
@@ -84,13 +97,23 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".partial-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        raise RuntimeError(
-            f"nvcc exited with {result.returncode}:\n{' '.join(cmd)}\n"
-            f"{result.stdout}{result.stderr}")
+    nvcc, tag = _nvcc(), os.getpid()
+    objects = [out_dir / f".partial-{tag}-{name}.o" for name in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+                for name, obj in zip(SOURCES, objects)]
+    tmp = out_dir / f".partial-{tag}.so"
+    try:
+        running = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True) for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in running]  # waits for every compile
+        for cmd, proc, log in zip(compiles, running, logs):
+            _check_nvcc(cmd, proc.returncode, log)
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj in objects)]
+        result = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, result.returncode, result.stdout + result.stderr)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 

@@ -4,7 +4,7 @@ a streaming evaluation pass over the test set after every epoch, and
 epoch summaries. Checkpoints, the device-resident store, scanned and
 accumulated steps are not ported yet (ROADMAP.md).
 
-Batches come from the numpy loaders of `pointseg.data`; each is copied
+Batches come from the numpy loaders of `pointseg_torch.data`; each is copied
 to the device once. Metrics stay on the device and are read at the log
 interval and at the end of an epoch.
 """

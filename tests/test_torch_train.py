@@ -3,7 +3,7 @@
 Loss and metrics go through pointseg.train and the port on the same
 numpy inputs (tolerance rtol 1e-5: the same float32 formulas summed in
 another order; counts exactly). The CLI trains PointNet++ end to end on
-a tiny synthetic dataset with `--device cpu`.
+a tiny synthetic dataset with `--device cpu`, and DGCNN likewise.
 """
 
 import json
@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from pointseg.data import synthetic
+from pointseg_torch.data import synthetic
 from pointseg.train import loss as jax_loss
 from pointseg.train import metrics as jax_metrics
 from pointseg_torch import cli
@@ -128,6 +128,27 @@ def test_cli_trains_pointnetpp_on_cpu(tiny_blocks, tmp_path):
     assert rec["config"]["device"] == "cpu"
 
 
+@pytest.mark.parametrize("model,extra", [("DeepGraphCnn", []), ("DGCNN", ["--static-graph"])])
+def test_cli_trains_dgcnn_on_cpu(tiny_blocks, tmp_path, model, extra, capsys):
+    torch.manual_seed(0)
+    cli.main(["train", model, "--synthetic", "--data-dir", tiny_blocks, "--device", "cpu",
+              "--epochs", "1", "--train-batch-size", "8", "--train-sampling", "256",
+              "--test-sampling", "256", "--num-workers", "0",
+              "--log-dir", str(tmp_path / "logs"), "--log-interval", "2", *extra])
+    assert "Epoch 1 completed" in capsys.readouterr().out
+    (records,) = list((tmp_path / "logs").rglob("records.json"))
+    rec = json.loads(records.read_text())
+    assert len(rec["train_loss"]) == 1 and math.isfinite(rec["train_loss"][0])
+    assert math.isfinite(rec["val_loss"][0]) and 0.0 <= rec["val_acc"][0] <= 1.0
+    assert rec["config"]["static_graph"] == bool(extra)
+
+
+def test_cli_static_graph_is_for_dgcnn_only(tmp_path):
+    with pytest.raises(SystemExit, match="DGCNN"):
+        cli.main(["train", "PointNet++", "--device", "cpu", "--static-graph",
+                  "--log-dir", str(tmp_path)])
+
+
 def test_cli_device_cuda_without_a_card_raises(tiny_blocks, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -139,7 +160,7 @@ def test_cli_device_cuda_without_a_card_raises(tiny_blocks, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--bf16"], ["--device-data"], ["--scan-steps", "4"], ["--accum-steps", "2"],
-    ["--resume", "ckpt"], ["--data-parallel"], ["--static-graph"],
+    ["--resume", "ckpt"], ["--data-parallel"], ["--warmup-steps", "10"],
     ["--lr-schedule", "cosine"], ["--grad-clip", "1.0"], ["--profile", "trace"],
 ])
 def test_cli_refuses_flags_not_yet_ported(flags, tmp_path):
