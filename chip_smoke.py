@@ -14,6 +14,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      N=4096 -> 1024 -> 256 -> 64 -> 16), a ragged shape with repeated
      points and a large evaluation shape. Indices and `in_ball` must be
      equal and 3-NN distances equal to rtol 1e-5 / atol 1e-6.
+   - the two-level ball query against the plain version and against the
+     flat kernel, index for index and `in_ball` for `in_ball`, at every
+     ball-query shape of PointNeXt (four SA stages and five InvResMLP
+     blocks, where the centroids are the cloud itself) and of PointNet++
+     MSG (two radii per stage) at B=8, N=4096, at the ragged shape with
+     repeated points (also with a mask and at stack depth 1, where every
+     pick refills a lane) and at two evaluation shapes (N = 16384 and
+     65536). Its bound is the flat kernel's at the same shape; the flat
+     kernel is timed beside it in turns (flat, two-level, two-level, flat).
+     Both kernels' device time per launch is also read from the profiler:
+     at the small stages a loop of launches under CUDA events measures
+     the host's call rate, not the kernel.
    - kNN, flat and two-level, at the DGCNN EdgeConv shapes (8, 4096, 3)
      and (8, 4096, 64) (LeakyReLU'd normal features), a cloud with
      repeated points and (2, 16384, 64); the two kernels must also equal
@@ -32,8 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and printed as tie flips). Each version is timed with CUDA events, in
    the order plain, kernel, kernel, plain; then one PyTorch library
    formulation of the same function is timed as a yardstick (bmm + topk
-   for 3-NN and kNN, `torch.gather` for the gather; FPS and ball query
-   have none). The port never calls these. Each kernel's bound is the
+   for 3-NN and kNN, `torch.gather` for the gather; FPS and the ball
+   queries have none). The port never calls these. Each kernel's bound is the
    least time the card could take: the larger of its bytes (inputs read
    once, outputs written once) over 3.35 TB/s and its float32
    operations over 67 TFLOP/s.
@@ -43,16 +55,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    evaluation pass each, with the launch counters set to 0 just before
    and read just after: `train PointNet++` must launch fps, ball_query
    and three_nn; `train DeepGraphCnn` must launch knn (4 per step) and
-   gather_rows. Then three steps of DeepGraphCnn with
+   gather_rows; `train PointNeXt` must launch fps 4, ball_query 9 and
+   three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
+   4 times. For both of these, three steps with
+   `ball_select="two_level"` and three with "flat" from the same weights,
+   batch and seeds: ball_query_2l must launch (9 or 8 a step) and
+   ball_query never, first losses equal to 1e-6 relative. Three steps of
+   PointNeXt-L give its step time and peak memory. For DeepGraphCnn three steps of DeepGraphCnn with
    `knn_select="two_level"` and three with "flat", from the same weights,
    batch and dropout seed: knn_2l must launch, the first losses must
    agree to 1e-6 relative (same forward) and the later ones to 1e-3 (the
    gather's backward adds with atomics). For each model the steady-state
-   step time (CUDA events), points/s, peak memory and a profile; for
+   step time (CUDA events), points/s, peak memory, a profile and the
+   device time per step of each of the port's own kernels; for
    DeepGraphCnn also the step time and peak memory with
    `EdgeConv.remat`, which gathers again in the backward pass.
 5. Output: each trained model's eval logits on the card against the same
-   weights on the CPU (plain versions), rtol/atol 1e-4. For DGCNN that
+   weights on the CPU (plain versions), rtol/atol 1e-4 (PointNet++,
+   PointNeXt, PointNet++MSG). For DGCNN that
    holds under `static_graph=True` and, with the dynamic graph, when the
    CPU model is given the four graphs the card built. Left to build its
    own, the CPU can flip a neighbour in conv2-4, which select on
@@ -69,6 +89,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -88,6 +109,8 @@ K_NEIGHBOURS = 20  # DGCNN's k
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fps": ("pointseg_torch/csrc/fps.cu", "pointseg/ops/pallas/fps.py:67"),
     "ball_query": ("pointseg_torch/csrc/ballquery.cu", "pointseg/ops/pallas/ballquery.py:93"),
+    "ball_query_2l": ("pointseg_torch/csrc/ballquery.cu",
+                      "pointseg/ops/pallas/ballquery.py:146"),
     "three_nn": ("pointseg_torch/csrc/threenn.cu", "pointseg/ops/pallas/threenn.py:47"),
     "knn": ("pointseg_torch/csrc/knn.cu", "pointseg/ops/pallas/knn.py:142"),
     "knn_2l": ("pointseg_torch/csrc/knn.cu", "pointseg/ops/pallas/knn.py:101"),
@@ -126,6 +149,35 @@ def timed(fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
     return cuda_ms(fn, reps)
+
+
+def device_time_us(event) -> float:
+    """Self device time of one profiler row (the attribute's name moved
+    between PyTorch versions)."""
+    if hasattr(event, "self_device_time_total"):
+        return event.self_device_time_total
+    return event.self_cuda_time_total
+
+
+def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device microseconds per call of `fn` inside kernels whose name
+    contains `kernel`, from the profiler: unlike CUDA events around a loop
+    of launches it holds none of the host's gaps between them. A trace
+    that comes back without the kernel is taken once more; NaN (printed as
+    such, and so marking every sum it enters) if that one lacks it too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(device_time_us(e) for e in prof.key_averages() if kernel in e.key)
+        if total > 0:
+            return total / reps
+    return float("nan")
 
 
 class Record:
@@ -240,7 +292,9 @@ def knn_library(x, k):
     return torch.topk(score - x2[:, :, None], k, dim=-1)[1]
 
 
-def pointnetpp_kernels(device, record: Record) -> None:
+def pointnetpp_kernels(device, record: Record) -> list:
+    """FPS, ball query (flat) and 3-NN; returns the training path's five
+    clouds (4096, 1024, 256, 64 and 16 points, each the last one's picks)."""
     from pointseg_torch.ops.ballquery import ball_query_plain, ball_query_raw
     from pointseg_torch.ops.fps import farthest_point_sampling, farthest_point_sampling_plain
     from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
@@ -293,6 +347,91 @@ def pointnetpp_kernels(device, record: Record) -> None:
                         12 * B * N + 12 * B * C + 24 * B * N, flips, err, per_forward)
         if per_forward:
             levels.append(cents.contiguous())
+    return levels
+
+
+# Ball queries of one forward pass at N = 4096, as (centroid level, cloud
+# level, radius, K) over the clouds of 4096, 1024, 256, 64 and 16 points.
+POINTNEXT_QUERIES = [(1, 0, 0.1, 32), (1, 1, 0.1, 32), (2, 1, 0.2, 32), (2, 2, 0.1, 32),
+                     (2, 2, 0.2, 32), (3, 2, 0.4, 32), (3, 3, 0.4, 32), (4, 3, 0.8, 32),
+                     (4, 4, 0.8, 16)]
+MSG_QUERIES = [(1, 0, 0.05, 16), (1, 0, 0.1, 32), (2, 1, 0.1, 16), (2, 1, 0.2, 32),
+               (3, 2, 0.2, 16), (3, 2, 0.4, 32), (4, 3, 0.4, 16), (4, 3, 0.8, 32)]
+
+
+def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
+    """The two-level ball query against the plain version and the flat
+    kernel. Its record sums PointNeXt's nine queries; the flat kernel's
+    sum over the same nine and all four sums over MSG's eight are printed."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.ballquery import (_ball_query_cuda, _radius_sq, ball_query_plain,
+                                              ball_query_raw)
+
+    def check(cents, pts, r, K, what, depth=None, mask=None):
+        before = dict(_kernels.LAUNCHES)
+        if depth is None:
+            g_idx, g_in = ball_query_raw(cents, pts, r, K, mask=mask, select="two_level")
+        else:
+            g_idx, g_in = _ball_query_cuda(cents, pts, _radius_sq(r), K, mask, "two_level", depth)
+        if (_kernels.LAUNCHES["ball_query_2l"] != before["ball_query_2l"] + 1
+                or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+            raise AssertionError(f"two-level ball query {what}: not exactly one launch of its "
+                                 f"kernel ({before} -> {_kernels.LAUNCHES})")
+        f_idx, f_in = ball_query_raw(cents, pts, r, K, mask=mask, select="flat")
+        w_idx, w_in = ball_query_plain(cents, pts, r, K, mask=mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(g_idx, f_idx) and torch.equal(g_in, f_in)):
+            raise AssertionError(f"ball query {what}: two-level and flat differ at "
+                                 f"{int((g_idx != f_idx).sum())} slots")
+        if not torch.equal(g_in, w_in):
+            raise AssertionError(f"two-level ball query {what}: in_ball differs from plain")
+        return (*check_picks(cents, pts, g_idx, w_idx), float(g_in.float().mean()))
+
+    rng = np.random.default_rng(5)
+    sums = {which: {"two_level": 0.0, "flat": 0.0, "plain": 0.0, "bound": 0.0,
+                    "two_level_us": 0.0, "flat_us": 0.0} for which in ("PointNeXt", "MSG")}
+    extra = [  # (B, N, C, repeat_from, radius, K, kernel reps)
+        (8, 3000, 1000, 2300, 0.1, 32, 20), (2, 16384, 1024, 12000, 0.1, 32, 10),
+        (1, 65536, 1024, None, 0.1, 32, 5)]
+    # (centroids, cloud, radius, K, times per PointNeXt forward, one of MSG's, kernel reps)
+    cases = [(levels[q[0]], levels[q[1]], q[2], q[3], int(q in POINTNEXT_QUERIES),
+              q in MSG_QUERIES, 20) for q in dict.fromkeys(POINTNEXT_QUERIES + MSG_QUERIES)]
+    for B, N, C, repeat_from, r, K, reps in extra:
+        pts = torch.from_numpy(block_cloud(rng, B, N, repeat_from)).to(device)
+        cases.append((pts[:, :C].contiguous(), pts, r, K, 0, False, reps))
+    for cents, pts, r, K, per_forward, in_msg, reps in cases:
+        B, C, N = cents.shape[0], cents.shape[1], pts.shape[1]
+        shape = (B, C, N, r, K)
+        flips, err, share = check(cents, pts, r, K, shape)
+        ms, flat_ms = timed_pair(lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
+                                 lambda: ball_query_raw(cents, pts, r, K, select="flat"), reps)
+        plain_ms = timed(lambda: ball_query_plain(cents, pts, r, K), max(2, reps // 4))
+        flops, nbytes = 10.0 * B * C * N, 12 * B * C + 12 * B * N + 5 * B * C * K
+        record.note("ball_query_2l", shape, ms, plain_ms, None, flops, nbytes, flips, err,
+                    per_forward)
+        us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
+                              "ball_query_two_level_kernel")
+        flat_us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K, select="flat"),
+                                   "ball_query_kernel")
+        print(f"{'':11s} flat kernel {flat_ms:9.4f} ms  device time a launch (profiler): "
+              f"two-level {us:.1f} us, flat {flat_us:.1f} us  share of in-ball slots {share:.3f}")
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        for which, count in (("PointNeXt", per_forward), ("MSG", int(in_msg))):
+            for key, value in (("two_level", ms), ("flat", flat_ms), ("plain", plain_ms),
+                               ("bound", bound), ("two_level_us", us), ("flat_us", flat_us)):
+                sums[which][key] += count * value
+        if N == 3000:  # the ragged shape: a mask, and depth 1 (a refill after every pick)
+            mask = torch.rand((B, N), device=device,
+                              generator=torch.Generator(device).manual_seed(6)) < 0.7
+            mask[0] = False  # a cloud whose balls are all empty
+            for depth, m in ((None, mask), (1, None), (1, mask)):
+                check(cents, pts, r, K, f"{shape} depth {depth} mask {m is not None}", depth, m)
+            print(f"{'':11s} with a mask, at depth 1, and both: two-level equals flat and plain")
+    for which, n in (("PointNeXt", "nine"), ("MSG", "eight")):
+        t = sums[which]
+        print(f"{'':11s} {which}'s {n} queries summed: two-level {t['two_level']:.4f} ms, flat "
+              f"{t['flat']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound']:.5f} ms; device "
+              f"time (profiler): two-level {t['two_level_us']:.1f} us, flat {t['flat_us']:.1f} us")
 
 
 def knn_kernels(device, record: Record) -> None:
@@ -410,6 +549,14 @@ def read_launches() -> dict:
     return dict(_kernels.LAUNCHES)
 
 
+def own_kernel_names() -> set:
+    """The `__global__` functions of the port's CUDA sources."""
+    from pointseg_torch.ops import _kernels
+
+    return {name for source in _kernels.SOURCES
+            for name in re.findall(r"__global__ void (\w+)", (_kernels.CSRC / source).read_text())}
+
+
 def steady_state(state, batch, label: str) -> dict:
     """Step time, points/s, peak memory and a profile of `train_step`."""
     from torch.profiler import ProfilerActivity, profile
@@ -436,6 +583,14 @@ def steady_state(state, batch, label: str) -> dict:
     print(f"profile of 3 {label} train steps, by device time:")
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=18,
                                     max_name_column_width=60))
+    own = {}
+    for e in prof.key_averages():
+        match = re.search(r"\(anonymous namespace\)::(\w+)[<(]", e.key)
+        if match and match.group(1) in own_kernel_names():
+            ms, n = own.get(match.group(1), (0.0, 0))  # a template's instances add up
+            own[match.group(1)] = (ms + device_time_us(e) / 3e3, n + e.count // 3)
+    print(f"{label}: device ms a step (launches a step) of the port's own kernels: "
+          + ", ".join(f"{k} {ms:.4f} ({n})" for k, (ms, n) in sorted(own.items())))
     return {"step_ms": step_ms, "host_step_ms": host_ms,
             "points_per_s": points / (step_ms / 1e3), "peak_bytes": peak}
 
@@ -466,35 +621,64 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...]):
     return state, launches
 
 
-def two_level_against_flat(state, batch, device) -> dict:
-    """Three steps each of DeepGraphCnn with the two-level and the flat
-    kNN kernel, from the trained weights, one batch and one dropout seed;
-    returns the two-level run's launches."""
+def two_level_against_flat(model_name: str, option: str, flat: str, two_level: str,
+                           per_step: int, state, batch, device) -> dict:
+    """Three steps each of `model_name` with the two-level and the flat
+    kernel (model argument `option`, launch counters `two_level` and
+    `flat`, `per_step` launches a step), from the trained weights, one
+    batch, one FPS seed and one dropout seed; returns the two-level run's
+    launches."""
     from pointseg_torch.models import create_model
     from pointseg_torch.train.state import create_train_state, train_step
 
     weights = {k: v.clone() for k, v in state.model.state_dict().items()}
     losses, launches = {}, {}
     for select in ("two_level", "flat"):
-        model = create_model("DeepGraphCnn", knn_select=select)
+        model = create_model(model_name, **{option: select})
         model.load_state_dict(weights)
         run = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
         torch.manual_seed(1234)  # the same dropout masks in both runs
         zero_launches()
         losses[select] = [float(train_step(run, *batch)["loss"]) for _ in range(3)]
         launches[select] = read_launches()
-    print(f"two-level kNN: losses {losses['two_level']} launches {launches['two_level']}")
-    print(f"flat kNN:      losses {losses['flat']} launches {launches['flat']}")
-    if launches["two_level"]["knn_2l"] != 12 or launches["two_level"]["knn"] != 0:
-        raise AssertionError("knn_select='two_level' must launch knn_2l four times a step "
-                             f"and knn never: {launches['two_level']}")
-    if launches["flat"]["knn"] != 12 or launches["flat"]["knn_2l"] != 0:
-        raise AssertionError(f"knn_select='flat' launches: {launches['flat']}")
+    print(f"{model_name} two-level: losses {losses['two_level']} launches {launches['two_level']}")
+    print(f"{model_name} flat:      losses {losses['flat']} launches {launches['flat']}")
+    for select, used, unused in (("two_level", two_level, flat), ("flat", flat, two_level)):
+        if launches[select][used] != 3 * per_step or launches[select][unused] != 0:
+            raise AssertionError(f"{model_name} {option}={select!r} must launch {used} "
+                                 f"{per_step} times a step and {unused} never: "
+                                 f"{launches[select]}")
     for step, (a, b) in enumerate(zip(losses["two_level"], losses["flat"])):
         rel = 1e-6 if step == 0 else 1e-3
         if not math.isfinite(a) or abs(a - b) > rel * abs(b):
-            raise AssertionError(f"step {step}: two-level loss {a} vs flat {b} (rel {rel})")
+            raise AssertionError(f"{model_name} step {step}: two-level loss {a} vs flat {b} "
+                                 f"(rel {rel})")
     return launches["two_level"]
+
+
+def few_steps(model_name: str, batch, device) -> None:
+    """Step time and peak memory of three train steps of `model_name` from
+    fresh weights, after two warm-up steps."""
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state, train_step
+
+    torch.manual_seed(0)
+    run = create_train_state(create_model(model_name), device=device, learning_rate=1e-3, seed=0)
+    loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    step_ms = cuda_ms(lambda: train_step(run, *batch), 3)
+    launches = read_launches()
+    if not math.isfinite(loss) or launches["ball_query"] == 0:
+        raise AssertionError(f"{model_name}: loss {loss}, launches {launches}")
+    points = batch[0].shape[0] * batch[0].shape[1]
+    print(f"{model_name} train step (3 steps): {step_ms:.3f} ms, "
+          f"{points / (step_ms / 1e3):.0f} points/s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches a step "
+          f"{ {k: v // 3 for k, v in launches.items() if v} }")
+    del run
+    torch.cuda.empty_cache()
 
 
 def remat_cost(state, batch, device) -> None:
@@ -530,7 +714,7 @@ def trainer_phase(device, workdir: str):
 
     pp_state, pp_launches = train_through_cli("PointNet++", workdir,
                                               ("fps", "ball_query", "three_nn", "gather_rows"))
-    if pp_launches["knn"] or pp_launches["knn_2l"]:
+    if pp_launches["knn"] or pp_launches["knn_2l"] or pp_launches["ball_query_2l"]:
         raise AssertionError(f"PointNet++ launched kernels off its path: {pp_launches}")
     train_loader, _ = create_block_dataloaders(f"{workdir}/data", {6}, 8, 2, 4096, seed=1)
     batch = to_device(next(iter(train_loader)), device)
@@ -541,17 +725,37 @@ def trainer_phase(device, workdir: str):
     if dg_launches["knn"] < 4 * steps or dg_launches["gather_rows"] < 4 * steps:
         raise AssertionError(f"DeepGraphCnn: {steps} steps need at least {4 * steps} kNN and "
                              f"gather launches, got {dg_launches}")
-    if dg_launches["knn_2l"] or dg_launches["fps"]:
+    if dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]:
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
-    two_level_launches = two_level_against_flat(dg_state, batch, device)
+    knn_2l_launches = two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4,
+                                             dg_state, batch, device)
     dg_perf = steady_state(dg_state, batch, "DeepGraphCnn")
     remat_cost(dg_state, batch, device)
+    states = {"PointNet++": (pp_state, pp_perf), "DeepGraphCnn": (dg_state, dg_perf)}
+
+    # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
+    bq_2l_launches = {}
+    for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
+        state, got = train_through_cli(name, workdir,
+                                       ("fps", "ball_query", "three_nn", "gather_rows"))
+        forwards = got["fps"] // per_forward[0]
+        want = {"fps": per_forward[0] * forwards, "ball_query": per_forward[1] * forwards,
+                "three_nn": per_forward[2] * forwards, "ball_query_2l": 0, "knn": 0, "knn_2l": 0}
+        if forwards <= state.step or any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: {state.step} steps and their evaluation must launch "
+                                 f"{per_forward} (fps, ball_query, three_nn) per forward pass "
+                                 f"and no other selection kernel, got {got}")
+        bq_2l_launches[name] = two_level_against_flat(
+            name, "ball_select", "ball_query", "ball_query_2l", per_forward[1], state, batch,
+            device)
+        states[name] = (state, steady_state(state, batch, name))
+    few_steps("PointNeXt-L", batch, device)
 
     launches = {"fps": pp_launches["fps"], "ball_query": pp_launches["ball_query"],
+                "ball_query_2l": bq_2l_launches["PointNeXt"]["ball_query_2l"],
                 "three_nn": pp_launches["three_nn"], "knn": dg_launches["knn"],
-                "knn_2l": two_level_launches["knn_2l"],
+                "knn_2l": knn_2l_launches["knn_2l"],
                 "gather_rows": dg_launches["gather_rows"]}
-    states = {"PointNet++": (pp_state, pp_perf), "DeepGraphCnn": (dg_state, dg_perf)}
     return states, launches, batch
 
 
@@ -597,8 +801,9 @@ def check_logits(label: str, got, want) -> None:
 def output_phase(states: dict, batch) -> None:
     x = batch[0][:2]
     with torch.no_grad():
-        model = states["PointNet++"][0].model.eval()
-        check_logits("PointNet++", model(x).cpu(), cpu_copy("PointNet++", model)(x.cpu()))
+        for name in ("PointNet++", "PointNeXt", "PointNet++MSG"):
+            model = states[name][0].model.eval()
+            check_logits(name, model(x).cpu(), cpu_copy(name, model)(x.cpu()))
 
         model = states["DeepGraphCnn"][0].model.eval()
         twin = cpu_copy("DeepGraphCnn", model)
@@ -653,7 +858,9 @@ def main() -> int:
 
     phase("3. kernels against their plain versions")
     record = Record()
-    pointnetpp_kernels(device, record)
+    levels = pointnetpp_kernels(device, record)
+    ball_query_2l_kernels(device, record, levels)
+    del levels
     knn_kernels(device, record)
     gather_kernels(device, record)
     torch.cuda.empty_cache()
@@ -681,8 +888,10 @@ def main() -> int:
         print(f"summary: {smi}; {model_name} step {perf['step_ms']:.3f} ms, "
               f"{perf['points_per_s']:.0f} points/s, peak {perf['peak_bytes'] / 2**20:.1f} MiB")
     print(f"summary: {smi}; kernel, plain, library and bound ms are per forward pass of the "
-          f"kernel's training path (its shapes summed); launches are one epoch and its "
-          f"evaluation (knn_2l: three steps); tie flips "
+          f"kernel's training path (its shapes summed; ball_query_2l: PointNeXt's nine "
+          f"queries); launches are one epoch and its "
+          f"evaluation (knn_2l and ball_query_2l: three steps of DeepGraphCnn and of "
+          f"PointNeXt); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,9 @@ channels-last at every public function, as in the JAX package. The port
 imports nothing of `pointseg`: `data/` is its own copy of the numpy
 data layer.
 
-Ported so far: training and evaluation of PointNet++ SSG and of DGCNN
-with and without the colour branch (ROADMAP.md lists the rest).
+Ported so far: training and evaluation of PointNet++ (SSG and MSG),
+PointNeXt (and its -B and -L depths) and DGCNN with and without the
+colour branch (ROADMAP.md lists the rest).
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,7 @@
 
     python -m pointseg_torch train PointNet++ [--synthetic] [--data-dir D]
         [--epochs E] [--device cuda] ...
+    python -m pointseg_torch train PointNeXt|PointNeXt-B|PointNeXt-L|PointNet++MSG ...
     python -m pointseg_torch train DeepGraphCnn [--static-graph] ...
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
@@ -169,7 +170,8 @@ def train_from_args(args: argparse.Namespace):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
-        description="pointseg's PyTorch / CUDA port: trains PointNet++ and the DGCNNs.")
+        description="pointseg's PyTorch / CUDA port: trains PointNet++ (SSG and MSG), "
+                    "PointNeXt (-B, -L) and the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")
     _add_train_args(train)

@@ -7,8 +7,9 @@ model's `state_dict`. Each Dense kernel (in, out) becomes a Linear weight
 (out, in), a GroupedFirstLayer's `w_rel` / `w_feat` are joined back
 into the reference's single (out, 3 + D) weight, and an EdgeConv's
 `w_edge` / `w_center` kernels go to the port's two Linears of the same
-names. Every leaf must be used exactly once: an unmapped or left-over
-leaf raises.
+names. An InvResMLP's `neighbour_mlp` / `point_mlp` and an MSG stage's
+`scale_{s}_0` / `scale_{s}` take the port's names (`nn/blocks.py`). Every
+leaf must be used exactly once: an unmapped or left-over leaf raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from pointseg_torch.models.pointnext import irmlp_name
 
 __all__ = ["from_jax_variables"]
 
@@ -65,14 +68,26 @@ class _Reader:
             self.dense(f"{fpath}/Dense_{i}", f"{tkey}.conv.{first + i}", bias=bias)
             self.bn(f"{fpath}/BatchNorm_{i}", f"{tkey}.batch.{first + i}")
 
+    def grouped_first(self, fpath: str, tkey: str) -> None:
+        """flax GroupedFirstLayer -> layer 0 of the port's grouped MLP."""
+        w_rel = self.take(f"params/{fpath}/w_rel/kernel")  # (3, h)
+        w_feat = self.take(f"params/{fpath}/w_feat/kernel")  # (D, h)
+        self.put(f"{tkey}.conv.0.weight", np.concatenate([w_rel, w_feat]).T)
+        self.put(f"{tkey}.conv.0.bias", self.take(f"params/{fpath}/w_rel/bias"))
+        self.bn(f"{fpath}/bn", f"{tkey}.batch.0")
+
     def set_abstraction(self, name: str, n_layers: int) -> None:
-        first = f"{name}/point_net0"
-        w_rel = self.take(f"params/{first}/w_rel/kernel")  # (3, h)
-        w_feat = self.take(f"params/{first}/w_feat/kernel")  # (D, h)
-        self.put(f"{name}.point_net.conv.0.weight", np.concatenate([w_rel, w_feat]).T)
-        self.put(f"{name}.point_net.conv.0.bias", self.take(f"params/{first}/w_rel/bias"))
-        self.bn(f"{first}/bn", f"{name}.point_net.batch.0")
+        self.grouped_first(f"{name}/point_net0", f"{name}.point_net")
         self.mlp(f"{name}/point_net", f"{name}.point_net", n_layers - 1, first=1)
+
+    def set_abstraction_msg(self, name: str, n_scales: int, n_layers: int) -> None:
+        for s in range(n_scales):
+            self.grouped_first(f"{name}/scale_{s}_0", f"{name}.scales.{s}")
+            self.mlp(f"{name}/scale_{s}", f"{name}.scales.{s}", n_layers - 1, first=1)
+
+    def inv_res_mlp(self, name: str) -> None:
+        self.grouped_first(f"{name}/neighbour_mlp", f"{name}.neighbour_features_mlp")
+        self.mlp(f"{name}/point_mlp", f"{name}.point_features_mlp", 2)
 
     def edgeconv(self, name: str) -> None:
         self.dense(f"{name}/w_edge", f"{name}.w_edge", bias=False)
@@ -80,12 +95,34 @@ class _Reader:
         self.bn(f"{name}/bn", f"{name}.bn")
 
 
-def _pointnetpp(r: _Reader) -> None:
-    for sa in ("sa1", "sa2", "sa3", "sa4"):
-        r.set_abstraction(sa, 3)
+SA_STAGES = ("sa1", "sa2", "sa3", "sa4")
+
+
+def _decoder(r: _Reader) -> None:
     for fp, n in (("fp4", 2), ("fp3", 2), ("fp2", 2), ("fp1", 4)):
         r.mlp(f"{fp}/point_net", f"{fp}.point_net", n)
     r.dense("conv", "conv")
+
+
+def _pointnetpp(r: _Reader) -> None:
+    for sa in SA_STAGES:
+        r.set_abstraction(sa, 3)
+    _decoder(r)
+
+
+def _pointnetpp_msg(r: _Reader) -> None:
+    for sa in SA_STAGES:
+        r.set_abstraction_msg(sa, 2, 3)
+    _decoder(r)
+
+
+def _pointnext(r: _Reader, blocks: tuple[int, int, int, int]) -> None:
+    r.mlp("stem", "mlp", 1)
+    for stage, (sa, n_blocks) in enumerate(zip(SA_STAGES, blocks), start=1):
+        r.set_abstraction(sa, 3)
+        for j in range(n_blocks):
+            r.inv_res_mlp(irmlp_name(stage, j))
+    _decoder(r)
 
 
 def _dgcnn(r: _Reader, with_color: bool) -> None:
@@ -98,6 +135,10 @@ def _dgcnn(r: _Reader, with_color: bool) -> None:
 
 _IMPORTERS = {
     "PointNet++": _pointnetpp,
+    "PointNet++MSG": _pointnetpp_msg,
+    "PointNeXt": lambda r: _pointnext(r, (1, 2, 1, 1)),
+    "PointNeXt-B": lambda r: _pointnext(r, (2, 3, 2, 2)),
+    "PointNeXt-L": lambda r: _pointnext(r, (3, 5, 3, 3)),
     "DGCNN": lambda r: _dgcnn(r, with_color=False),
     "DeepGraphCnn": lambda r: _dgcnn(r, with_color=True),
 }
@@ -107,7 +148,8 @@ def from_jax_variables(model_name: str, variables: Mapping) -> dict[str, torch.T
     """Converts JAX-package variables into the port model's state_dict.
 
     Args:
-        model_name: CLI model name: "PointNet++", "DGCNN" or "DeepGraphCnn".
+        model_name: CLI model name, one that `pointseg_torch.models`
+            registers.
         variables: {"params": ..., "batch_stats": ...} nested mappings of
             arrays (numpy, or anything `np.asarray` takes).
 

@@ -6,5 +6,7 @@ from pointseg_torch.nn.blocks import (  # noqa: F401
     EdgeConv,
     FeaturePropagation,
     GroupedFirstLayer,
+    InvResMLP,
     SetAbstraction,
+    SetAbstractionMSG,
 )

@@ -1,10 +1,13 @@
 """Network blocks (port of `GroupedFirstLayer`, `SetAbstraction`,
-`FeaturePropagation`, `_BNStats` and `EdgeConv` from
-`pointseg/nn/blocks.py`).
+`SetAbstractionMSG`, `FeaturePropagation`, `InvResMLP`, `_BNStats` and
+`EdgeConv` from `pointseg/nn/blocks.py`).
 
 FPS takes its start from the `generator` a caller passes (the training
 step passes one; evaluation passes none and starts at 0), where the JAX
-package reads the flax 'fps' stream.
+package reads the flax 'fps' stream. The blocks that group by ball query
+take `ball_select` ('flat' or 'two_level', the CUDA kernel) and `filler`
+('repeat' or 'index', what fills a sparse ball) and hand them to
+`ops.ball_query`; the JAX package sets both process-wide.
 """
 
 from __future__ import annotations
@@ -42,14 +45,18 @@ class GroupedFirstLayer(SharedMLP):
     """
 
     def __init__(self, in_features: int, widths: Sequence[int], radius: float,
-                 K: int, normalize: bool = False):
+                 K: int, normalize: bool = False, ball_select: str = "flat",
+                 filler: str = "repeat"):
         super().__init__(3 + in_features, widths)
         self.radius = radius
         self.K = K
         self.normalize = normalize
+        self.ball_select = ball_select
+        self.filler = filler
 
     def forward(self, centroids, coords, features, mask=None):
-        idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask)
+        idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask,
+                                filler=self.filler, select=self.ball_select)
         first = self.conv[0]
         w_rel, w_feat = first.weight[:, :3], first.weight[:, 3:]
         hfeat = F.linear(features, w_feat)  # (B, N, h): per point, before the gather
@@ -72,12 +79,14 @@ class SetAbstraction(torch.nn.Module):
 
     def __init__(self, num_centroids: int, radius: float, in_features: int,
                  mlps: Sequence[int], K: int = 32, pooling: str = "max",
-                 grouping_norm: bool = False):
+                 grouping_norm: bool = False, ball_select: str = "flat",
+                 filler: str = "repeat"):
         super().__init__()
         self.num_centroids = num_centroids
         self.pooling = pooling
         self.point_net = GroupedFirstLayer(in_features, mlps, radius, K,
-                                           normalize=grouping_norm)
+                                           normalize=grouping_norm,
+                                           ball_select=ball_select, filler=filler)
 
     def forward(self, coords, features, mask=None, generator=None):
         idx = ops.farthest_point_sampling(
@@ -85,6 +94,37 @@ class SetAbstraction(torch.nn.Module):
         centroids = ops.gather_rows(coords, idx)
         regions = self.point_net(centroids, coords, features, mask=mask)
         return centroids, ops.reduce(regions, self.pooling, dim=2)
+
+
+class SetAbstractionMSG(torch.nn.Module):
+    """Multi-scale grouping: one FPS, one ball query and region MLP per
+    (radius, K, widths) scale, each pooled, the scales concatenated.
+
+    forward(coords (B, N, 3), features (B, N, D)) ->
+    (centroids (B, C, 3), features (B, C, sum of the scales' last widths)).
+    The JAX block's `scale_{s}_0` and `scale_{s}` are `scales.{s}` here.
+    """
+
+    def __init__(self, num_centroids: int, radii: Sequence[float], Ks: Sequence[int],
+                 in_features: int, mlps: Sequence[Sequence[int]], pooling: str = "max",
+                 ball_select: str = "flat", filler: str = "repeat"):
+        super().__init__()
+        if not len(radii) == len(Ks) == len(mlps):
+            raise ValueError("radii, Ks and mlps need one entry per scale, got "
+                             f"{len(radii)}, {len(Ks)} and {len(mlps)}")
+        self.num_centroids = num_centroids
+        self.pooling = pooling
+        self.scales = torch.nn.ModuleList(
+            GroupedFirstLayer(in_features, widths, r, k, ball_select=ball_select, filler=filler)
+            for r, k, widths in zip(radii, Ks, mlps))
+
+    def forward(self, coords, features, mask=None, generator=None):
+        idx = ops.farthest_point_sampling(
+            coords, self.num_centroids, generator=generator, mask=mask)
+        centroids = ops.gather_rows(coords, idx)
+        pooled = [ops.reduce(scale(centroids, coords, features, mask=mask), self.pooling, dim=2)
+                  for scale in self.scales]
+        return centroids, torch.cat(pooled, dim=-1)
 
 
 class FeaturePropagation(torch.nn.Module):
@@ -103,6 +143,31 @@ class FeaturePropagation(torch.nn.Module):
         if skip is not None:
             upsampled = torch.cat([skip, upsampled], dim=-1)
         return self.point_net(upsampled)
+
+
+class InvResMLP(torch.nn.Module):
+    """PointNeXt inverted-residual block: ball-query regions around every
+    point itself (centroids == coords, relative coordinates divided by the
+    radius) -> one grouped layer -> pool -> point MLP (4m -> m) ->
+    residual add.
+
+    forward(coords (B, N, 3), features (B, N, m)) -> (coords, (B, N, m)).
+    The submodule names are the reference torch model's.
+    """
+
+    def __init__(self, radius: float, mlp_size: int, K: int, pooling: str = "max",
+                 ball_select: str = "flat", filler: str = "repeat"):
+        super().__init__()
+        self.pooling = pooling
+        self.neighbour_features_mlp = GroupedFirstLayer(
+            mlp_size, [mlp_size], radius, K, normalize=True,
+            ball_select=ball_select, filler=filler)
+        self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size])
+
+    def forward(self, coords, features, mask=None):
+        h = self.neighbour_features_mlp(coords, coords, features, mask=mask)  # (B, N, K, m)
+        h = self.point_features_mlp(ops.reduce(h, self.pooling, dim=2))
+        return coords, h + features
 
 
 class BNStats(BatchNorm):

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"fps": 0, "ball_query": 0, "three_nn": 0,
+LAUNCHES = {"fps": 0, "ball_query": 0, "ball_query_2l": 0, "three_nn": 0,
             "knn": 0, "knn_2l": 0, "gather_rows": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, stream
     "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth, stream
+    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # tgt, src, src_mask, out_d, out_i, B, N, M, stream
     "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, norms_scratch, mask, out, B, N, F, K, include_self, stream

@@ -8,9 +8,13 @@ fillers, the lowest-index points outside the ball in ascending index
 order. The JAX package picks the filler through a module-wide setting;
 here it is the `filler` argument.
 
-On a CUDA tensor the selection is one launch of `csrc/ballquery.cu`; on
-a CPU tensor the plain PyTorch version below runs. Both return the same
-raw (idx, in_ball); `ball_query` then applies the filler.
+On a CUDA tensor the selection is one launch of `csrc/ballquery.cu`: the
+flat kernel (`select="flat"`, the default) or the two-level kernel
+(`select="two_level"`, the counterpart of the JAX package's
+`use_select2l` setting; here a function argument), at every shape and
+with or without a mask. On a CPU tensor the plain PyTorch version below
+runs for both. All return the same raw (idx, in_ball); `ball_query` then
+applies the filler.
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ import numpy as np
 import torch
 
 from pointseg_torch.ops import _kernels
+from pointseg_torch.ops.knn import SELECTS, default_depth
 
 FILLERS = ("repeat", "index")
-MAX_K = 32  # the kernel keeps one list slot per warp lane
+MAX_K = 32  # the kernels keep one output slot per warp lane
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,6 +79,7 @@ def ball_query_raw(
     K: int,
     *,
     mask: torch.Tensor | None = None,
+    select: str = "flat",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selection without the filler step.
 
@@ -83,7 +89,8 @@ def ball_query_raw(
             outside the ball (or excluded by `mask`) in index order.
         in_ball: (B, C, K) bool, True on the member slots.
     """
-    B, C, _ = centroids.shape
+    if select not in SELECTS:
+        raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
     N = coords.shape[1]
     if not 1 <= K <= N:
         raise ValueError(f"ball query needs 1 <= K <= N, got K={K}, N={N}")
@@ -92,7 +99,8 @@ def ball_query_raw(
     if mask is not None:
         mask = mask.to(device=coords.device, dtype=torch.bool).contiguous()
     if _kernels.on_cuda(coords):
-        return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask)
+        return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask, select,
+                                default_depth(K))
     return ball_query_plain(centroids, coords, radius, K, mask=mask)
 
 
@@ -104,7 +112,8 @@ def ball_query_plain(
     *,
     mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch `ball_query_raw`: the JAX oracle's masked top-K.
+    """Plain PyTorch `ball_query_raw`, the plain version of both kernels:
+    the JAX oracle's masked top-K.
 
     Points outside the ball become +inf and the K smallest are taken by
     a stable sort, so equal distances (and the +inf fillers) keep index
@@ -120,11 +129,15 @@ def ball_query_plain(
     return idx[..., :K].to(torch.int32), values[..., :K] < float("inf")
 
 
-def _ball_query_cuda(centroids, coords, r2, K, mask):
+def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth):
+    """One launch of the flat or the two-level kernel; `depth` is the
+    two-level kernel's stack depth (4 or 5; 1 forces its refills)."""
     B, C, _ = centroids.shape
     N = coords.shape[1]
     if K > MAX_K:
         raise ValueError(f"the CUDA ball query takes K <= {MAX_K}, got {K}")
+    if depth not in (1, 4, 5):
+        raise ValueError(f"the two-level ball query is built for depth 1, 4 and 5, got {depth}")
     _kernels.check(centroids, "centroids", torch.float32, (B, C, 3))
     _kernels.check(coords, "coords", torch.float32, (B, N, 3))
     if mask is not None:
@@ -135,11 +148,12 @@ def _ball_query_cuda(centroids, coords, r2, K, mask):
     in_ball = torch.empty((B, C, K), dtype=torch.bool, device=coords.device)
     if B == 0 or C == 0:
         return idx, in_ball
-    _kernels.launch(
-        "ball_query", "pointseg_ball_query", coords.device,
-        _kernels.ptr(centroids), _kernels.ptr(coords), _kernels.ptr(mask),
-        _kernels.ptr(idx), _kernels.ptr(in_ball), B, C, N, K, r2,
-    )
+    args = (_kernels.ptr(centroids), _kernels.ptr(coords), _kernels.ptr(mask),
+            _kernels.ptr(idx), _kernels.ptr(in_ball), B, C, N, K, r2)
+    if select == "flat":
+        _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args)
+    else:
+        _kernels.launch("ball_query_2l", "pointseg_ball_query_2l", coords.device, *args, depth)
     return idx, in_ball
 
 
@@ -151,6 +165,7 @@ def ball_query(
     *,
     mask: torch.Tensor | None = None,
     filler: str = "repeat",
+    select: str = "flat",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """For each centroid, selects the K nearest points within `radius`.
 
@@ -161,6 +176,7 @@ def ball_query(
         K: neighbours per ball.
         mask: optional (B, N) bool; False points are never members.
         filler: 'repeat' or 'index' (module docstring).
+        select: 'flat' or 'two_level', the CUDA kernel to launch.
 
     Returns:
         idx: (B, C, K) int32 indices into N.
@@ -168,7 +184,7 @@ def ball_query(
     """
     if filler not in FILLERS:
         raise ValueError(f"filler must be one of {FILLERS}, got {filler!r}")
-    idx, in_ball = ball_query_raw(centroids, coords, radius, K, mask=mask)
+    idx, in_ball = ball_query_raw(centroids, coords, radius, K, mask=mask, select=select)
     if filler == "repeat":
         # slot 0 is the nearest member whenever the ball has one
         idx = torch.where(in_ball, idx, idx[..., :1])
@@ -185,6 +201,7 @@ def group(
     *,
     mask: torch.Tensor | None = None,
     filler: str = "repeat",
+    select: str = "flat",
 ) -> torch.Tensor:
     """Gathers each ball's coordinates (relative to the centroid, divided
     by the radius if `normalize`) and features.
@@ -194,7 +211,7 @@ def group(
     """
     from pointseg_torch.ops.gather import gather_rows
 
-    idx, _ = ball_query(centroids, coords, radius, K, mask=mask, filler=filler)
+    idx, _ = ball_query(centroids, coords, radius, K, mask=mask, filler=filler, select=select)
     grouped_coords = gather_rows(coords, idx) - centroids[:, :, None, :]
     if normalize:
         grouped_coords = grouped_coords / radius

@@ -32,10 +32,10 @@ PLAIN_BLOCK_BYTES = 64 << 20  # size of one (B, rows, N) score block
 
 
 def default_depth(k: int) -> int:
-    """Per-lane stack depth of the two-level kernel at which refills are
-    rare (as `pointseg/ops/pallas/select2l.py::default_depth` from k = 4
-    up; below, the deeper stack costs nothing here). The result never
-    depends on it."""
+    """Per-lane stack depth of the two-level kernels (kNN and ball
+    query) at which refills are rare (as
+    `pointseg/ops/pallas/select2l.py::default_depth` from k = 4 up; below,
+    the deeper stack costs nothing here). The result never depends on it."""
     return 4 if k <= 20 else 5
 
 

@@ -17,7 +17,12 @@ import torch
 
 from pointseg_torch.models import create_model
 from pointseg_torch.ops import _kernels
-from pointseg_torch.ops.ballquery import ball_query_plain, ball_query_raw
+from pointseg_torch.ops.ballquery import (
+    _ball_query_cuda,
+    _radius_sq,
+    ball_query_plain,
+    ball_query_raw,
+)
 from pointseg_torch.ops.fps import farthest_point_sampling, farthest_point_sampling_plain
 from pointseg_torch.ops.gather import gather_rows, gather_rows_plain
 from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
@@ -85,6 +90,95 @@ def test_ball_query_kernel_mask_matches_plain(device):
     want_idx, want_in = ball_query_plain(pts[:, :200], pts, 0.25, 16, mask=mask)
     torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
     torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+
+
+def _assert_ball_query_2l(cents, pts, r, K, depth=None, mask=None):
+    """The two-level kernel (one launch, nothing else) against the plain
+    version and the flat kernel: indices and `in_ball` equal."""
+    before = dict(_kernels.LAUNCHES)
+    if depth is None:
+        idx, in_ball = ball_query_raw(cents, pts, r, K, mask=mask, select="two_level")
+    else:
+        idx, in_ball = _ball_query_cuda(cents.contiguous(), pts, _radius_sq(r), K, mask,
+                                        "two_level", depth)
+    assert _kernels.LAUNCHES["ball_query_2l"] == before["ball_query_2l"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    want_idx, want_in = ball_query_plain(cents, pts, r, K, mask=mask)
+    torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+    torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+    flat_idx, flat_in = ball_query_raw(cents, pts, r, K, mask=mask)
+    torch.testing.assert_close(idx, flat_idx, rtol=0, atol=0)
+    torch.testing.assert_close(in_ball, flat_in, rtol=0, atol=0)
+    return in_ball
+
+
+@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("N,r,K", [(N, r, K) for N, r in ((16, 0.8), (64, 0.8), (100, 0.3),
+                                                          (4096, 0.1))
+                                   for K in (1, 16, 32) if K <= N])
+def test_ball_query_two_level_kernel_matches_plain_and_flat(device, depth, N, r, K):
+    """Depth 1 refills a lane after every pick; N = 16 leaves half the
+    lanes without a column and takes every point at K = 16; N = 100 is
+    no multiple of 32; the tail repeats the head (exact ties)."""
+    pts = _cloud(30, 4, N, device, dup_from=N - N // 5)
+    C = min(N, 300)
+    in_ball = _assert_ball_query_2l(pts[:, :C].contiguous(), pts, r, K, depth=depth)
+    assert bool(in_ball[..., 0].all())  # every centroid is in its own ball
+
+
+@pytest.mark.parametrize("B,C,N,r,K", [(8, 1024, 4096, 0.1, 32), (8, 1024, 1024, 0.1, 32),
+                                       (8, 1024, 4096, 0.05, 16), (8, 16, 16, 0.8, 16),
+                                       (8, 16, 64, 0.4, 16), (3, 1000, 3000, 0.2, 32),
+                                       (2, 1024, 16384, 0.1, 32), (1, 512, 65536, 0.1, 32),
+                                       (2, 100, 700, 0.3, 7)])
+def test_ball_query_two_level_kernel_at_the_models_shapes(device, B, C, N, r, K):
+    """PointNeXt's and MSG's stage shapes (centroids == coords for the
+    InvResMLP ones), the ragged repeated-points shape and the evaluation
+    buckets, at the depth the wrapper picks."""
+    pts = _cloud(31, B, N, device, dup_from=N - N // 5)
+    _assert_ball_query_2l(pts[:, :C].contiguous(), pts, r, K)
+
+
+@pytest.mark.parametrize("depth", [1, 4, 5])
+def test_ball_query_two_level_kernel_mask_and_empty_balls(device, depth):
+    """Masked points are never members and still fill in index order; a
+    fully masked cloud and a radius of 0 around centroids off the cloud
+    give balls with no member at all."""
+    pts = _cloud(32, 3, 900, device)
+    mask = torch.rand((3, 900), generator=torch.Generator().manual_seed(5)).to(device) > 0.5
+    mask[2] = False
+    in_ball = _assert_ball_query_2l(pts[:, :200].contiguous(), pts, 0.25, 16, depth=depth,
+                                    mask=mask)
+    assert not bool(in_ball[2].any()) and bool(in_ball[:2].any())
+    away = (pts[:, :50] + 10.0).contiguous()
+    in_ball = _assert_ball_query_2l(away, pts, 0.0, 32, depth=depth)
+    assert not bool(in_ball.any())
+
+
+@pytest.mark.parametrize("select,counter", [("flat", "ball_query"),
+                                            ("two_level", "ball_query_2l")])
+def test_ball_query_kernels_treat_nan_as_outside(device, select, counter):
+    """A point with a NaN coordinate is in no ball (d <= r² is false), as
+    in the plain version, and a NaN centroid's ball is empty."""
+    pts = _cloud(33, 2, 500, device)
+    pts[0, 7, 1] = float("nan")
+    pts[1, 499] = float("nan")
+    cents = pts[:, :100].contiguous()
+    before = _kernels.LAUNCHES[counter]
+    idx, in_ball = ball_query_raw(cents, pts, 0.3, 32, select=select)
+    assert _kernels.LAUNCHES[counter] == before + 1
+    want_idx, want_in = ball_query_plain(cents, pts, 0.3, 32)
+    torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+    torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+    assert not bool(in_ball[0, 7].any())
+    assert not bool(((idx[0] == 7) & in_ball[0]).any())
+
+
+def test_ball_query_two_level_kernel_takes_distances_above_1e7(device):
+    """No finite sentinel: a cloud 5 km across (d² up to 7.5e7) orders its
+    members by distance like any other."""
+    pts = _cloud(34, 2, 600, device) * 5000.0
+    _assert_ball_query_2l(pts[:, :64].contiguous(), pts, 9000.0, 32)
 
 
 @pytest.mark.parametrize("B,N,M", [(8, 4096, 1024), (8, 64, 16), (3, 3000, 1000),
@@ -248,11 +342,15 @@ def test_dgcnn_on_the_card_matches_the_cpu(device, name, kwargs):
         assert float(moved.float().mean()) < 0.02
 
 
-def test_model_on_the_card_matches_the_cpu(device):
+@pytest.mark.parametrize("name,kwargs", [
+    ("PointNet++", {}), ("PointNet++", {"ball_select": "two_level"}),
+    ("PointNeXt", {"ball_select": "two_level"}), ("PointNeXt-B", {"filler": "index"}),
+    ("PointNet++MSG", {"ball_select": "two_level", "filler": "index"})])
+def test_model_on_the_card_matches_the_cpu(device, name, kwargs):
     """Eval logits through the kernels match the plain versions' on the
     CPU with the same weights (matmul and reduction order differ)."""
     torch.manual_seed(0)
-    model = create_model("PointNet++").eval()
+    model = create_model(name, **kwargs).eval()
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.random((2, 2048, 9)).astype(np.float32))
     with torch.no_grad():

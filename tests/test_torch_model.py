@@ -122,7 +122,7 @@ def test_import_refuses_leftover_and_missing_leaves(jax_variables):
     with pytest.raises(KeyError):
         from_jax_variables("PointNet++", missing)
     with pytest.raises(NotImplementedError):
-        from_jax_variables("PointNeXt", jax_variables)
+        from_jax_variables("PointNet", jax_variables)
 
 
 def test_eval_logits_match_jax(batch, jax_variables):

@@ -29,6 +29,7 @@ from pointseg.ops.pallas import (
     farthest_point_sampling_pallas,
     three_nn_pallas,
 )
+from pointseg.ops.pallas.ballquery import ball_query_pallas_2l
 from pointseg_torch import ops as tops
 
 torch.set_num_threads(2)
@@ -179,6 +180,77 @@ def test_ball_query_rejects_bad_filler_and_k():
         tops.ball_query(pts, pts, 0.2, 4, filler="nearest")
     with pytest.raises(ValueError):
         tops.ball_query(pts, pts, 0.2, 21)
+    with pytest.raises(ValueError, match="select"):
+        tops.ball_query(pts, pts, 0.2, 4, select="strided")
+
+
+# (seed, C, radius, K): N = 256 in two 128-column segments, what the Pallas
+# two-level kernel needs; sparse balls (fillers in most rows), dense balls
+# and centroids == coords (every ball holds its own centre at d² = 0)
+BQ2L_CASES = [(40, 32, 0.15, 8), (41, 64, 0.3, 16), (42, 16, 0.6, 32), (43, 256, 0.1, 32)]
+
+
+@pytest.mark.parametrize("seed,C,r,K", BQ2L_CASES)
+def test_ball_query_two_level_matches_pallas_2l_and_flat(seed, C, r, K):
+    """`select="two_level"` against the Pallas two-level kernel in
+    interpret mode and against `select="flat"`: indices and `in_ball`
+    exact, raw and under both fillers."""
+    pts = _cloud(seed, 2, 256)
+    cents = pts[:, :C]
+    with pltpu.force_tpu_interpret_mode():
+        p_idx, p_in = ball_query_pallas_2l(jnp.asarray(cents), jnp.asarray(pts), r, K, seg=128)
+    p_idx, p_in = np.asarray(p_idx), np.asarray(p_in)
+    idx, in_ball = tops.ball_query_raw(_t(cents), _t(pts), r, K, select="two_level")
+    flat_idx, flat_in = tops.ball_query_raw(_t(cents), _t(pts), r, K, select="flat")
+    assert 0 < in_ball.float().mean() < 1  # both members and fillers occur
+    np.testing.assert_array_equal(idx.numpy(), p_idx)
+    np.testing.assert_array_equal(in_ball.numpy(), p_in)
+    np.testing.assert_array_equal(idx.numpy(), flat_idx.numpy())
+    np.testing.assert_array_equal(in_ball.numpy(), flat_in.numpy())
+    for filler in ("repeat", "index"):
+        want = np.where(p_in, p_idx, p_idx[..., :1]) if filler == "repeat" else p_idx
+        for select in ("two_level", "flat"):
+            got, got_in = tops.ball_query(_t(cents), _t(pts), r, K, filler=filler, select=select)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{filler} {select}")
+            np.testing.assert_array_equal(got_in.numpy(), p_in)
+
+
+@pytest.mark.parametrize("filler", ["repeat", "index"])
+def test_ball_query_two_level_mask_matches_jax_and_flat(filler):
+    """With a mask (the JAX package sends masked queries to its oracle):
+    masked points are never members and still serve as index-ordered
+    fillers; a fully masked cloud gives fillers only."""
+    pts = _cloud(44, 3, 256)
+    cents = pts[:, :48]
+    mask = np.random.default_rng(45).random((3, 256)) > 0.4
+    mask[2] = False
+    set_filler_mode(filler)
+    try:
+        want_idx, want_in = jops.ball_query(
+            jnp.asarray(cents), jnp.asarray(pts), 0.25, 16, mask=jnp.asarray(mask))
+    finally:
+        set_filler_mode(None)
+    assert not np.asarray(want_in)[2].any()
+    for select in ("two_level", "flat"):
+        idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.25, 16, mask=_t(mask),
+                                       filler=filler, select=select)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx), err_msg=select)
+        np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in), err_msg=select)
+
+
+def test_group_takes_select_and_filler():
+    rng = np.random.default_rng(46)
+    pts = _cloud(46, 2, 150)
+    feats = rng.normal(size=(2, 150, 5)).astype(np.float32)
+    set_filler_mode("index")
+    try:
+        want = np.asarray(jops.group(jnp.asarray(pts[:, :30]), jnp.asarray(pts),
+                                     jnp.asarray(feats), 0.2, 8))
+    finally:
+        set_filler_mode(None)
+    got = tops.group(_t(pts[:, :30]), _t(pts), _t(feats), 0.2, 8, filler="index",
+                     select="two_level")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
 
 
 @pytest.mark.parametrize("normalize", [False, True])

@@ -64,16 +64,22 @@ def test_cpu_tensors_never_count_as_launches():
     dgcnn = create_model("DGCNN", k=8, emb_dims=32, knn_select="two_level").train()
     dgcnn(x[:, :256]).sum().backward()
     ops.gather_rows(x, torch.zeros((2, 5), dtype=torch.int32))
+    for name in ("PointNeXt", "PointNet++MSG"):
+        new = create_model(name, ball_select="two_level").train()
+        new(x, generator=torch.Generator().manual_seed(0)).sum().backward()
+    ops.ball_query(pts[:, :8], pts, 0.2, 8, select="two_level")
     assert _kernels.LAUNCHES == before
-    assert set(before) == {"fps", "ball_query", "three_nn", "knn", "knn_2l", "gather_rows"}
+    assert set(before) == {"fps", "ball_query", "ball_query_2l", "three_nn", "knn", "knn_2l",
+                           "gather_rows"}
 
 
 def test_other_devices_are_refused():
     pts = torch.empty((1, 64, 3), device="meta")
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.farthest_point_sampling(pts, 8)
-    with pytest.raises(ValueError, match="cpu.*cuda"):
-        ops.ball_query(pts[:, :8], pts, 0.2, 8)
+    for select in ("flat", "two_level"):
+        with pytest.raises(ValueError, match="cpu.*cuda"):
+            ops.ball_query(pts[:, :8], pts, 0.2, 8, select=select)
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.three_nn(pts, pts[:, :8])
     with pytest.raises(ValueError, match="cpu.*cuda"):
@@ -101,6 +107,20 @@ def test_kernel_build_targets_hopper_and_sources_ship():
     assert "csrc/*.cu" in meta["tool"]["setuptools"]["package-data"]["pointseg_torch"]
 
 
+def _cuda_path(module: str) -> str:
+    """Source of `ops/<module>`'s `_..._cuda` function, the code a CUDA
+    tensor runs."""
+    import re
+
+    text = (REPO / "pointseg_torch" / "ops" / module).read_text()
+    (body,) = re.findall(r"\ndef _\w+_cuda\(.*?(?=\n(?:def|class) |\Z)", text, flags=re.S)
+    return body
+
+
+LIBRARY_IN_SOURCE = r"cublas|cutlass|thrust|cub::|torch/"
+LIBRARY_IN_WRAPPER = r"torch\.(topk|sort|cdist|matmul|bmm|gather|index_select|compile)|_plain\("
+
+
 def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
     """The flat and the two-level kNN are distinct `__global__` kernels,
     the gather one; none of the sources reaches for a library."""
@@ -112,8 +132,23 @@ def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
     assert {"knn_flat_kernel", "knn_two_level_kernel"} <= set(names)
     assert re.findall(r"__global__ void (\w+)", gather) == ["gather_rows_kernel"]
     for text in (knn, gather):
-        assert not re.search(r"cublas|cutlass|thrust|cub::|torch/", text)
+        assert not re.search(LIBRARY_IN_SOURCE, text)
     for name in ("knn.py", "gather.py"):
-        cuda_path = (REPO / "pointseg_torch" / "ops" / name).read_text().split("_cuda(")[1]
-        assert not re.search(r"torch\.(topk|cdist|matmul|bmm|gather|index_select|compile)",
-                             cuda_path.split("\ndef ")[0]), name
+        assert not re.search(LIBRARY_IN_WRAPPER, _cuda_path(name)), name
+
+
+def test_ball_query_source_holds_two_selection_kernels():
+    """The flat and the two-level ball query are distinct `__global__`
+    kernels with an entry point each; the source reaches for no library
+    and the wrapper's CUDA path for no PyTorch selection or plain version."""
+    import re
+
+    source = (_kernels.CSRC / "ballquery.cu").read_text()
+    names = re.findall(r"__global__ void (\w+)", source)
+    assert names == ["ball_query_kernel", "ball_query_two_level_kernel"]
+    assert not re.search(LIBRARY_IN_SOURCE, source)
+    for depth in (1, 4, 5):  # the depths the wrapper may ask for
+        assert f"ball_query_two_level_kernel<{depth}>" in source
+    path = _cuda_path("ballquery.py")
+    assert not re.search(LIBRARY_IN_WRAPPER, path)
+    assert '"pointseg_ball_query"' in path and '"pointseg_ball_query_2l"' in path

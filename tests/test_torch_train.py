@@ -171,4 +171,4 @@ def test_cli_refuses_flags_not_yet_ported(flags, tmp_path):
 
 def test_cli_refuses_models_not_yet_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["train", "PointNeXt", "--device", "cpu", "--log-dir", str(tmp_path)])
+        cli.main(["train", "PointNet", "--device", "cpu", "--log-dir", str(tmp_path)])
