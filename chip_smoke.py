@@ -39,13 +39,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward (`index_add_`) equal to autograd of the plain version to
      rtol/atol 1e-4 (both add with atomics). Its `max_abs_err` is the
      larger of the forward's (0 when bit-equal) and the backward's.
+   - the flat row gather (the device store's sampler) bit-equal to
+     `index_select` for rows of 1, 16 and 36 bytes (uint8, int32 x 4,
+     float32 x 9) and an odd width (float32 x 35), at 8 x 4096 rows and
+     at a count that divides nothing, on a table of the synthetic
+     dataset's size (240,000 rows) and at the size of all of S3DIS,
+     273,000,000 rows made on the card from the seed (packed 4.4 GB,
+     then nine floats 9.8 GB, then labels 0.27 GB, each freed before the
+     next), with indices that include row 0 and the last row. Every timed
+     launch gets fresh random rows, as every training step does. Its
+     bound counts the 32-byte sectors these rows touch, not their bytes.
    An index may differ from the plain version's only where the float64
    squared distances of the two picks differ by less than 1e-6 (counted
    and printed as tie flips). Each version is timed with CUDA events, in
    the order plain, kernel, kernel, plain; then one PyTorch library
    formulation of the same function is timed as a yardstick (bmm + topk
-   for 3-NN and kNN, `torch.gather` for the gather; FPS and the ball
-   queries have none). The port never calls these. Each kernel's bound is the
+   for 3-NN and kNN, `torch.gather` and `index_select` for the gathers;
+   FPS and the ball queries have none). The port never calls these. Each kernel's bound is the
    least time the card could take: the larger of its bytes (inputs read
    once, outputs written once) over 3.35 TB/s and its float32
    operations over 67 TFLOP/s.
@@ -70,6 +80,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    device time per step of each of the port's own kernels; for
    DeepGraphCnn also the step time and peak memory with
    `EdgeConv.remat`, which gathers again in the backward pass.
+   Then the device-resident store, through the same CLI:
+   `train PointNet++ --device-data --device-store flat` (mode must be
+   "device", two flat-gather launches a step), twice
+   `--device-store compact --pack-cache DIR` (mode "compact", one launch
+   a step, the second start a cache hit that loads no raw block),
+   `--device-store flat --scan-steps 4` (the same epoch loss as K = 1 to
+   1e-1 relative, as the compact store's: a coarse check, because the
+   runs see the same batches but the atomic adds of `index_add_` make two
+   runs of one epoch drift apart, at Adam's 1e-3 by 2e-2 to 6e-2 in the
+   twelfth loss on an H100), `--accum-steps 2` on the host loader (6
+   updates from 12 batches) and `train DeepGraphCnn --device-data` (kNN,
+   both gathers). The first batch of the two stores from one seed must be
+   bit-identical, and `scan_epoch(4)` must see the same batches as
+   iterating the loader. Its losses are compared at a learning rate of
+   1e-5, where that drift stays near 1e-4 over the epoch: the first loss
+   to 1e-6, each later one to 1e-3 or, where that is more, to four times
+   the largest relative difference that two iterated runs of the same
+   epoch have shown up to that step (measured in the run and printed).
+   Printed, with no claim: the store's upload time and bytes,
+   ms per sampled batch of both stores, and PointNet++'s step time and
+   device-busy share fed by the host loader and by the device store, in
+   turns within this one run.
 5. Output: each trained model's eval logits on the card against the same
    weights on the CPU (plain versions), rtol/atol 1e-4 (PointNet++,
    PointNeXt, PointNet++MSG). For DGCNN that
@@ -115,7 +147,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "knn": ("pointseg_torch/csrc/knn.cu", "pointseg/ops/pallas/knn.py:142"),
     "knn_2l": ("pointseg_torch/csrc/knn.cu", "pointseg/ops/pallas/knn.py:101"),
     "gather_rows": ("pointseg_torch/csrc/gather.cu", "pointseg/ops/pallas/gather.py:111"),
+    "gather_rows_flat": ("pointseg_torch/csrc/gather.cu", "pointseg/ops/pallas/gather.py:174"),
 }
+S3DIS_ROWS = 273_000_000  # points in all of S3DIS
+SYNTHETIC_ROWS = 240_000  # points in the --synthetic dataset
+SAMPLED_ROWS = 8 * 4096  # rows one training batch gathers
 
 
 def phase(name: str) -> None:
@@ -535,6 +571,110 @@ def gather_kernels(device, record: Record) -> None:
               f"max |diff| {grad_err:.3g}")
 
 
+def sector_bytes(idx: torch.Tensor, row_bytes: int, table_bytes: int) -> int:
+    """Bytes of the distinct 32-byte sectors that the rows `idx` of a
+    table of `row_bytes`-wide rows touch: what these indices make the
+    card read, however short the rows are."""
+    first = idx * row_bytes // 32
+    last = (idx * row_bytes + row_bytes - 1) // 32
+    spans = [first + k for k in range((row_bytes + 30) // 32 + 1)]
+    touched = torch.cat([torch.minimum(s, last) for s in spans])
+    return min(table_bytes, 32 * int(torch.unique(touched).numel()))
+
+
+def gather_flat_kernels(device, record: Record, seed: int) -> None:
+    """The flat gather at the device store's tables, small and full size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.gather import gather_rows_flat, gather_rows_flat_plain
+
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def make_table(rows, width, dtype):
+        shape = (rows,) if width is None else (rows, width)
+        if dtype == torch.float32:
+            return torch.rand(shape, device=device, generator=gen)
+        return torch.randint(0, 250 if dtype == torch.uint8 else 2**31 - 1, shape,
+                             device=device, generator=gen, dtype=dtype)
+
+    def case(table, what, mrows, per_step, reps=20):
+        R, row_bytes = table.shape[0], table[0].numel() * table.element_size()
+
+        def fresh():  # every training step gathers rows it has not seen
+            idx = torch.randint(0, R, (mrows,), device=device, generator=gen)
+            idx[0], idx[-1] = 0, R - 1
+            return idx
+
+        idx = fresh()
+        before = dict(_kernels.LAUNCHES)
+        got = gather_rows_flat(table, idx)
+        if (_kernels.LAUNCHES["gather_rows_flat"] != before["gather_rows_flat"] + 1
+                or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+            raise AssertionError(f"gather_rows_flat {what}: not exactly one launch of its kernel")
+        want = gather_rows_flat_plain(table, idx)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"gather_rows_flat {what}: rows differ from index_select")
+        if not torch.equal(gather_rows_flat(table, idx.int()), want):
+            raise AssertionError(f"gather_rows_flat {what}: int32 indices give other rows")
+        nbytes = (sector_bytes(idx, row_bytes, table.numel() * table.element_size())
+                  + 8 * mrows + mrows * row_bytes)
+        del got, want
+
+        def over_fresh_rows(fn):
+            rows = [fresh() for _ in range(reps)]
+            torch.cuda.synchronize()
+            it = iter(rows)
+            return cuda_ms(lambda: fn(table, next(it)), reps)
+
+        p1 = over_fresh_rows(gather_rows_flat_plain)
+        k1 = over_fresh_rows(gather_rows_flat)
+        k2 = over_fresh_rows(gather_rows_flat)
+        p2 = over_fresh_rows(gather_rows_flat_plain)
+        # index_select alone: what the plain version calls after its checks
+        lib_ms = over_fresh_rows(lambda t, i: torch.index_select(t, 0, i))
+        us = kernel_device_us(lambda: gather_rows_flat(table, fresh()), "gather_rows_flat_kernel")
+        # whatever kernels `index_select` runs (their names change with the
+        # row width and the PyTorch version): all device time of the calls
+        rows = [fresh() for _ in range(10)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for r in rows:
+                torch.index_select(table, 0, r)
+            torch.cuda.synchronize()
+        lib_us = sum(device_time_us(e) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / len(rows)
+        record.note("gather_rows_flat", (R, row_bytes, mrows, what), (k1 + k2) / 2,
+                    (p1 + p2) / 2, lib_ms, 0.0, nbytes, 0, 0.0, per_step)
+        print(f"{'':11s} device time a launch (profiler): kernel {us:.1f} us, index_select's "
+              f"kernels {lib_us:.1f} us; sectors {nbytes - 8 * mrows - mrows * row_bytes} B, "
+              f"rows {mrows * row_bytes} B")
+
+    odd = 12_347  # rows to gather: a prime
+    for what, width, dtype, per_step in (("labels", None, torch.uint8, 1),
+                                         ("packed", 4, torch.int32, 0),
+                                         ("points", 9, torch.float32, 1),
+                                         ("odd width", 35, torch.float32, 0)):
+        table = make_table(SYNTHETIC_ROWS, width, dtype)
+        case(table, what, SAMPLED_ROWS, per_step)
+        case(table, what, odd, 0)
+    # all of S3DIS: each table freed before the next is made
+    for what, width, dtype in (("packed", 4, torch.int32), ("points", 9, torch.float32),
+                               ("labels", None, torch.uint8)):
+        t0 = time.time()
+        table = make_table(S3DIS_ROWS, width, dtype)
+        torch.cuda.synchronize()
+        print(f"{'':11s} {what} table of {S3DIS_ROWS} rows, "
+              f"{table.numel() * table.element_size() / 1e9:.2f} GB, made in "
+              f"{time.time() - t0:.2f} s")
+        case(table, f"{what}, all of S3DIS", SAMPLED_ROWS, 0)
+        case(table, f"{what}, all of S3DIS", odd, 0, reps=5)
+        del table
+        torch.cuda.empty_cache()
+
+
 def zero_launches() -> None:
     from pointseg_torch.ops import _kernels
 
@@ -595,21 +735,26 @@ def steady_state(state, batch, label: str) -> dict:
             "points_per_s": points / (step_ms / 1e3), "peak_bytes": peak}
 
 
-def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...]):
-    """One epoch and its evaluation through the CLI; returns (state,
-    launches). Raises unless every kernel in `needed` was launched."""
+def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
+                      flags: tuple[str, ...] = (), mode: str = "host loader"):
+    """One epoch and its evaluation through the CLI, with `flags` added;
+    returns (state, launches, records). Raises unless every kernel in
+    `needed` was launched and the train split came by way of `mode`."""
     from pointseg_torch import cli
 
     argv = ["train", model_name, "--synthetic", "--data-dir", f"{workdir}/data",
             "--epochs", "1", "--train-batch-size", "8", "--train-sampling", "4096",
-            "--device", "cuda", "--log-dir", f"{workdir}/logs"]
+            "--device", "cuda", "--log-dir", f"{workdir}/logs", *flags]
     args = cli.build_parser().parse_args(argv)
     zero_launches()
     t0 = time.time()
     state, records = cli.train_from_args(args)
     launches = read_launches()
-    print(f"{model_name}: {time.time() - t0:.1f} s for one epoch ({state.step} steps) and its "
-          f"evaluation; launches {launches}")
+    print(f"{model_name} {' '.join(flags)}: {time.time() - t0:.1f} s for one epoch ({state.step} "
+          f"steps) and its evaluation; launches {launches}")
+    if records["config"]["data_mode"] != mode:
+        raise AssertionError(f"train {model_name} {flags}: the train split came by way of "
+                             f"{records['config']['data_mode']!r}, not {mode!r}")
     if not all(math.isfinite(v) for v in records["train_loss"] + records["val_loss"]):
         raise AssertionError(f"non-finite loss: {records}")
     off_card = [k for k, p in state.model.named_parameters() if p.device.type != "cuda"]
@@ -618,7 +763,7 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...]):
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by train {model_name}: {missing}")
-    return state, launches
+    return state, launches, records
 
 
 def two_level_against_flat(model_name: str, option: str, flat: str, two_level: str,
@@ -712,15 +857,17 @@ def trainer_phase(device, workdir: str):
     from pointseg_torch.data.datasets import create_block_dataloaders
     from pointseg_torch.train.loop import to_device
 
-    pp_state, pp_launches = train_through_cli("PointNet++", workdir,
-                                              ("fps", "ball_query", "three_nn", "gather_rows"))
-    if pp_launches["knn"] or pp_launches["knn_2l"] or pp_launches["ball_query_2l"]:
+    pp_state, pp_launches, _ = train_through_cli(
+        "PointNet++", workdir, ("fps", "ball_query", "three_nn", "gather_rows"))
+    if (pp_launches["knn"] or pp_launches["knn_2l"] or pp_launches["ball_query_2l"]
+            or pp_launches["gather_rows_flat"]):
         raise AssertionError(f"PointNet++ launched kernels off its path: {pp_launches}")
     train_loader, _ = create_block_dataloaders(f"{workdir}/data", {6}, 8, 2, 4096, seed=1)
     batch = to_device(next(iter(train_loader)), device)
     pp_perf = steady_state(pp_state, batch, "PointNet++")
 
-    dg_state, dg_launches = train_through_cli("DeepGraphCnn", workdir, ("knn", "gather_rows"))
+    dg_state, dg_launches, _ = train_through_cli("DeepGraphCnn", workdir,
+                                                 ("knn", "gather_rows"))
     steps = dg_state.step
     if dg_launches["knn"] < 4 * steps or dg_launches["gather_rows"] < 4 * steps:
         raise AssertionError(f"DeepGraphCnn: {steps} steps need at least {4 * steps} kNN and "
@@ -736,8 +883,8 @@ def trainer_phase(device, workdir: str):
     # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
     bq_2l_launches = {}
     for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
-        state, got = train_through_cli(name, workdir,
-                                       ("fps", "ball_query", "three_nn", "gather_rows"))
+        state, got, _ = train_through_cli(name, workdir,
+                                          ("fps", "ball_query", "three_nn", "gather_rows"))
         forwards = got["fps"] // per_forward[0]
         want = {"fps": per_forward[0] * forwards, "ball_query": per_forward[1] * forwards,
                 "three_nn": per_forward[2] * forwards, "ball_query_2l": 0, "knn": 0, "knn_2l": 0}
@@ -750,13 +897,201 @@ def trainer_phase(device, workdir: str):
             device)
         states[name] = (state, steady_state(state, batch, name))
     few_steps("PointNeXt-L", batch, device)
+    flat_launches = device_store_phase(device, workdir, pp_state)
 
     launches = {"fps": pp_launches["fps"], "ball_query": pp_launches["ball_query"],
                 "ball_query_2l": bq_2l_launches["PointNeXt"]["ball_query_2l"],
                 "three_nn": pp_launches["three_nn"], "knn": dg_launches["knn"],
                 "knn_2l": knn_2l_launches["knn_2l"],
-                "gather_rows": dg_launches["gather_rows"]}
+                "gather_rows": dg_launches["gather_rows"],
+                "gather_rows_flat": flat_launches}
     return states, launches, batch
+
+
+def fresh_state(weights: dict, device, learning_rate: float = 1e-3):
+    """PointNet++ from `weights`, with the FPS and dropout seeds reset."""
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    model = create_model("PointNet++")
+    model.load_state_dict(weights)
+    torch.manual_seed(1234)
+    return create_train_state(model, device=device, learning_rate=learning_rate, seed=0)
+
+
+def device_store_phase(device, workdir: str, pp_state) -> int:
+    """The device-resident store through the CLI and by itself; returns
+    the flat-gather launches of the `--device-store flat` epoch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointseg_torch.data import device as dev
+    from pointseg_torch.data.datasets import BlockDataset, create_block_dataloaders
+    from pointseg_torch.train.loop import to_device
+    from pointseg_torch.train.state import train_step
+
+    pointnetpp = ("fps", "ball_query", "three_nn", "gather_rows", "gather_rows_flat")
+    flat_state, flat_launches, flat_rec = train_through_cli(
+        "PointNet++", workdir, pointnetpp, ("--device-data", "--device-store", "flat"), "device")
+    steps = flat_state.step
+    if flat_launches["gather_rows_flat"] != 2 * steps:
+        raise AssertionError(f"flat store: {steps} steps must launch the flat gather "
+                             f"{2 * steps} times, got {flat_launches}")
+    cache = ("--device-data", "--device-store", "compact", "--pack-cache", f"{workdir}/pack")
+    _, packed_launches, first = train_through_cli("PointNet++", workdir, pointnetpp, cache,
+                                                  "compact")
+    raw_loader = dev._load_raw_blocks
+
+    def no_raw_load(dataset, num_workers):
+        raise AssertionError("the second start with --pack-cache loaded raw blocks: no cache hit")
+
+    dev._load_raw_blocks = no_raw_load
+    try:
+        _, launches, second = train_through_cli("PointNet++", workdir, pointnetpp, cache,
+                                                "compact")
+    finally:
+        dev._load_raw_blocks = raw_loader
+    if packed_launches["gather_rows_flat"] != steps or launches["gather_rows_flat"] != steps:
+        raise AssertionError(f"compact store: {steps} steps must launch the flat gather "
+                             f"{steps} times, got {packed_launches} and, from the cache, "
+                             f"{launches}")
+    _, launches, scanned = train_through_cli(
+        "PointNet++", workdir, pointnetpp,
+        ("--device-data", "--device-store", "flat", "--scan-steps", "4"), "device")
+    if launches["gather_rows_flat"] != 2 * steps:
+        raise AssertionError(f"--scan-steps 4: {launches}")
+    # one seed, one store content, one stream: the same epoch whichever way
+    for label, rec in (("compact store", first), ("compact store from the cache", second),
+                       ("--scan-steps 4", scanned)):
+        a, b = rec["train_loss"][0], flat_rec["train_loss"][0]
+        print(f"epoch loss, {label}: {a} against the flat store's {b}")
+        if abs(a - b) > 1e-1 * abs(b):
+            raise AssertionError(f"{label}: epoch loss {a} against {b} (rel 1e-1)")
+    accum_state, launches, _ = train_through_cli(
+        "PointNet++", workdir, ("fps", "ball_query", "three_nn", "gather_rows"),
+        ("--accum-steps", "2"))
+    if accum_state.step != (steps + 1) // 2 or launches["gather_rows_flat"]:
+        raise AssertionError(f"--accum-steps 2: {accum_state.step} updates from {steps} "
+                             f"batches, launches {launches}")
+    _, launches, _ = train_through_cli("DeepGraphCnn", workdir,
+                                       ("knn", "gather_rows", "gather_rows_flat"),
+                                       ("--device-data",), "device")
+    if launches["gather_rows_flat"] != 2 * steps or launches["knn"] < 4 * steps:
+        raise AssertionError(f"DeepGraphCnn --device-data: {launches}")
+
+    # the two stores by themselves
+    raw_ds = BlockDataset(f"{workdir}/data", {1, 2, 3, 4, 5}, sampling=None, seed=0)
+    loaders = {}
+    for layout, mode in (("flat", "device"), ("compact", "compact")):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaders[layout], got = dev.device_store_or_host_loader(
+            raw_ds, 8, 4096, seed=0, device=device, layout=layout)
+        torch.cuda.synchronize()
+        store = loaders[layout].store
+        if got != mode or store.tables[0].device.type != "cuda":
+            raise AssertionError(f"layout {layout}: mode {got}, tables on "
+                                 f"{store.tables[0].device}")
+        print(f"{layout} store: {store.num_blocks} blocks, {store.tables[0].shape[0]} rows, "
+              f"{store.nbytes} bytes on the card; read, packed and uploaded in "
+              f"{time.time() - t0:.2f} s")
+    first_batches = {k: next(iter(dev.DeviceEpochLoader(v.store, 8, 4096, seed=0)))
+                     for k, v in loaders.items()}
+    for a, b in zip(first_batches["flat"], first_batches["compact"]):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError("the first batch of the flat and the compact store differ")
+    print("first batch of the flat and the compact store from one seed: bit-identical")
+    for layout, loader in loaders.items():
+        store = loader.store
+        order, gen = loader._epoch_start()
+        sample = lambda: store.sample(order, 0, gen, 8, 4096)  # noqa: E731
+        ms = timed(sample, 50)
+        us = kernel_device_us(sample, "gather_rows_flat_kernel")
+        print(f"{layout} store: {ms:.4f} ms a sampled batch (CUDA events, 8 x 4096 points), "
+              f"{us:.1f} us of it in the flat-gather kernel (profiler)")
+
+    # scan_epoch against iterating the loader: same batches, same first loss
+    weights = {k: v.clone() for k, v in pp_state.model.state_dict().items()}
+    store = loaders["flat"].store
+    seen = {"iter": [], "scan": []}
+    sample_from = store.sample_from
+
+    def recording(into):
+        def wrapped(ids, u):
+            batch = sample_from(ids, u)
+            into.append(torch.stack([batch[0].double().sum(), batch[1].double().sum(),
+                                     batch[2].double().sum()]))
+            return batch
+        return wrapped
+
+    def iterated():
+        run = fresh_state(weights, device, learning_rate=1e-5)
+        return torch.stack([train_step(run, *b)["loss"]
+                            for b in dev.DeviceEpochLoader(store, 8, 4096, seed=3)])
+
+    try:
+        store.sample_from = recording(seen["iter"])
+        iter_losses = iterated()
+        store.sample_from = recording([])
+        again = iterated().tolist()  # the same epoch once more: the drift of the atomic adds
+        store.sample_from = recording(seen["scan"])
+        run = fresh_state(weights, device, learning_rate=1e-5)
+        run, ms = dev.DeviceEpochLoader(store, 8, 4096, seed=3).scan_epoch(run, 4)
+    finally:
+        del store.sample_from
+    same = torch.equal(torch.stack(seen["iter"]), torch.stack(seen["scan"]))
+    a, b = ms["loss"].tolist(), iter_losses.tolist()
+    print(f"scan_epoch(4) losses {a}\niterated losses     {b}\niterated once more  {again}")
+    if not same or len(a) != len(b) or run.step != len(b):
+        raise AssertionError("scan_epoch(4) saw other batches than iterating the loader")
+    drift = 0.0
+    for step, (x, y, z) in enumerate(zip(a, b, again)):
+        drift = max(drift, abs(z - y) / abs(y))
+        rel = 1e-6 if step == 0 else max(1e-3, 4 * drift)
+        if not math.isfinite(x) or abs(x - y) > rel * abs(y):
+            raise AssertionError(f"scan_epoch step {step}: loss {x} against {y} (rel {rel:.3g}; "
+                                 f"two iterated runs drift by {drift:.3g})")
+    print(f"scan_epoch(4) against iterating at learning rate 1e-5: first loss to 1e-6, the "
+          f"others to 1e-3; two iterated runs of the epoch drift by {drift:.3g} relative at most")
+
+    # PointNet++ fed by the host loader and by the device store, in turns
+    host_loader, _ = create_block_dataloaders(f"{workdir}/data", {6}, 8, 2, 4096, seed=0,
+                                              num_workers=4)
+    feeds = {"host loader": host_loader,
+             "device store (flat)": dev.DeviceEpochLoader(loaders["flat"].store, 8, 4096),
+             "device store (compact)": dev.DeviceEpochLoader(loaders["compact"].store, 8, 4096)}
+    run = fresh_state(weights, device)
+
+    def epoch(feed):
+        n = 0
+        for batch in feed:
+            train_step(run, *to_device(batch, device))
+            n += 1
+        torch.cuda.synchronize()
+        return n
+
+    for feed in feeds.values():
+        epoch(feed)  # warm-up: reader threads, allocator
+    wall = {name: [] for name in feeds}
+    for name in [*feeds, *reversed(feeds)]:
+        t0 = time.time()
+        n = epoch(feeds[name])
+        wall[name].append((time.time() - t0) * 1e3 / n)
+    for name, feed in feeds.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            n = epoch(feed)
+        # rows of the device's own type are kernels and copies; an
+        # operator's row repeats the time of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        busy = sum(device_time_us(e) for e in events) / 1e3 / n
+        copies = sum(device_time_us(e) for e in events if "Memcpy HtoD" in e.key) / 1e3 / n
+        step_ms = sum(wall[name]) / len(wall[name])
+        print(f"PointNet++ fed by the {name}: {step_ms:.3f} ms a step over an epoch of {n} "
+              f"(host clock, runs {[round(w, 3) for w in wall[name]]}), device time "
+              f"{busy:.3f} ms a step (profiler; host-to-device copies {copies:.3f} ms), "
+              f"device busy {100 * busy / step_ms:.1f}%")
+    return flat_launches["gather_rows_flat"]
 
 
 def cpu_copy(model_name: str, model, **kwargs):
@@ -863,6 +1198,7 @@ def main() -> int:
     del levels
     knn_kernels(device, record)
     gather_kernels(device, record)
+    gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
 
     phase("4. trainers")
@@ -891,7 +1227,9 @@ def main() -> int:
           f"kernel's training path (its shapes summed; ball_query_2l: PointNeXt's nine "
           f"queries); launches are one epoch and its "
           f"evaluation (knn_2l and ball_query_2l: three steps of DeepGraphCnn and of "
-          f"PointNeXt); tie flips "
+          f"PointNeXt; gather_rows_flat: one PointNet++ epoch from the flat device store, two "
+          f"launches a step, its ms the 36-byte and the 1-byte gather of a batch from "
+          f"{SYNTHETIC_ROWS} rows); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

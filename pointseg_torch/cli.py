@@ -5,6 +5,9 @@
         [--epochs E] [--device cuda] ...
     python -m pointseg_torch train PointNeXt|PointNeXt-B|PointNeXt-L|PointNet++MSG ...
     python -m pointseg_torch train DeepGraphCnn [--static-graph] ...
+    python -m pointseg_torch train <model> --device-data
+        [--device-store auto|flat|compact|host] [--pack-cache DIR] [--scan-steps K]
+    python -m pointseg_torch train <model> --accum-steps K
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 8 (test 2), 4096 points, test area 6, 14 classes. Flags of the JAX
@@ -31,11 +34,6 @@ DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 # JAX trainer flags not carried yet: (flag, argparse kwargs)
 _NOT_PORTED = (
     ("--bf16", dict(action="store_true")),
-    ("--device-data", dict(action="store_true")),
-    ("--device-store", dict(default=None)),
-    ("--pack-cache", dict(default=None)),
-    ("--scan-steps", dict(type=int, default=1)),
-    ("--accum-steps", dict(type=int, default=1)),
     ("--resume", dict(default=None)),
     ("--model-dir", dict(default=None)),
     ("--data-parallel", dict(action="store_true")),
@@ -68,6 +66,31 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "points (default) or 'zero' (the reference's).")
     p.add_argument("--num-workers", type=int, default=4,
                    help="Parallel host block readers (0 = serial).")
+    p.add_argument("--device-store", choices=["auto", "flat", "compact", "host"],
+                   default="auto",
+                   help="With --device-data: force a store layout instead of the "
+                        "budget-driven auto chain.")
+    p.add_argument("--device-data", action="store_true",
+                   help="Keep the whole train split resident in device memory and "
+                        "sample blocks/points there (no per-step host I/O or copy; "
+                        "with-replacement point sampling). The store lives on --device.")
+    p.add_argument("--pack-cache", default=None, metavar="DIR",
+                   help="With --device-data: persist the packed device store here, "
+                        "keyed by a dataset fingerprint. A hit skips the raw block "
+                        "load and the pack, so restarts go straight to the upload. "
+                        "Implies compact-first in auto layout (the compact store is "
+                        "what gets cached; it samples bit-identically).")
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help="With --device-data: run the epoch's (sample -> train step) "
+                        "iterations with no host read between them and fetch the "
+                        "stacked metrics once an epoch (same batches and random "
+                        "streams as K=1). Eager PyTorch has no K-step program to fuse; "
+                        "K > 1 only selects this path.")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="Gradient accumulation: K consecutive loader batches -> ONE "
+                        "optimizer update (mean of micro-batch grads; effective batch "
+                        "K*B at single-batch peak memory). Host loaders only; "
+                        "mutually exclusive with --scan-steps.")
     p.add_argument("--log-interval", type=int, default=20)
     p.add_argument("--log-dir", default="saved_runs")
     p.add_argument("--seed", type=int, default=0)
@@ -103,6 +126,36 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def _device_train_loader(args: argparse.Namespace, device: torch.device):
+    """(train loader, mode) of `--device-data`: the device-resident store, by
+    the policy chain flat store -> 16 B/point compact store -> chunked
+    host prefetcher (`pointseg_torch/data/device.py`). Evaluation keeps the
+    host loader: it needs whole blocks, not samples."""
+    from pointseg_torch.data.datasets import BlockDataset
+    from pointseg_torch.data.device import device_store_or_host_loader
+
+    train_areas = {1, 2, 3, 4, 5, 6} - set(args.test_areas)
+    raw_ds = BlockDataset(args.data_dir, train_areas, sampling=None, seed=args.seed)
+    if args.pack_cache and args.device_store in ("flat", "host"):
+        print(f"note: --pack-cache is ignored with --device-store "
+              f"{args.device_store} (only the compact store packs)")
+    loader, data_mode = device_store_or_host_loader(
+        raw_ds, args.train_batch_size, args.train_sampling, seed=args.seed, device=device,
+        num_workers=max(args.num_workers, 4), layout=args.device_store,
+        pack_cache=args.pack_cache)
+    if data_mode in ("device", "compact"):
+        store = loader.store
+        print(f"Device-resident train split ({data_mode}): {store.num_blocks} blocks, "
+              f"{store.nbytes / 1e6:.1f} MB on {device}.")
+    elif args.device_store == "host":
+        print("Device store layout forced to host; using the chunked host prefetcher.")
+    else:
+        why = loader.policy_reason
+        print("Device store unavailable" + (f" ({why})" if why else "")
+              + "; using the chunked host prefetcher.")
+    return loader, data_mode
+
+
 def train_from_args(args: argparse.Namespace):
     """Runs the `train` subcommand; returns (TrainState, records)."""
     from pointseg_torch.data import synthetic
@@ -113,17 +166,22 @@ def train_from_args(args: argparse.Namespace):
     from pointseg_torch.train.state import create_train_state
 
     _refuse_unported(args)
+    if args.device_data and args.accum_steps > 1:
+        # fail before the (possibly long) store build: the accumulation
+        # path stacks batches on the host
+        raise SystemExit("--accum-steps requires a host loader; drop "
+                         "--device-data or --accum-steps")
     device = resolve_device(args.device)
     model_kwargs = {}
     if args.static_graph:
         if args.model not in DGCNN_NAMES:
             raise SystemExit("--static-graph only applies to DGCNN models")
         model_kwargs["static_graph"] = True
+    torch.manual_seed(args.seed)  # weight init and dropout
     model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, **model_kwargs)
     # TF32 would round the distances that selections compare
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.manual_seed(args.seed)  # weight init and dropout
 
     if args.synthetic and not os.path.exists(args.data_dir):
         print(f"Generating synthetic block dataset at {args.data_dir} ...")
@@ -147,6 +205,9 @@ def train_from_args(args: argparse.Namespace):
         num_workers=args.num_workers,
         test_pad_mode=args.test_pad_mode,
     )
+    data_mode = "host loader"
+    if args.device_data:
+        train_loader, data_mode = _device_train_loader(args, device)
     print(f"Initialized train dataloader with areas {set(range(1, 7)) - set(args.test_areas)}, "
           f"and test dataloader with areas {set(args.test_areas)}.")
     print("-" * 15)
@@ -154,12 +215,14 @@ def train_from_args(args: argparse.Namespace):
     state = create_train_state(model, device=device, learning_rate=args.learning_rate,
                                seed=args.seed)
     config = {k: v for k, v in vars(args).items() if not callable(v) and k != "func"}
+    config["data_mode"] = data_mode  # "device", "compact", "host" or "host loader"
     logger = MetricsLogger(log_path)
     try:
         state, records = train_model(
             state, train_loader, test_loader, num_epochs=args.epochs,
             log_interval=args.log_interval, logger=logger,
-            num_classes=NUM_S3DIS_CLASSES, config=config)
+            num_classes=NUM_S3DIS_CLASSES, config=config,
+            scan_steps=args.scan_steps, accum_steps=args.accum_steps)
     finally:
         logger.close()
     save_records(log_path, "records", records)

@@ -1,7 +1,7 @@
 """Geometric primitives (port of `pointseg.ops`).
 
-FPS, ball query, 3-NN, kNN (flat and two-level) and the row gather
-launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
+FPS, ball query, 3-NN, kNN (flat and two-level) and the row gathers
+(batched and flat) launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
 `_kernels`) and run plain PyTorch on CPU tensors. Pooling is plain
 PyTorch on both.
 """
@@ -13,7 +13,11 @@ from pointseg_torch.ops.ballquery import (  # noqa: F401
     group,
     pairwise_sqdist,
 )
-from pointseg_torch.ops.gather import gather_rows, gather_rows_with_coords  # noqa: F401
+from pointseg_torch.ops.gather import (  # noqa: F401
+    gather_rows,
+    gather_rows_flat,
+    gather_rows_with_coords,
+)
 from pointseg_torch.ops.knn import (  # noqa: F401
     gather_neighbors,
     graph_feature,

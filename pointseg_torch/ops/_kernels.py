@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"fps": 0, "ball_query": 0, "ball_query_2l": 0, "three_nn": 0,
-            "knn": 0, "knn_2l": 0, "gather_rows": 0}
+            "knn": 0, "knn_2l": 0, "gather_rows": 0, "gather_rows_flat": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _SIGNATURES = {
     # coords, start, mask, out, dist_scratch, B, N, C, stream
     "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "pointseg_knn_2l": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # table, idx, out, B, N, M, C, stream
     "pointseg_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # table, idx, out, R, M, row_bytes, stream
+    "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _P),
 }
 
 _library: ctypes.CDLL | None = None

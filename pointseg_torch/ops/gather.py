@@ -1,6 +1,7 @@
-"""Batched row gathers.
+"""Row gathers: batched (`gather_rows`) and over one flat table
+(`gather_rows_flat`).
 
-Port of `gather_rows` and `gather_rows_with_coords` from
+`gather_rows` and `gather_rows_with_coords` are ported from
 `pointseg/ops/gather.py`. On a CUDA tensor the forward is one launch of
 `csrc/gather.cu` (the counterpart of the JAX package's forward-only
 `gather_rows_dma`); on a CPU tensor it is `gather_rows_plain`
@@ -11,13 +12,22 @@ are not bit-reproducible from run to run. The JAX package's one-hot
 matrix-unit strategies and its bf16 coordinate packing exist for the TPU
 and are not ported. Indices are selections and carry no gradient.
 
-An index outside [0, N) is an error on both devices: the CPU version
+`gather_rows_flat(table, idx)` is the counterpart of
+`pointseg/ops/pallas/gather.py::gather_rows_flat`: rows of one table of
+R rows by absolute row index, forward only, any dtype, rows of any byte
+width. The device-resident block store samples its batches with it. On a
+CUDA tensor it is one launch of the second kernel in `csrc/gather.cu`;
+on a CPU tensor `gather_rows_flat_plain` (`index_select`).
+
+An index outside the table is an error on both devices: the CPU version
 raises, and the kernel, which cannot be checked from the host without a
 synchronisation, never reads out of bounds but traps, so the next
 synchronisation raises a CUDA error.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,6 +93,51 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         (B, *idx.shape[1:], C); differentiable in `table`.
     """
     return _GatherRows.apply(table, idx)
+
+
+def gather_rows_flat_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch `gather_rows_flat` (`index_select`); raises on an
+    index outside [0, R)."""
+    return table.detach().index_select(0, idx.to(torch.int64))
+
+
+def _gather_rows_flat_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if idx.device != table.device:
+        raise ValueError(f"table is on {table.device}, idx on {idx.device}")
+    if not table.is_contiguous():
+        raise ValueError("gather_rows_flat: the table must be contiguous "
+                         "(a copy of a table of gigabytes is not made silently)")
+    rows = idx.to(torch.int64).contiguous()
+    out = torch.empty((rows.shape[0], *table.shape[1:]), dtype=table.dtype, device=table.device)
+    if out.numel():
+        row_bytes = math.prod(table.shape[1:]) * table.element_size()
+        _kernels.launch("gather_rows_flat", "pointseg_gather_rows_flat", table.device,
+                        _kernels.ptr(table), _kernels.ptr(rows), _kernels.ptr(out),
+                        table.shape[0], rows.shape[0], row_bytes)
+    return out
+
+
+def gather_rows_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of one flat table by absolute row index, forward only.
+
+    Args:
+        table: (R, ...) rows of any dtype and width (1-byte labels,
+            16-byte packed words, nine floats); contiguous on a CUDA device.
+        idx: (Mrows,) integer row indices in [0, R). The kernel reads
+            int64 (a table may hold more than 2^31 rows); any other
+            integer type is converted once, here.
+
+    Returns:
+        (Mrows, ...) rows, detached from `table`'s graph (the JAX
+        function stops gradients likewise).
+    """
+    if idx.dim() != 1 or idx.is_floating_point() or idx.dtype == torch.bool:
+        raise ValueError(f"idx must be a 1-D integer tensor, got {idx.dtype} {tuple(idx.shape)}")
+    if table.dim() < 1:
+        raise ValueError("table needs a row dimension")
+    if _kernels.on_cuda(table):
+        return _gather_rows_flat_cuda(table, idx)
+    return gather_rows_flat_plain(table, idx)
 
 
 def gather_rows_with_coords(

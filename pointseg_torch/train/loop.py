@@ -1,12 +1,14 @@
-"""The training loop (port of the host-loader path of
-`pointseg/train/loop.py`): per-epoch training with interval logging,
-a streaming evaluation pass over the test set after every epoch, and
-epoch summaries. Checkpoints, the device-resident store, scanned and
-accumulated steps are not ported yet (ROADMAP.md).
+"""The training loop (port of `pointseg/train/loop.py`): per-epoch
+training with interval logging, a streaming evaluation pass over the
+test set after every epoch, and epoch summaries. Checkpoints are not
+ported yet (ROADMAP.md).
 
-Batches come from the numpy loaders of `pointseg_torch.data`; each is copied
-to the device once. Metrics stay on the device and are read at the log
-interval and at the end of an epoch.
+Batches come from the numpy loaders of `pointseg_torch.data`, each copied
+to the device once, or from the device-resident store
+(`pointseg_torch.data.device.DeviceEpochLoader`), whose batches are
+already there and pass through untouched. Metrics stay on the device and
+are read at the log interval and at the end of an epoch; with
+`scan_steps > 1` on the device store, once an epoch.
 """
 
 from __future__ import annotations
@@ -19,12 +21,21 @@ import torch
 
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.logging import MetricsLogger
-from pointseg_torch.train.state import TrainState, eval_step, train_step
+from pointseg_torch.train.state import TrainState, eval_step, train_step, train_step_accum
 
 
 def to_device(batch, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """(points, labels, lengths) numpy batch -> tensors on `device`."""
-    return tuple(torch.from_numpy(np.asarray(a)).to(device) for a in batch)
+    """(points, labels, lengths) batch -> tensors on `device`: numpy
+    arrays are copied there, tensors already there (the device store's
+    batches) pass through untouched."""
+    return tuple(a.to(device) if isinstance(a, torch.Tensor)
+                 else torch.from_numpy(np.asarray(a)).to(device) for a in batch)
+
+
+def _log_train_metrics(logger: MetricsLogger, loss, accuracy, miou, step: int) -> None:
+    logger.add_scalar("Train/Loss", float(loss), step)
+    logger.add_scalar("Train/Accuracy", 100.0 * float(accuracy), step)
+    logger.add_scalar("Train/Mean_IoU", 100.0 * float(miou), step)
 
 
 def train_epoch(
@@ -33,19 +44,94 @@ def train_epoch(
     logger: MetricsLogger | None,
     log_interval: int,
     global_step: int,
+    scan_steps: int = 1,
+    accum_steps: int = 1,
 ) -> tuple[TrainState, float, int]:
-    """One pass over the training set; returns (state, mean loss, step)."""
+    """One pass over the training set; returns (state, mean loss, step).
+
+    `scan_steps > 1` with a `DeviceEpochLoader` runs the epoch through
+    its `scan_epoch`: same batch sequence and random streams, no host
+    read until the epoch's stacked metrics are fetched once at its end
+    (interval logging still happens, from those). With any other loader
+    it changes nothing, as in the JAX package.
+
+    `accum_steps > 1` groups K consecutive loader batches into ONE
+    optimizer update via `train_step_accum` (an effective batch K*B at
+    the peak memory of one batch). A short trailing group still
+    accumulates. Host loaders only; mutually exclusive with `scan_steps`.
+    """
+    from pointseg_torch.data.device import DeviceEpochLoader
+
+    if accum_steps > 1:
+        if scan_steps > 1:
+            raise ValueError("scan_steps and accum_steps are mutually exclusive")
+        if isinstance(train_loader, DeviceEpochLoader):
+            # _train_epoch_accum stacks batches on the host: every
+            # micro-batch of a device loader would come back from the card
+            raise ValueError(
+                "accum_steps > 1 requires a host loader; the device "
+                "store samples on the device and cannot be host-stacked "
+                "(drop --device-data or --accum-steps)")
+        return _train_epoch_accum(state, train_loader, logger, log_interval, global_step,
+                                  accum_steps)
+
+    if scan_steps > 1 and isinstance(train_loader, DeviceEpochLoader):
+        state, ms = train_loader.scan_epoch(state, scan_steps)
+        n = int(ms["loss"].shape[0]) if ms else 0
+        if logger is not None and n:
+            # one fetch for the whole epoch's stacked metrics
+            loss_h, acc_h, miou_h = (ms[k].cpu().numpy() for k in ("loss", "accuracy", "miou"))
+            for i in range(0, n, log_interval):
+                _log_train_metrics(logger, loss_h[i], acc_h[i], miou_h[i], global_step + i)
+        total_loss = float(ms["loss"].mean()) if n else 0.0
+        return state, total_loss, global_step + n
+
     losses = []
     for batch_index, batch in enumerate(train_loader):
         metrics = train_step(state, *to_device(batch, state.device))
         if logger is not None and batch_index % log_interval == 0:
-            logger.add_scalar("Train/Loss", float(metrics["loss"]), global_step)
-            logger.add_scalar("Train/Accuracy", 100.0 * float(metrics["accuracy"]),
-                              global_step)
-            logger.add_scalar("Train/Mean_IoU", 100.0 * float(metrics["miou"]),
-                              global_step)
+            _log_train_metrics(logger, metrics["loss"], metrics["accuracy"], metrics["miou"],
+                               global_step)
         losses.append(metrics["loss"])
         global_step += 1
+    total_loss = float(torch.stack(losses).mean()) if losses else 0.0
+    return state, total_loss, global_step
+
+
+def _train_epoch_accum(
+    state: TrainState,
+    train_loader: Iterable,
+    logger: MetricsLogger | None,
+    log_interval: int,
+    global_step: int,
+    accum_steps: int,
+) -> tuple[TrainState, float, int]:
+    """Gradient-accumulation epoch: K loader batches -> one update.
+
+    The K batches are stacked on the host and copied to the device as
+    one (K, B, ...) array each: fewer, larger copies. `global_step`
+    counts OPTIMIZER updates, matching `state.step`.
+    """
+    losses = []
+    group: list = []
+
+    def flush():
+        nonlocal global_step
+        stacked = (np.stack(parts) for parts in zip(*group))
+        metrics = train_step_accum(state, *to_device(stacked, state.device))
+        if logger is not None and global_step % log_interval == 0:
+            _log_train_metrics(logger, metrics["loss"], metrics["accuracy"], metrics["miou"],
+                               global_step)
+        losses.append(metrics["loss"])
+        global_step += 1
+        group.clear()
+
+    for batch in train_loader:
+        group.append(tuple(np.asarray(a) for a in batch))
+        if len(group) == accum_steps:
+            flush()
+    if group:
+        flush()
     total_loss = float(torch.stack(losses).mean()) if losses else 0.0
     return state, total_loss, global_step
 
@@ -95,6 +181,8 @@ def train_model(
     num_classes: int = 14,
     config: dict | None = None,
     verbose: bool = True,
+    scan_steps: int = 1,
+    accum_steps: int = 1,
 ) -> tuple[TrainState, dict]:
     """Full training run. Returns the final state and the records
     {train_loss, val_loss, val_acc, val_miou, epoch_times, total_time}."""
@@ -105,7 +193,8 @@ def train_model(
     for epoch in range(num_epochs):
         t0 = time.time()
         state, train_loss, global_step = train_epoch(
-            state, train_loader, logger, log_interval, global_step)
+            state, train_loader, logger, log_interval, global_step,
+            scan_steps=scan_steps, accum_steps=accum_steps)
         ev = evaluate(state, test_loader, num_classes=num_classes)
         dt = time.time() - t0
 

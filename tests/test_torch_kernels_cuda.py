@@ -7,8 +7,9 @@ imports no JAX, so on a machine without it run it on its own:
 
 The kernels compute distances and scores with the plain versions'
 rounding, so indices, `in_ball` and the 3-NN distances must be equal, not
-close; the gather moves bits, so its rows are equal too. Only the
-gather's gradient (atomic adds on the card) is compared to a tolerance.
+close; the gathers move bits, so their rows are equal too. Only the
+batched gather's gradient (atomic adds on the card) is compared to a
+tolerance.
 """
 
 import numpy as np
@@ -24,7 +25,12 @@ from pointseg_torch.ops.ballquery import (
     ball_query_raw,
 )
 from pointseg_torch.ops.fps import farthest_point_sampling, farthest_point_sampling_plain
-from pointseg_torch.ops.gather import gather_rows, gather_rows_plain
+from pointseg_torch.ops.gather import (
+    gather_rows,
+    gather_rows_flat,
+    gather_rows_flat_plain,
+    gather_rows_plain,
+)
 from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
 from pointseg_torch.ops.knn import _knn_cuda, knn_indices, knn_indices_plain
 
@@ -318,6 +324,118 @@ def test_gather_rows_kernel_matches_plain_forward_and_backward(device, B, N, M, 
         small = idx.clamp(max=N - 2)
         torch.testing.assert_close(gather_rows(odd, small), gather_rows_plain(odd, small),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Mrows", [8 * 4096, 32769, 1])
+@pytest.mark.parametrize("shape,dtype", [((240_000,), torch.uint8), ((240_000, 4), torch.int32),
+                                         ((240_000, 9), torch.float32),
+                                         ((240_000, 35), torch.float32),
+                                         ((5000, 3), torch.uint8), ((5000, 2), torch.int32),
+                                         ((5000, 3), torch.float16), ((5000, 8), torch.float64)])
+def test_gather_rows_flat_kernel_matches_plain(device, shape, dtype, Mrows):
+    """Rows of 1, 16, 36 and 140 bytes (the store's tables and an odd
+    width) and of 3, 8, 6 and 64 bytes (every unit the kernel copies in),
+    at the sampler's 8 x 4096 rows and at counts that divide nothing."""
+    gen = torch.Generator(device).manual_seed(40)
+    table = torch.randint(0, 250, shape, device=device, generator=gen).to(dtype)
+    idx = torch.randint(0, shape[0], (Mrows,), device=device, generator=gen)
+    idx[0], idx[-1] = shape[0] - 1, 0
+    before = dict(_kernels.LAUNCHES)
+    got = gather_rows_flat(table, idx)
+    assert _kernels.LAUNCHES["gather_rows_flat"] == before["gather_rows_flat"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    want = gather_rows_flat_plain(table, idx)
+    assert got.shape == (Mrows, *shape[1:]) and got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(gather_rows_flat(table, idx.int()), want)  # converted once, to int64
+    if len(shape) == 2:  # a view that starts one element in: narrower alignment, same rows
+        shifted = table.reshape(-1)[1:1 + (shape[0] - 1) * shape[1]].reshape(shape[0] - 1, shape[1])
+        small = idx.clamp(max=shape[0] - 2)
+        assert torch.equal(gather_rows_flat(shifted, small), gather_rows_flat_plain(shifted, small))
+        with pytest.raises(ValueError, match="contiguous"):
+            gather_rows_flat(table[:, :1], idx)
+
+
+def test_gather_rows_flat_kernel_past_2_to_the_31_elements(device):
+    """240 million rows of nine 4-byte words: 2.16e9 elements, 8.64e9
+    bytes. Row r holds r + column, so the rows wanted are known without
+    a second table; the last rows lie past both 2^31 elements and 2^32
+    bytes."""
+    T = 240_000_000
+    table = torch.empty((T, 9), dtype=torch.int32, device=device)
+    cols = torch.arange(9, dtype=torch.int32, device=device)
+    for start in range(0, T, 20_000_000):
+        rows = torch.arange(start, min(start + 20_000_000, T), dtype=torch.int32, device=device)
+        table[start:start + rows.shape[0]] = rows[:, None] + cols
+    gen = torch.Generator(device).manual_seed(41)
+    idx = torch.randint(0, T, (8 * 4096,), device=device, generator=gen)
+    idx[:4] = torch.tensor([0, T - 1, 2**31 // 9 + 1, 2**32 // 36 + 1], device=device)
+    got = gather_rows_flat(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, idx[:, None].int() + cols)
+    assert torch.equal(got, gather_rows_flat_plain(table, idx))
+
+
+@pytest.mark.parametrize("bad", [-1, 1000, 2**40])
+def test_gather_rows_flat_kernel_traps_on_an_index_outside_the_table(device, bad):
+    """An index outside [0, R) is never dereferenced: the kernel traps and
+    the next synchronisation raises. A trap ends the process's CUDA
+    context, so the launch runs in a process of its own."""
+    import subprocess
+    import sys
+
+    script = (
+        "import torch\n"
+        "from pointseg_torch.ops.gather import gather_rows_flat\n"
+        "table = torch.zeros((1000, 4), device='cuda')\n"
+        "good = gather_rows_flat(table, torch.tensor([0, 999], device='cuda'))\n"
+        "torch.cuda.synchronize()\n"
+        "print('good launch ok', flush=True)\n"
+        f"gather_rows_flat(table, torch.tensor([0, {bad}], device='cuda'))\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, flush=True)\n"
+        "else:\n"
+        "    print('no error', flush=True)\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300)
+    assert "good launch ok" in out.stdout, out.stdout + out.stderr
+    assert "raised" in out.stdout and "no error" not in out.stdout, out.stdout + out.stderr
+
+
+def test_device_stores_sample_the_same_batches_on_the_card_as_on_the_cpu(device):
+    """Both stores through kernel 8 on the card against the plain path on
+    the CPU, from the same block ids and uniforms: bit-equal, and
+    compact equal to flat."""
+    from pointseg_torch.data import device as dev
+    from pointseg_torch.data.blocks import augment_points
+
+    rng = np.random.default_rng(42)
+    counts = rng.integers(1, 5000, size=40)
+    counts[3] = 1
+    raw = np.empty((int(counts.sum()), 6), np.float32)
+    raw[:, :3] = rng.uniform(0, 30, size=(raw.shape[0], 3))
+    raw[:, 3:] = rng.integers(0, 256, size=(raw.shape[0], 3))
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    pts = np.concatenate([augment_points(raw[a:b]) for a, b in zip(offsets[:-1], offsets[1:])])
+    labs = rng.integers(0, 14, size=pts.shape[0]).astype(np.uint8)
+    ids = torch.tensor([0, 3, -1, 17, 39, 5, 5, 21])
+    u = torch.from_numpy(rng.random((8, 4096)).astype(np.float32))
+    u[:, 0], u[:, 1] = 0.0, float(np.nextafter(np.float32(1), np.float32(0)))
+    batches = {}
+    for cls in (dev.DeviceBlockStore, dev.CompactDeviceStore):
+        for where in (torch.device("cpu"), device):
+            store = cls(pts, labs, counts, num_classes=14, device=where)
+            before = _kernels.LAUNCHES["gather_rows_flat"]
+            batches[cls, where.type] = store.sample_from(ids.to(where), u.to(where))
+            launched = _kernels.LAUNCHES["gather_rows_flat"] - before
+            assert launched == (0 if where.type == "cpu" else
+                                2 if cls is dev.DeviceBlockStore else 1)
+    want = batches[dev.DeviceBlockStore, "cpu"]
+    for got in batches.values():
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("name,kwargs", [

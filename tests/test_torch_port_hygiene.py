@@ -64,13 +64,14 @@ def test_cpu_tensors_never_count_as_launches():
     dgcnn = create_model("DGCNN", k=8, emb_dims=32, knn_select="two_level").train()
     dgcnn(x[:, :256]).sum().backward()
     ops.gather_rows(x, torch.zeros((2, 5), dtype=torch.int32))
+    ops.gather_rows_flat(x[0], torch.zeros(5, dtype=torch.int64))
     for name in ("PointNeXt", "PointNet++MSG"):
         new = create_model(name, ball_select="two_level").train()
         new(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     ops.ball_query(pts[:, :8], pts, 0.2, 8, select="two_level")
     assert _kernels.LAUNCHES == before
     assert set(before) == {"fps", "ball_query", "ball_query_2l", "three_nn", "knn", "knn_2l",
-                           "gather_rows"}
+                           "gather_rows", "gather_rows_flat"}
 
 
 def test_other_devices_are_refused():
@@ -86,6 +87,8 @@ def test_other_devices_are_refused():
         ops.knn_indices(pts, 4)
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.gather_rows(pts, torch.zeros((1, 4), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="cpu.*cuda"):
+        ops.gather_rows_flat(pts[0], torch.zeros(4, dtype=torch.int64, device="meta"))
 
 
 def test_wrapper_checks_refuse_cpu_and_wrong_tensors():
@@ -107,13 +110,13 @@ def test_kernel_build_targets_hopper_and_sources_ship():
     assert "csrc/*.cu" in meta["tool"]["setuptools"]["package-data"]["pointseg_torch"]
 
 
-def _cuda_path(module: str) -> str:
-    """Source of `ops/<module>`'s `_..._cuda` function, the code a CUDA
-    tensor runs."""
+def _cuda_path(module: str, function: str = r"_\w+_cuda") -> str:
+    """Source of `ops/<module>`'s `_..._cuda` function (the one named,
+    where a module holds two), the code a CUDA tensor runs."""
     import re
 
     text = (REPO / "pointseg_torch" / "ops" / module).read_text()
-    (body,) = re.findall(r"\ndef _\w+_cuda\(.*?(?=\n(?:def|class) |\Z)", text, flags=re.S)
+    (body,) = re.findall(rf"\ndef {function}\(.*?(?=\n(?:def|class) |\Z)", text, flags=re.S)
     return body
 
 
@@ -130,11 +133,60 @@ def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
     gather = (_kernels.CSRC / "gather.cu").read_text()
     names = re.findall(r"__global__ void (\w+)", knn)
     assert {"knn_flat_kernel", "knn_two_level_kernel"} <= set(names)
-    assert re.findall(r"__global__ void (\w+)", gather) == ["gather_rows_kernel"]
+    assert re.findall(r"__global__ void (\w+)", gather) == ["gather_rows_kernel",
+                                                            "gather_rows_flat_kernel"]
     for text in (knn, gather):
         assert not re.search(LIBRARY_IN_SOURCE, text)
-    for name in ("knn.py", "gather.py"):
-        assert not re.search(LIBRARY_IN_WRAPPER, _cuda_path(name)), name
+    assert not re.search(LIBRARY_IN_WRAPPER, _cuda_path("knn.py"))
+    assert not re.search(LIBRARY_IN_WRAPPER, _cuda_path("gather.py", "_gather_rows_cuda"))
+
+
+def test_flat_gather_has_a_kernel_of_its_own_and_no_switch_to_the_plain_version():
+    """On a CUDA tensor `gather_rows_flat` reaches `_gather_rows_flat_cuda`
+    and nothing else; that function launches `pointseg_gather_rows_flat`
+    and holds no library gather, no plain version and no `try`. The
+    entry point takes 64-bit sizes, and the kernel computes every offset
+    in 64 bits and traps on an index outside the table."""
+    import inspect
+    import re
+
+    path = _cuda_path("gather.py", "_gather_rows_flat_cuda")
+    assert not re.search(LIBRARY_IN_WRAPPER + r"|torch\.take|\btry\b|\[rows\]|\[idx\]", path)
+    assert '"gather_rows_flat", "pointseg_gather_rows_flat"' in path
+    public = inspect.getsource(ops.gather_rows_flat)
+    assert re.search(r"if _kernels\.on_cuda\(table\):\n\s+return _gather_rows_flat_cuda\(", public)
+    assert public.count("gather_rows_flat_plain(") == 1 and "try" not in public
+    import ctypes
+    assert _kernels._SIGNATURES["pointseg_gather_rows_flat"][3:6] == (ctypes.c_int64,) * 3
+    source = (_kernels.CSRC / "gather.cu").read_text()
+    (kernel,) = re.findall(r"__global__ void gather_rows_flat_kernel\(.*?\n}\n", source, flags=re.S)
+    assert "__trap()" in kernel and "static_cast<size_t>(src) * units" in kernel
+    assert "const long long* __restrict__ idx" in kernel and "__shared__" not in kernel
+    assert "atomic" not in kernel
+
+
+def test_device_store_gathers_its_point_tables_through_gather_rows_flat():
+    """Every gather from a per-point table in `data/device.py`'s samplers
+    is `gather_rows_flat`: no indexing, `index_select`, `take` or `gather`
+    touches `points`, `labels` or `packed`, and nothing there reads a
+    device value on the host."""
+    import inspect
+    import re
+
+    from pointseg_torch.data import device as dev
+
+    flat = inspect.getsource(dev._sample_batch)
+    packed = inspect.getsource(dev._sample_batch_packed)
+    assert flat.count("gather_rows_flat(") == 2 and packed.count("gather_rows_flat(") == 1
+    for text in (flat, packed, inspect.getsource(dev._choose_rows),
+                 inspect.getsource(dev._finish_batch), inspect.getsource(dev._unpack),
+                 inspect.getsource(dev._DeviceStoreBase.sample),
+                 inspect.getsource(dev.DeviceEpochLoader.__iter__),
+                 inspect.getsource(dev.DeviceEpochLoader.scan_epoch)):
+        body = text.split('"""')[-1]  # past the docstring
+        assert not re.search(r"index_select|torch\.take|torch\.gather|\.item\(|nonzero|"
+                             r"\bint\(|\bfloat\(|\.cpu\(|\.numpy\(|\.tolist\(|"
+                             r"(points|labels|packed)\[", body), text
 
 
 def test_ball_query_source_holds_two_selection_kernels():

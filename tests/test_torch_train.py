@@ -3,7 +3,10 @@
 Loss and metrics go through pointseg.train and the port on the same
 numpy inputs (tolerance rtol 1e-5: the same float32 formulas summed in
 another order; counts exactly). The CLI trains PointNet++ end to end on
-a tiny synthetic dataset with `--device cpu`, and DGCNN likewise.
+a tiny synthetic dataset with `--device cpu`, and DGCNN likewise, also
+from the device-resident store (`--device-data` with every
+`--device-store`, `--pack-cache`, `--scan-steps`) and with
+`--accum-steps`.
 """
 
 import json
@@ -158,8 +161,83 @@ def test_cli_device_cuda_without_a_card_raises(tiny_blocks, tmp_path):
     assert not (tmp_path / "PointNet++").exists()  # refused before any work
 
 
+def _train_dgcnn(tiny_blocks, tmp_path, *flags):
+    """One epoch of DGCNN at 256 points through the CLI's own function;
+    returns (state, records)."""
+    args = cli.build_parser().parse_args(
+        ["train", "DGCNN", "--data-dir", tiny_blocks, "--device", "cpu", "--epochs", "1",
+         "--train-batch-size", "8", "--train-sampling", "256", "--test-sampling", "256",
+         "--num-workers", "0", "--log-dir", str(tmp_path / "logs"), "--log-interval", "2",
+         *flags])
+    return cli.train_from_args(args)
+
+
+@pytest.mark.parametrize("store,said", [
+    ("flat", "Device-resident train split (device): 45 blocks"),
+    ("compact", "Device-resident train split (compact): 45 blocks"),
+    ("auto", "Device-resident train split (device): 45 blocks"),
+    ("host", "Device store layout forced to host; using the chunked host prefetcher."),
+])
+def test_cli_trains_from_the_device_store_on_cpu(tiny_blocks, tmp_path, capsys, store, said):
+    state, rec = _train_dgcnn(tiny_blocks, tmp_path, "--device-data", "--device-store", store)
+    assert said in capsys.readouterr().out
+    assert state.step == 6  # 45 blocks at batch 8, the last batch filled up
+    assert math.isfinite(rec["train_loss"][0]) and math.isfinite(rec["val_loss"][0])
+    assert rec["config"]["device_data"] is True and rec["config"]["device_store"] == store
+
+
+def test_cli_pack_cache_hits_on_the_second_run(tiny_blocks, tmp_path, capsys, monkeypatch):
+    import pointseg_torch.data.device as dev
+
+    flags = ("--device-data", "--pack-cache", str(tmp_path / "cache"))
+    _, first = _train_dgcnn(tiny_blocks, tmp_path, *flags)
+    assert "Device-resident train split (compact)" in capsys.readouterr().out
+    assert len(list((tmp_path / "cache").glob("*/packed.npy"))) == 1
+
+    def no_raw_load(dataset, num_workers):
+        raise AssertionError("a pack-cache hit must not load raw blocks")
+
+    monkeypatch.setattr(dev, "_load_raw_blocks", no_raw_load)
+    _, second = _train_dgcnn(tiny_blocks, tmp_path, *flags)
+    assert "Device-resident train split (compact)" in capsys.readouterr().out
+    # the same store, seed and streams: the same epoch
+    np.testing.assert_allclose(second["train_loss"], first["train_loss"], rtol=1e-5)
+    monkeypatch.undo()
+    _train_dgcnn(tiny_blocks, tmp_path, *flags, "--device-store", "flat")
+    assert "note: --pack-cache is ignored with --device-store flat" in capsys.readouterr().out
+
+
+def test_cli_scan_steps_trains_the_same_epoch(tiny_blocks, tmp_path):
+    state_1, one = _train_dgcnn(tiny_blocks, tmp_path, "--device-data")
+    state_k, scanned = _train_dgcnn(tiny_blocks, tmp_path, "--device-data", "--scan-steps", "4")
+    assert state_1.step == state_k.step == 6
+    np.testing.assert_allclose(scanned["train_loss"], one["train_loss"], rtol=1e-5)
+    np.testing.assert_allclose(scanned["val_loss"], one["val_loss"], rtol=1e-4)
+
+
+def test_cli_accum_steps_counts_optimizer_updates(tiny_blocks, tmp_path):
+    state, rec = _train_dgcnn(tiny_blocks, tmp_path, "--accum-steps", "4")
+    assert state.step == 2  # 6 loader batches: a group of 4 and a trailing group of 2
+    assert math.isfinite(rec["train_loss"][0]) and rec["config"]["accum_steps"] == 4
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _train_dgcnn(tiny_blocks, tmp_path, "--accum-steps", "2", "--scan-steps", "2")
+
+
+def test_cli_refuses_accum_steps_with_device_data_before_the_store_is_built(
+        tiny_blocks, tmp_path, monkeypatch):
+    import pointseg_torch.data.device as dev
+
+    def no_store(*args, **kwargs):
+        raise AssertionError("the store must not be built")
+
+    monkeypatch.setattr(dev, "device_store_or_host_loader", no_store)
+    with pytest.raises(SystemExit, match="--accum-steps requires a host loader"):
+        _train_dgcnn(tiny_blocks, tmp_path, "--device-data", "--accum-steps", "2")
+    assert not (tmp_path / "logs").exists()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--bf16"], ["--device-data"], ["--scan-steps", "4"], ["--accum-steps", "2"],
+    ["--bf16"],
     ["--resume", "ckpt"], ["--data-parallel"], ["--warmup-steps", "10"],
     ["--lr-schedule", "cosine"], ["--grad-clip", "1.0"], ["--profile", "trace"],
 ])
