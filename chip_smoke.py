@@ -31,7 +31,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      repeated points and (2, 16384, 64); the two kernels must also equal
      each other. On the cloud with repeated points also with a mask,
      without the point itself, and both (ragged evaluation), where the
-     kernels must equal the plain version slot for slot.
+     kernels must equal the plain version slot for slot. Beside the
+     CUDA-event time of each shape: both kernels' device time per launch
+     from the profiler, and the flat kernel's floor (its arithmetic is
+     exact, so a product costs two float32 instructions, not one fused
+     one: twice the operation bound). Then 19 small shapes that the flat
+     kernel's tiles can get wrong (N = 37, 4099, 1100; F = 1 to 132 on the
+     16-byte and the 4-byte path; k = 1 and 32; one cloud; a view that is
+     not 16-byte aligned), each with and without the mask and the point
+     itself, flat and two-level equal to plain slot for slot.
    - the row gather at the EdgeConv shapes (8, 4096, 64 and 128) x
      81,920 rows and at every table PointNet++ gathers from in a step
      (centroid coordinates, the SA tables of odd width h + 3, the FP
@@ -49,6 +57,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      next), with indices that include row 0 and the last row. Every timed
      launch gets fresh random rows, as every training step does. Its
      bound counts the 32-byte sectors these rows touch, not their bytes.
+     Per case a line says whether the kernel's call or `index_select`'s
+     is faster under CUDA events, timed in turns (the check never fails
+     on a time).
+   - the host time of one flat-gather call, split into its parts and
+     into the steps it no longer takes, beside `index_select` and an
+     empty Python function (microseconds a call over 10,000 calls, host
+     clock, no synchronisation inside the loop).
+   - the flat gather and the flat kNN on a stream that is not the default
+     one (the input written behind a long wait on that stream) and inside
+     a captured CUDA graph replayed twice on new input, equal to the
+     plain versions: the launch path follows PyTorch's current stream
+     and makes no call that capture forbids.
    An index may differ from the plain version's only where the float64
    squared distances of the two picks differ by less than 1e-6 (counted
    and printed as tie flips). Each version is timed with CUDA events, in
@@ -199,8 +219,9 @@ def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
     """Mean device microseconds per call of `fn` inside kernels whose name
     contains `kernel`, from the profiler: unlike CUDA events around a loop
     of launches it holds none of the host's gaps between them. A trace
-    that comes back without the kernel is taken once more; NaN (printed as
-    such, and so marking every sum it enters) if that one lacks it too."""
+    that comes back without the kernel, or with fewer launches of it than
+    calls, is taken once more; NaN (printed as such, and so marking every
+    sum it enters) if that one is short too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -210,9 +231,10 @@ def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(device_time_us(e) for e in prof.key_averages() if kernel in e.key)
-        if total > 0:
-            return total / reps
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+        # a trace can come back a launch short: then it is taken again
+        if rows and sum(e.count for e in rows) % reps == 0:
+            return sum(device_time_us(e) for e in rows) / reps
     return float("nan")
 
 
@@ -479,7 +501,7 @@ def knn_kernels(device, record: Record) -> None:
         (block_cloud(rng, 8, 4096), "xyz", 1, 10, 3),
         (activations(rng, 8, 4096, 64), "activations", 3, 5, 2),
         (activations(rng, 4, 3000, 64, repeat_from=2000), "repeated points", 0, 5, 2),
-        (activations(rng, 2, 16384, 64), "eval bucket", 0, 2, 1),
+        (activations(rng, 2, 16384, 64), "eval bucket", 0, 5, 1),
     ]
     for x_np, what, per_forward, reps, plain_reps in cases:
         x = torch.from_numpy(x_np).to(device)
@@ -496,14 +518,77 @@ def knn_kernels(device, record: Record) -> None:
             check_knn_options(x, k)
         lib_ms = timed(lambda: knn_library(x, k), reps)
         flops, nbytes = 2.0 * B * N * N * F, 4 * B * N * F + 4 * B * N * k
+        times = {}
         for name, select in (("knn", "flat"), ("knn_2l", "two_level")):
             ms, plain_ms = timed_pair(lambda: knn_indices(x, k, select=select),
                                       lambda: knn_indices_plain(x, k), reps, plain_reps)
             record.note(name, (B, N, F, what), ms, plain_ms, lib_ms, flops, nbytes,
                         flips, err, per_forward)
+            times[name] = ms
+        # The kernels round every product and add it by itself: two float32
+        # instructions where the bound above counts one fused multiply-add,
+        # so an exact kernel's floor is twice the operation bound.
+        floor_ms = 2 * flops / PEAK_F32_FLOPS * 1e3
+        us = kernel_device_us(lambda: knn_indices(x, k), "knn_flat_kernel", reps=5)
+        us_2l = kernel_device_us(lambda: knn_indices(x, k, select="two_level"),
+                                 "knn_two_level_kernel", reps=5)
+        norms_us = kernel_device_us(lambda: knn_indices(x, k), "row_sqnorm_kernel", reps=5)
+        # with k = 1 a row's list takes some ln(N) insertions instead of
+        # k ln(N / k) + k: nearly the score pass and the tile votes alone
+        k1_us = kernel_device_us(lambda: knn_indices(x, 1), "knn_flat_kernel", reps=5)
+        print(f"{'':11s} device time a launch (profiler): knn_flat_kernel {us:.1f} us, "
+              f"knn_two_level_kernel {us_2l:.1f} us, the norms kernel {norms_us:.1f} us; "
+              f"exact-arithmetic floor {floor_ms:.4f} ms (two instructions a product at "
+              f"{PEAK_F32_FLOPS / 2e12:.1f} T instructions/s): the flat kernel takes "
+              f"{us / 1e3 / floor_ms:.2f}x its floor on the device, "
+              f"{times['knn'] / floor_ms:.2f}x under CUDA events; at k = 1 (nearly no "
+              f"insertions) {k1_us:.1f} us, so the insertions of k = {k} cost "
+              f"{us - k1_us:.1f} us")
+    print(f"{'':11s} SM clock right after the timed loops: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    knn_edge_cases(device)
 
 
-def check_knn_options(x, k: int) -> None:
+def knn_edge_cases(device) -> None:
+    """Shapes the flat kernel's tiles can get wrong, each against the plain
+    version slot for slot, with and without `mask` and
+    `include_self=False`, and flat against two-level: N no multiple of the
+    128-candidate tile or of the rows of a block (4099, 37, 1100), row
+    widths on the 16-byte path (64, 128, 8, 12), on the 4-byte path (1, 3,
+    6, 9, 67) and past one 64-feature chunk (67, 128, 132), k = 1 and 32,
+    one cloud, a view that is not 16-byte aligned, and batches small
+    enough that a warp takes four or two query rows instead of eight."""
+    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+
+    rng = np.random.default_rng(14)
+    cases = [  # (B, N, F, k)
+        (2, 4099, 64, 20), (1, 37, 64, 20), (1, 37, 3, 20), (2, 500, 1, 20), (2, 500, 3, 1),
+        (2, 500, 6, 32), (2, 500, 9, 20), (2, 300, 64, 32), (2, 500, 67, 20), (2, 500, 128, 20),
+        (1, 700, 128, 1), (1, 1000, 64, 20), (2, 400, 8, 20), (2, 400, 12, 32),
+        (1, 130, 132, 7), (8, 1100, 64, 20), (8, 1100, 9, 20), (5, 4099, 3, 32),
+    ]
+    for B, N, F, k in cases:
+        x = torch.from_numpy(activations(rng, B, N, F, repeat_from=N - N // 4)).to(device)
+        want = knn_indices_plain(x, k)
+        for select in ("flat", "two_level"):
+            got = knn_indices(x, k, select=select)
+            if not torch.equal(got, want):
+                raise AssertionError(f"kNN {select} {(B, N, F, k)}: {int((got != want).sum())} "
+                                     f"slots differ from plain")
+        check_knn_options(x, k, quiet=True)
+    # the same rows at an address that is 4 bytes past a 16-byte boundary
+    x = torch.from_numpy(activations(rng, 2, 400, 8)).to(device)
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view_as(x).copy_(x)
+    if shifted.data_ptr() % 16 == 0 or not torch.equal(knn_indices(shifted, 20),
+                                                        knn_indices_plain(x, 20)):
+        raise AssertionError("kNN on a view that is not 16-byte aligned differs from plain")
+    print(f"{'':11s} {len(cases) + 1} more shapes (N = 37, 4099, 1100; F = 1, 3, 6, 8, 9, 12, "
+          f"64, 67, 128, 132; k = 1, 20, 32; B = 1, 2, 5, 8; a misaligned view), each with "
+          f"mask, without self, and both: flat and two-level equal plain slot for slot")
+
+
+def check_knn_options(x, k: int, quiet: bool = False) -> None:
     """`mask` and `include_self=False` run in both kernels and give the
     plain version's lists, slot for slot."""
     from pointseg_torch.ops import _kernels
@@ -522,9 +607,10 @@ def check_knn_options(x, k: int) -> None:
             if _kernels.LAUNCHES[counter] != before + 1:
                 raise AssertionError(f"kNN {select} with {sorted(kwargs)} launched no kernel")
             if not torch.equal(got, want):
-                raise AssertionError(f"kNN {select} with {sorted(kwargs)}: "
+                raise AssertionError(f"kNN {select} {tuple(x.shape)} k={k} with {sorted(kwargs)}: "
                                      f"{int((got != want).sum())} slots differ from plain")
-    print(f"{'':11s} with mask, without self, and both: flat and two-level equal plain")
+    if not quiet:
+        print(f"{'':11s} with mask, without self, and both: flat and two-level equal plain")
 
 
 # What one PointNet++ step gathers from, (N, C, idx shape): per SA stage
@@ -629,12 +715,17 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
             it = iter(rows)
             return cuda_ms(lambda: fn(table, next(it)), reps)
 
+        # index_select alone: what the plain version calls after its checks
+        def index_select(t, i):
+            return torch.index_select(t, 0, i)
+
         p1 = over_fresh_rows(gather_rows_flat_plain)
+        l1 = over_fresh_rows(index_select)
         k1 = over_fresh_rows(gather_rows_flat)
         k2 = over_fresh_rows(gather_rows_flat)
+        l2 = over_fresh_rows(index_select)
         p2 = over_fresh_rows(gather_rows_flat_plain)
-        # index_select alone: what the plain version calls after its checks
-        lib_ms = over_fresh_rows(lambda t, i: torch.index_select(t, 0, i))
+        lib_ms = (l1 + l2) / 2
         us = kernel_device_us(lambda: gather_rows_flat(table, fresh()), "gather_rows_flat_kernel")
         # whatever kernels `index_select` runs (their names change with the
         # row width and the PyTorch version): all device time of the calls
@@ -651,6 +742,11 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
         print(f"{'':11s} device time a launch (profiler): kernel {us:.1f} us, index_select's "
               f"kernels {lib_us:.1f} us; sectors {nbytes - 8 * mrows - mrows * row_bytes} B, "
               f"rows {mrows * row_bytes} B")
+        call_ms = (k1 + k2) / 2
+        print(f"{'':11s} a call under CUDA events, in turns: kernel {call_ms * 1e3:.2f} us "
+              f"({k1 * 1e3:.2f}, {k2 * 1e3:.2f}), index_select {lib_ms * 1e3:.2f} us "
+              f"({l1 * 1e3:.2f}, {l2 * 1e3:.2f}): the kernel's call is "
+              f"{'faster' if call_ms <= lib_ms else 'slower'} ({call_ms / lib_ms:.2f}x)")
 
     odd = 12_347  # rows to gather: a prime
     for what, width, dtype, per_step in (("labels", None, torch.uint8, 1),
@@ -673,6 +769,160 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
         case(table, f"{what}, all of S3DIS", odd, 0, reps=5)
         del table
         torch.cuda.empty_cache()
+
+
+def host_us(fn, calls: int = 10_000) -> float:
+    """Host microseconds per call of `fn` over `calls` calls, by the host's
+    clock with no synchronisation inside the loop: what the call costs the
+    thread that launches the work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def launch_path_split(device) -> None:
+    """Where the host time of one `gather_rows_flat` call goes: 32,768 rows
+    of the 240,000-row table of nine floats. Each part is timed by itself
+    (the parts of the call as it is now, then the steps it no longer
+    takes), beside the whole call, `torch.index_select` and an empty
+    Python function."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.gather import gather_rows_flat
+
+    gen = torch.Generator(device).manual_seed(11)
+    table = torch.rand((SYNTHETIC_ROWS, 9), device=device, generator=gen)
+    idx = torch.randint(0, SYNTHETIC_ROWS, (SAMPLED_ROWS,), device=device, generator=gen)
+    out = torch.empty((SAMPLED_ROWS, 9), device=device)
+    _kernels.library()
+    symbol = "pointseg_gather_rows_flat"
+    entry = _kernels._ENTRY_POINTS[symbol]
+    index = device.index
+    stream = _kernels._raw_stream(index)
+    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), SYNTHETIC_ROWS, SAMPLED_ROWS, 36)
+
+    def empty_call():
+        pass
+
+    def checks():  # the tests the public function and its CUDA path make
+        dtype = idx.dtype
+        return (idx.dim() != 1 or (dtype != torch.int64 and (idx.is_floating_point()
+                                                             or dtype == torch.bool))
+                or table.dim() < 1 or not table.is_cuda or idx.device != table.device
+                or not table.is_contiguous() or idx.dtype != torch.int64
+                or not idx.is_contiguous())
+
+    def sizes_and_pointers():
+        return (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], idx.shape[0],
+                out.stride(0) * out.element_size(), out.numel())
+
+    def guard():
+        with torch.cuda.device(device):
+            pass
+
+    def count():
+        _kernels.LAUNCHES["gather_rows_flat"] += 0
+
+    now = [
+        ("argument checks", checks),
+        ("table.new_empty of the output", lambda: table.new_empty((idx.shape[0],
+                                                                   *table.shape[1:]))),
+        ("pointers, sizes, row bytes", sizes_and_pointers),
+        ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
+        ("the ctypes call (launches the kernel)", lambda: entry(*args, index, stream)),
+        ("launch counter", count),
+    ]
+    before = [
+        ("`with torch.cuda.device(device)`", guard),
+        ("torch.cuda.current_stream(device).cuda_stream",
+         lambda: torch.cuda.current_stream(device).cuda_stream),
+        ("getattr(library(), symbol)", lambda: getattr(_kernels.library(), symbol)),
+        ("idx.to(int64).contiguous() on an int64 index", lambda: idx.to(torch.int64).contiguous()),
+        ("math.prod(table.shape[1:])", lambda: math.prod(table.shape[1:])),
+        ("torch.empty(shape, dtype=, device=) of the output, less new_empty's time",
+         lambda: torch.empty((SAMPLED_ROWS, 9), dtype=table.dtype, device=table.device)),
+    ]
+    whole = host_us(lambda: gather_rows_flat(table, idx))
+    library_call = host_us(lambda: torch.index_select(table, 0, idx))
+    nothing = host_us(empty_call)
+    print(f"host time of one gather_rows_flat call ({SAMPLED_ROWS} rows of 36 bytes from "
+          f"{SYNTHETIC_ROWS}), us a call over 10,000 calls, host clock, no synchronisation:")
+    print(f"  whole call {whole:.2f}; torch.index_select {library_call:.2f}; an empty Python "
+          f"function {nothing:.3f}")
+    parts = {name: host_us(fn) for name, fn in now}
+    total = sum(parts.values())
+    for name, us in parts.items():
+        print(f"  part of the call: {name:45s} {us:7.2f}")
+    print(f"  parts summed {total:.2f} (each part pays an empty call's {nothing:.3f} again)")
+    gone = 0.0
+    for name, fn in before:
+        us = host_us(fn)
+        if name.startswith("torch.empty"):
+            us -= parts["table.new_empty of the output"]
+        gone += us
+        print(f"  no longer in the call: {name:45s} {us:7.2f}")
+    print(f"  steps no longer taken, summed {gone:.2f}")
+
+
+def streams_and_graphs(device) -> None:
+    """Kernels 8 and 4 on a stream that is not the default one, and inside
+    a captured CUDA graph that is replayed on new input; each result equal
+    to the plain version's. On the side stream the input is written behind
+    a long wait, so a launch that went to another stream would read it too
+    early."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.gather import gather_rows_flat, gather_rows_flat_plain
+    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device).manual_seed(13)
+    table = torch.rand((SYNTHETIC_ROWS, 9), device=device, generator=gen)
+    rows = [torch.randint(0, SYNTHETIC_ROWS, (SAMPLED_ROWS,), device=device, generator=gen)
+            for _ in range(2)]
+    clouds = [torch.from_numpy(activations(rng, 2, 1024, 64)).to(device) for _ in range(2)]
+    runs = {
+        "gather_rows_flat": (lambda i: gather_rows_flat(table, i),
+                             lambda i: gather_rows_flat_plain(table, i), rows),
+        "knn": (lambda x: knn_indices(x, K_NEIGHBOURS),
+                lambda x: knn_indices_plain(x, K_NEIGHBOURS), clouds),
+    }
+    side = torch.cuda.Stream(device)
+    for name, (kernel_fn, plain_fn, (first, second)) in runs.items():
+        want_first, want_second = plain_fn(first), plain_fn(second)
+        inp = torch.zeros_like(first)
+        torch.cuda.synchronize()
+        before = _kernels.LAUNCHES[name]
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(40_000_000)  # some 20 ms on the side stream
+            inp.copy_(first)
+            got = kernel_fn(inp)
+        side.synchronize()
+        if _kernels.LAUNCHES[name] != before + 1 or not torch.equal(got, want_first):
+            raise AssertionError(f"{name} on a side stream differs from the plain version")
+
+        with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+            kernel_fn(inp)
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kernel_fn(inp)
+        inp.copy_(second)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, want_second):
+            raise AssertionError(f"{name} replayed from a CUDA graph on new input differs from "
+                                 f"the plain version")
+        inp.copy_(first)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, want_first):
+            raise AssertionError(f"{name}: the second replay differs from the plain version")
+        print(f"{name:16s} on a side stream, and captured in a CUDA graph and replayed on new "
+              f"input twice: equal to the plain version")
 
 
 def zero_launches() -> None:
@@ -1200,6 +1450,8 @@ def main() -> int:
     gather_kernels(device, record)
     gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
+    launch_path_split(device)
+    streams_and_graphs(device)
 
     phase("4. trainers")
     workdir = tempfile.mkdtemp(prefix="pointseg_smoke_")

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -349,7 +351,9 @@ __global__ void ball_query_two_level_kernel(const float* __restrict__ centroids,
 template <typename Kernel>
 int launch_ball_query(Kernel kernel, const void* centroids, const void* coords, const void* mask,
                       void* out_idx, void* out_in_ball, int B, int C, int N, int K, float r2,
-                      void* stream) {
+                      int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const dim3 grid((C + kWarps - 1) / kWarps, B);
   kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(centroids), static_cast<const float*>(coords),
@@ -362,11 +366,13 @@ int launch_ball_query(Kernel kernel, const void* centroids, const void* coords, 
 
 // centroids (B, C, 3) f32, coords (B, N, 3) f32, mask (B, N) bool or null,
 // out_idx (B, C, K) i32, out_in_ball (B, C, K) bool. Needs 1 <= K <= 32, K <= N.
+// `device` is the tensors' device, `stream` a stream of it.
 extern "C" int pointseg_ball_query(const void* centroids, const void* coords,
                                    const void* mask, void* out_idx, void* out_in_ball,
-                                   int B, int C, int N, int K, float r2, void* stream) {
+                                   int B, int C, int N, int K, float r2, int device,
+                                   void* stream) {
   return launch_ball_query(ball_query_kernel, centroids, coords, mask, out_idx, out_in_ball, B,
-                           C, N, K, r2, stream);
+                           C, N, K, r2, device, stream);
 }
 
 // As pointseg_ball_query, by the two-level selection with per-lane stacks
@@ -374,17 +380,17 @@ extern "C" int pointseg_ball_query(const void* centroids, const void* coords,
 extern "C" int pointseg_ball_query_2l(const void* centroids, const void* coords,
                                       const void* mask, void* out_idx, void* out_in_ball,
                                       int B, int C, int N, int K, float r2, int depth,
-                                      void* stream) {
+                                      int device, void* stream) {
   switch (depth) {
     case 1:
       return launch_ball_query(ball_query_two_level_kernel<1>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, stream);
+                               out_in_ball, B, C, N, K, r2, device, stream);
     case 4:
       return launch_ball_query(ball_query_two_level_kernel<4>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, stream);
+                               out_in_ball, B, C, N, K, r2, device, stream);
     case 5:
       return launch_ball_query(ball_query_two_level_kernel<5>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, stream);
+                               out_in_ball, B, C, N, K, r2, device, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -147,10 +149,13 @@ __global__ void fps_kernel(const float* __restrict__ coords,
 }  // namespace
 
 // coords (B, N, 3) f32, start (B,) i32, mask (B, N) bool or null,
-// out (B, C) i32, dist_scratch (B, N) f32 (used when N > kMaxSmemPoints).
+// out (B, C) i32, dist_scratch (B, N) f32 (used when N > kMaxSmemPoints);
+// `device` is the tensors' device, `stream` a stream of it.
 extern "C" int pointseg_fps(const void* coords, const void* start, const void* mask,
                             void* out, void* dist_scratch, int B, int N, int C,
-                            void* stream) {
+                            int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const int threads = std::min(kMaxThreads, ((N + 31) / 32) * 32);
   const bool in_smem = N <= kMaxSmemPoints;
   const size_t smem = in_smem ? static_cast<size_t>(N) * 4 * sizeof(float) : 0;

@@ -34,6 +34,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -117,8 +119,11 @@ int launch_flat(const void* table, const void* idx, void* out, long long R, long
 }  // namespace
 
 // table (B, N, C) of 4-byte elements, idx (B, M) i32, out (B, M, C). B <= 65535.
+// Here and below `device` is the tensors' device, `stream` a stream of it.
 extern "C" int pointseg_gather_rows(const void* table, const void* idx, void* out, int B, int N,
-                                    int M, int C, void* stream) {
+                                    int M, int C, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const auto s = static_cast<cudaStream_t>(stream);
   const bool aligned = (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0);
@@ -129,7 +134,9 @@ extern "C" int pointseg_gather_rows(const void* table, const void* idx, void* ou
 // table (R rows of row_bytes bytes), idx (M) i64, out (M rows of row_bytes bytes).
 extern "C" int pointseg_gather_rows_flat(const void* table, const void* idx, void* out,
                                          long long R, long long M, long long row_bytes,
-                                         void* stream) {
+                                         int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const auto s = static_cast<cudaStream_t>(stream);
   if (row_bytes <= 0 || row_bytes > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);

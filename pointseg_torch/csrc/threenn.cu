@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -119,10 +121,13 @@ __global__ void three_nn_kernel(const float* __restrict__ tgt,
 }  // namespace
 
 // tgt (B, N, 3) f32, src (B, M, 3) f32, src_mask (B, M) bool or null,
-// out_d (B, N, 3) f32, out_i (B, N, 3) i32. Needs M >= 3.
+// out_d (B, N, 3) f32, out_i (B, N, 3) i32. Needs M >= 3. `device` is the
+// tensors' device, `stream` a stream of it.
 extern "C" int pointseg_three_nn(const void* tgt, const void* src, const void* src_mask,
                                  void* out_d, void* out_i, int B, int N, int M,
-                                 void* stream) {
+                                 int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   three_nn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tgt), static_cast<const float*>(src),

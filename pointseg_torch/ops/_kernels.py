@@ -11,8 +11,35 @@ shared library with a plain C interface, loaded with `ctypes`. The
 library goes to `build/pointseg_torch/<hash>/` at the root of the
 checkout, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is compiled once. Each C entry point
-takes device pointers, ints and the current CUDA stream, launches without
-synchronising and returns `cudaGetLastError()`.
+takes device pointers, ints, the index of the tensors' device and the
+current CUDA stream of that device, launches without synchronising and
+returns `cudaGetLastError()`.
+
+What a launch costs the host, and why it is built the way it is. The
+small kernels (FPS at the deep stages, the ball queries, 3-NN, the row
+gathers) run 2-70 us on an H100, so a model of the PointNet++ family is
+bound by how fast the host can launch them, and a call that costs more
+host time than `torch.index_select`'s dispatch (15-17 us on the H100's
+host) loses to it under CUDA events however fast its kernel is. `launch`
+therefore does nothing that does not depend on its arguments: the entry
+points are bound once, at load, into `_ENTRY_POINTS` (no attribute
+lookup on the library per call); the device is made current inside the C
+entry point, by `DeviceScope` of `csrc/launch.cuh`, which switches only
+when another device is current (a Python `with torch.cuda.device(...)`
+costs 3-5 us a call); and the stream comes as a raw handle from
+`torch._C._cuda_getCurrentRawStream` (0.2 us), the accessor Triton's
+launcher uses, instead of a `torch.cuda.Stream` object built per call
+(5-6 us). What remains of a flat-gather call's 19 us is the output's
+allocation (5-7 us, which `index_select` pays too), the ctypes call
+itself (6 us: it converts each argument by its `argtypes` entry, and
+holds the CUDA launch) and the wrapper's checks and pointer reads (3
+us). `chip_smoke.py` prints this split in microseconds a call, beside
+`index_select` and an empty Python call; the figures here are its, on the
+fastest host of four NVIDIA H100 80GB HBM3 machines (the slowest took 1.5
+times as long for every part). The launch goes to PyTorch's current
+stream of the tensors' device, so it orders with the PyTorch work around
+it, runs on a stream chosen with `torch.cuda.stream` and is captured by
+`torch.cuda.graph`.
 
 `LAUNCHES` counts, per kernel, the launches that returned without error;
 `chip_smoke.py` reads it to show that the training path ran the kernels.
@@ -31,6 +58,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fps.cu", "ballquery.cu", "threenn.cu", "knn.cu", "gather.cu")
+HEADERS = ("launch.cuh",)  # included by every source
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pointseg_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,32 +69,36 @@ LAUNCHES = {"fps": 0, "ball_query": 0, "ball_query_2l": 0, "three_nn": 0,
             "knn": 0, "knn_2l": 0, "gather_rows": 0, "gather_rows_flat": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-_SIGNATURES = {
-    # coords, start, mask, out, dist_scratch, B, N, C, stream
-    "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, stream
-    "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth, stream
-    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # tgt, src, src_mask, out_d, out_i, B, N, M, stream
-    "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, norms_scratch, mask, out, B, N, F, K, include_self, stream
-    "pointseg_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, norms_scratch, mask, out, B, N, F, K, include_self, depth, stream
-    "pointseg_knn_2l": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # table, idx, out, B, N, M, C, stream
-    "pointseg_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # table, idx, out, R, M, row_bytes, stream
-    "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _P),
+_SIGNATURES = {  # every entry point ends with (device index, stream)
+    # coords, start, mask, out, dist_scratch, B, N, C
+    "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2
+    "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth
+    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # tgt, src, src_mask, out_d, out_i, B, N, M
+    "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, norms_scratch, mask, out, B, N, F, K, include_self
+    "pointseg_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, norms_scratch, mask, out, B, N, F, K, include_self, depth
+    "pointseg_knn_2l": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # table, idx, out, B, N, M, C
+    "pointseg_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # table, idx, out, R, M, row_bytes
+    "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None
+# symbol -> the bound C function, argument types set; filled by `library()`
+_ENTRY_POINTS: dict = {}
+# device index -> raw handle of PyTorch's current stream there; set by `library()`
+_raw_stream = None
 
 
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (kernel), False for a CPU one (plain
     version); raises for any other device."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -93,7 +125,7 @@ def build() -> Path:
     """Compiles the kernels unless this exact build exists; returns the
     shared library's path."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
@@ -123,24 +155,30 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first call)."""
-    global _library
+    """The loaded kernel library (built at first call). Loading binds
+    every entry point, with its argument types, into `_ENTRY_POINTS`, and
+    picks the stream accessor."""
+    global _library, _raw_stream
     if _library is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = lib[name]
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _ENTRY_POINTS[name] = fn
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         _library = lib
     return _library
 
 
 def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
-    """Calls C entry point `symbol` on `device`'s current stream and
-    counts the launch under `kernel`; raises on a CUDA error."""
-    fn = getattr(library(), symbol)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Calls C entry point `symbol` on the current stream of `device` (a
+    tensor's: it has an index) and counts the launch under `kernel`;
+    raises on a CUDA error. Does not synchronise."""
+    if _library is None:
+        library()
+    index = device.index
+    err = _ENTRY_POINTS[symbol](*args, index, _raw_stream(index))
     if err != 0:
         raise torch.cuda.CudaError(err)
     LAUNCHES[kernel] += 1

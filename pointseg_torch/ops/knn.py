@@ -10,7 +10,8 @@ in (score descending, index ascending) order: equal scores, as between
 repeated points, resolve to the lowest index.
 
 On a CUDA tensor the selection is one launch of `csrc/knn.cu`: the flat
-kernel (`select="flat"`, the default) or the two-level kernel
+kernel (`select="flat"`, the default; eight query rows a warp in a
+register tile, 16-byte loads when F is a multiple of 4) or the two-level kernel
 (`select="two_level"`, the counterpart of the JAX package's
 `use_select2l` setting; here a function argument). Both give the same
 indices, and both take `mask` and `include_self` themselves (the JAX
@@ -27,7 +28,12 @@ from pointseg_torch.ops.gather import gather_rows
 
 SELECTS = ("flat", "two_level")
 MAX_K = 32  # the flat kernel keeps one list slot per warp lane
-MAX_F = 384  # the feature-major candidate tile must fit shared memory
+# Shared memory of a block (227 KB on an H100). The flat kernel streams the
+# features in chunks of 64, so only its 64 query rows grow with F: it would
+# take F <= 631. The two-level kernel holds a whole feature-major tile of
+# 128 candidates (129 F + 8 F floats): F <= 423. One limit for both, with
+# room to spare:
+MAX_F = 384
 PLAIN_BLOCK_BYTES = 64 << 20  # size of one (B, rows, N) score block
 
 

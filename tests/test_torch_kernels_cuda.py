@@ -232,6 +232,104 @@ def test_knn_kernels_match_plain(device, select, counter, B, N, F, k, dup):
     torch.testing.assert_close(got, knn_indices_plain(x, k), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,N,F,k", [
+    (2, 4099, 64, 20), (1, 37, 64, 20), (1, 37, 3, 20), (2, 500, 1, 20), (2, 500, 3, 1),
+    (2, 500, 6, 32), (2, 500, 9, 20), (2, 300, 64, 32), (2, 500, 67, 20), (2, 500, 128, 20),
+    (1, 700, 128, 1), (2, 400, 8, 20), (2, 400, 12, 32), (1, 130, 132, 7), (1, 200, 384, 20),
+    (8, 1100, 64, 20), (8, 1100, 9, 20), (5, 4099, 3, 32)])
+def test_knn_flat_kernel_tile_edges_match_plain_and_two_level(device, B, N, F, k):
+    """What the flat kernel's register tile can get wrong: N no multiple of
+    the 128-candidate tile or of a block's query rows, row widths on the
+    16-byte path (multiples of 4) and on the 4-byte path, more than one
+    64-feature chunk, the widest F, k = 1 and 32, and batches small enough
+    that a warp takes four or two query rows ((8, 1100): four). With and
+    without `mask` and `include_self=False`; the tail repeats the head."""
+    x = _features(27, B, N, F, device, dup_from=N - N // 4)
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(3)).to(device) < 0.8
+    mask[0, 10:] = False  # a cloud with fewer than k points left
+    for kwargs in ({}, {"mask": mask}, {"include_self": False},
+                   {"mask": mask, "include_self": False}):
+        want = knn_indices_plain(x, k, **kwargs)
+        before = dict(_kernels.LAUNCHES)
+        got = knn_indices(x, k, **kwargs)
+        assert _kernels.LAUNCHES["knn"] == before["knn"] + 1
+        assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(knn_indices(x, k, select="two_level", **kwargs), want,
+                                   rtol=0, atol=0)
+
+
+def test_knn_flat_kernel_on_rows_that_are_not_16_byte_aligned(device):
+    """F % 4 == 0 at an address 4 bytes past a 16-byte boundary takes the
+    4-byte path and gives the same lists."""
+    x = _features(28, 2, 400, 8, device)
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view_as(x).copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(knn_indices(shifted, 20), knn_indices_plain(x, 20), rtol=0, atol=0)
+
+
+def _launch_cases(device):
+    """(name, kernel call, plain call, two inputs) for kernels 8 and 4."""
+    gen = torch.Generator(device).manual_seed(43)
+    table = torch.rand((240_000, 9), device=device, generator=gen)
+    rows = [torch.randint(0, 240_000, (8 * 4096,), device=device, generator=gen)
+            for _ in range(2)]
+    clouds = [_features(29 + i, 2, 1024, 64, device) for i in range(2)]
+    return [("gather_rows_flat", lambda i: gather_rows_flat(table, i),
+             lambda i: gather_rows_flat_plain(table, i), rows),
+            ("knn", lambda x: knn_indices(x, 20), lambda x: knn_indices_plain(x, 20), clouds)]
+
+
+def test_kernels_launch_on_the_current_stream_not_the_default_one(device):
+    """Under `torch.cuda.stream(side)` the input is written behind a long
+    wait on `side`; a launch that went to another stream would read it
+    before it is there."""
+    side = torch.cuda.Stream(device)
+    for name, kernel_fn, plain_fn, (first, _) in _launch_cases(device):
+        want = plain_fn(first)
+        inp = torch.zeros_like(first)
+        torch.cuda.synchronize()
+        before = _kernels.LAUNCHES[name]
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(40_000_000)
+            inp.copy_(first)
+            got = kernel_fn(inp)
+        side.synchronize()
+        assert _kernels.LAUNCHES[name] == before + 1
+        assert torch.equal(got, want), name
+
+
+def test_kernels_are_captured_by_a_cuda_graph_and_replayed_on_new_input(device):
+    side = torch.cuda.Stream(device)
+    for name, kernel_fn, plain_fn, (first, second) in _launch_cases(device):
+        inp = first.clone()
+        with torch.cuda.stream(side):  # warm-up off the default stream
+            kernel_fn(inp)
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kernel_fn(inp)
+        for x in (second, first):
+            inp.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, plain_fn(x)), name
+
+
+def test_launch_makes_another_device_current_only_for_the_call(device):
+    """With two cards: a tensor on the second one while the first is
+    current launches there and leaves the first current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    table = torch.rand((1000, 9), device=other)
+    idx = torch.randint(0, 1000, (333,), device=other)
+    assert torch.cuda.current_device() == 0
+    got = gather_rows_flat(table, idx)
+    assert torch.cuda.current_device() == 0 and got.device == other
+    assert torch.equal(got, gather_rows_flat_plain(table, idx))
+
+
 @pytest.mark.parametrize("depth", [1, 4, 5])
 def test_two_level_knn_is_exact_at_every_depth(device, depth):
     # shallow stacks and repeated points force the rescan

@@ -85,6 +85,72 @@ def test_knn_matches_pallas_kernels_in_interpret_mode(select):
     _assert_same_neighbours(x, got.numpy(), want)
 
 
+# Shapes that the flat CUDA kernel's tiles treat differently (its plain
+# version is what runs here): N below one 128-candidate tile (37) and no
+# multiple of a tile or of a block's 64 query rows (131, standing for the
+# card's 4099), row widths on its 4-byte path (1, 3, 6, 9, 67), on its
+# 16-byte path (64, 128) and past one 64-feature chunk (67, 128), k = 1 and
+# k = 32, one cloud.
+TILE_EDGE_SHAPES = [(1, 37, 64, 20), (2, 131, 64, 20), (2, 131, 1, 20), (2, 131, 3, 20),
+                    (2, 131, 6, 20), (2, 131, 9, 20), (2, 131, 67, 20), (2, 131, 64, 1),
+                    (2, 131, 64, 32), (1, 131, 9, 32), (1, 131, 128, 20)]
+
+
+@pytest.mark.parametrize("options", ["plain", "mask", "no_self", "mask_no_self"])
+@pytest.mark.parametrize("B,N,F,k", TILE_EDGE_SHAPES)
+def test_knn_tile_edge_shapes_equal_the_jax_oracle(B, N, F, k, options):
+    """Indices equal, not only as sets. XLA sums the Gram product in its
+    own order, so at a large N some input seeds swap a near-tie; at these
+    sizes seeds 0, 1 and 2 all agree for every shape and option (searched),
+    and seed 0 is pinned. After a change to the score arithmetic, search
+    again before loosening anything."""
+    x = _activations(0, B, N, F)
+    mask = np.random.default_rng(1000).random((B, N)) > 0.3
+    kw_j, kw_t = {}, {}
+    if "mask" in options:
+        kw_j["mask"], kw_t["mask"] = jnp.asarray(mask), torch.from_numpy(mask)
+    if "no_self" in options:
+        kw_j["include_self"] = kw_t["include_self"] = False
+    want = np.asarray(jops.knn_indices(jnp.asarray(x), k, **kw_j))
+    before = dict(_kernels.LAUNCHES)
+    for select in ("flat", "two_level"):  # one plain version behind both on the CPU
+        got = tops.knn_indices(torch.from_numpy(x), k, select=select, **kw_t).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    assert _kernels.LAUNCHES == before
+    if "no_self" in options:
+        assert not (want == np.arange(N)[None, :, None]).any()
+
+
+@pytest.mark.parametrize("B,N,F,k", [(2, 256, 9, 32), (2, 256, 67, 20)])
+def test_knn_tile_edge_shapes_equal_the_pallas_kernels_in_interpret_mode(B, N, F, k):
+    """Two of the added widths (the 4-byte path; past one feature chunk)
+    against both Pallas kernels, which need N % 128 == 0. Seed 0 pinned as
+    above (seeds 0-2 agree)."""
+    x = _activations(0, B, N, F)
+    with pltpu.force_tpu_interpret_mode():
+        flat = np.asarray(knn_indices_pallas(jnp.asarray(x), k, tile=64))
+        two_level = np.asarray(knn_indices_pallas_2l(jnp.asarray(x), k, tile=128, seg=128))
+    got = tops.knn_indices(torch.from_numpy(x), k).numpy()
+    np.testing.assert_array_equal(got, flat)
+    np.testing.assert_array_equal(got, two_level)
+
+
+def test_knn_cuda_limits_are_the_kernels():
+    """`MAX_F` and `MAX_K` are what `csrc/knn.cu` can take: one list slot a
+    lane, and the two-level kernel's whole-F tile within a block's shared
+    memory (the flat kernel, which streams 64 features at a time, takes
+    more)."""
+    from pointseg_torch.ops import knn as knn_module
+
+    shared = 227 * 1024
+    two_level = lambda F: 4 * (F * 129 + 128 + 8 * F)  # noqa: E731
+    flat = lambda F: 4 * (64 * F + 64 + 2 * 128 + 2 * 128 * 68)  # noqa: E731
+    assert knn_module.MAX_K == 32
+    assert two_level(knn_module.MAX_F) <= shared and flat(knn_module.MAX_F) <= shared
+    assert two_level(424) > shared and flat(631) <= shared < flat(632)
+
+
 def test_knn_repeated_points_resolve_to_the_lowest_index():
     """Coordinates on a 1/8 grid, the tail repeating the head: many exact
     ties, and every product and sum is exact in float32 whatever its

@@ -11,7 +11,10 @@
 """
 
 import ast
+import ctypes
+import inspect
 import pathlib
+import re
 import tomllib
 
 import numpy as np
@@ -105,16 +108,104 @@ def test_kernel_build_targets_hopper_and_sources_ship():
     for symbol in _kernels._SIGNATURES:  # every bound entry point is defined in a source
         assert any(f'extern "C" int {symbol}(' in (_kernels.CSRC / name).read_text()
                    for name in _kernels.SOURCES), symbol
+    for name in _kernels.HEADERS:  # shipped, and part of the build's hash
+        assert (_kernels.CSRC / name).is_file(), name
+    assert set(_kernels.HEADERS) == {p.name for p in _kernels.CSRC.glob("*.cuh")}
+    assert "SOURCES + HEADERS" in inspect.getsource(_kernels.build)
     assert _kernels.BUILD_ROOT.is_relative_to(REPO / "build")  # listed in .gitignore
     meta = tomllib.loads((REPO / "pyproject.toml").read_text())
-    assert "csrc/*.cu" in meta["tool"]["setuptools"]["package-data"]["pointseg_torch"]
+    shipped = meta["tool"]["setuptools"]["package-data"]["pointseg_torch"]
+    assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
+
+
+def test_launch_does_no_work_that_does_not_depend_on_its_arguments():
+    """`launch` is the host cost of every kernel call: no context manager,
+    no attribute lookup on the library, no stream object, no build or
+    load check beyond one `is None`; the entry points are bound once, by
+    `library()`, into `_ENTRY_POINTS` with their argument types."""
+    body = inspect.getsource(_kernels.launch).split('"""')[-1]  # past the docstring
+    for banned in (r"\bwith\b", r"getattr\(", r"torch\.cuda\.device\(", r"current_stream\(",
+                   r"\.cuda_stream", r"argtypes", r"synchronize", r"\btry\b", r"ctypes\."):
+        assert not re.search(banned, body), banned
+    assert "_ENTRY_POINTS[symbol](*args, index, _raw_stream(index))" in body
+    assert "LAUNCHES[kernel] += 1" in body and "CudaError(err)" in body
+    loader = inspect.getsource(_kernels.library)
+    assert "fn.argtypes = argtypes" in loader and "_ENTRY_POINTS[name] = fn" in loader
+    assert "_cuda_getCurrentRawStream" in loader
+
+
+def test_launch_passes_device_and_stream_last_counts_and_raises(monkeypatch):
+    """With a stand-in for the loaded library: the entry point gets the
+    wrapper's arguments, then the device index, then that device's raw
+    stream handle; a zero return counts one launch, any other raises and
+    counts none."""
+    seen = []
+
+    def entry(*args):
+        seen.append(args)
+        return 0 if args[0] == "ok" else 700
+
+    monkeypatch.setattr(_kernels, "_library", object())
+    monkeypatch.setattr(_kernels, "_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setitem(_kernels._ENTRY_POINTS, "pointseg_fps", entry)
+    monkeypatch.setitem(_kernels.LAUNCHES, "fps", 0)
+    _kernels.launch("fps", "pointseg_fps", torch.device("cuda", 3), "ok", 7)
+    assert seen == [("ok", 7, 3, 1003)] and _kernels.LAUNCHES["fps"] == 1
+    with pytest.raises(Exception):  # torch.cuda.CudaError (its message needs the CUDA runtime)
+        _kernels.launch("fps", "pointseg_fps", torch.device("cuda", 0), "bad")
+    assert _kernels.LAUNCHES["fps"] == 1 and seen[-1] == ("bad", 0, 1000)
+
+
+WRAPPERS = {  # ops module -> the C entry points its CUDA path launches
+    "fps.py": ("pointseg_fps",),
+    "ballquery.py": ("pointseg_ball_query", "pointseg_ball_query_2l"),
+    "interpolate.py": ("pointseg_three_nn",),
+    "knn.py": ("pointseg_knn", "pointseg_knn_2l"),
+    "gather.py": ("pointseg_gather_rows", "pointseg_gather_rows_flat"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(WRAPPERS))
+def test_every_wrapper_reaches_its_kernels_through_launch_and_nothing_else(module):
+    """Each entry point is named in exactly one `_kernels.launch(` call of
+    its wrapper; no wrapper touches the library, the binding table or
+    ctypes itself, or guards the device on its own."""
+    text = (REPO / "pointseg_torch" / "ops" / module).read_text()
+    calls = re.findall(r"_kernels\.launch\(\s*\"\w+\",\s*\"(\w+)\"", text)
+    assert sorted(calls) == sorted(WRAPPERS[module])
+    assert not re.search(r"_ENTRY_POINTS|_kernels\.library\(|ctypes|torch\.cuda\.device\(|"
+                         r"current_stream|_raw_stream", text)
+    assert {s for symbols in WRAPPERS.values() for s in symbols} == set(_kernels._SIGNATURES)
+
+
+@pytest.mark.parametrize("symbol", sorted(_kernels._SIGNATURES))
+def test_every_entry_point_takes_device_and_stream_last_and_guards_the_device(symbol):
+    """The binding table and the C definitions agree: `int device, void*
+    stream` close every entry point's arguments, and its body begins by
+    making that device current through `DeviceScope` (directly, or in the
+    one launcher it hands its arguments to)."""
+    assert _kernels._SIGNATURES[symbol][-2:] == (ctypes.c_int, ctypes.c_void_p)
+    (source,) = [text for text in ((_kernels.CSRC / name).read_text() for name in _kernels.SOURCES)
+                 if f'extern "C" int {symbol}(' in text]
+    assert '#include "launch.cuh"' in source
+    (args, body) = re.findall(rf'extern "C" int {symbol}\((.*?)\) {{\n(.*?)\n}}\n', source,
+                              flags=re.S)[0]
+    assert re.search(r"int device,\s+void\* stream$", args), args
+    assert len(args.split(",")) == len(_kernels._SIGNATURES[symbol])
+    guarded = "const DeviceScope scope(device);" in body
+    if not guarded:  # the ball queries share one launcher
+        (launcher,) = set(re.findall(r"return (launch_\w+)\(", body))
+        assert re.search(rf"int {launcher}\(.*?\) {{\n  const DeviceScope scope\(device\);",
+                         source, flags=re.S)
+        assert body.count("device, stream);") == body.count(f"{launcher}(")
+    header = (_kernels.CSRC / "launch.cuh").read_text()
+    assert "cudaGetDevice(&previous_)" in header and "previous_ != device" in header
+    assert "~DeviceScope()" in header and "cudaSetDevice(previous_)" in header
 
 
 def _cuda_path(module: str, function: str = r"_\w+_cuda") -> str:
     """Source of `ops/<module>`'s `_..._cuda` function (the one named,
     where a module holds two), the code a CUDA tensor runs."""
-    import re
-
     text = (REPO / "pointseg_torch" / "ops" / module).read_text()
     (body,) = re.findall(rf"\ndef {function}\(.*?(?=\n(?:def|class) |\Z)", text, flags=re.S)
     return body
@@ -127,8 +218,6 @@ LIBRARY_IN_WRAPPER = r"torch\.(topk|sort|cdist|matmul|bmm|gather|index_select|co
 def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
     """The flat and the two-level kNN are distinct `__global__` kernels,
     the gather one; none of the sources reaches for a library."""
-    import re
-
     knn = (_kernels.CSRC / "knn.cu").read_text()
     gather = (_kernels.CSRC / "gather.cu").read_text()
     names = re.findall(r"__global__ void (\w+)", knn)
@@ -141,22 +230,53 @@ def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
     assert not re.search(LIBRARY_IN_WRAPPER, _cuda_path("gather.py", "_gather_rows_cuda"))
 
 
+def test_knn_kernels_round_every_product_and_stream_the_tile():
+    """The score arithmetic stays exact: every product and sum in `knn.cu`
+    is a rounding intrinsic and the build forbids contraction, so no fused
+    multiply-add can change a near-tie. The flat kernel is the register
+    tile (rows per warp a template argument, a bound on its registers),
+    fed by asynchronous copies; the two-level kernel keeps its own tile."""
+    knn = (_kernels.CSRC / "knn.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in knn.splitlines())  # comments off
+    assert "--fmad=false" in _kernels.NVCC_FLAGS
+    assert "__fmul_rn" in code and "__fadd_rn" in code and "__fsub_rn" in code
+    assert not re.search(r"fmaf?\(|__fmaf_|mma\.|wmma|wgmma", code)
+    # no bare float product or sum of two values: arithmetic goes through the intrinsics
+    (flat,) = re.findall(r"__global__ void knn_flat_kernel\(.*?\n}\n", code, flags=re.S)
+    (add,) = re.findall(r"void add_products\(.*?\n}\n", code, flags=re.S)
+    assert "__fadd_rn(acc[r][j], __fmul_rn(q[r], c[j]))" in add
+    assert flat.count("add_products<kRows>(") == 5 and "raw_score(acc[r][j], q2, c2[j])" in flat
+    assert re.search(r"template <bool kVec, int kRows>\n__launch_bounds__\(kWarps \* 32,", code)
+    assert "cp.async.cg.shared.global" in code and "cp.async.wait_group" in code
+    assert flat.count("__syncthreads()") == 1  # one barrier a chunk
+    for rows in (8, 4, 2):
+        assert f"launch_flat<true, {rows}>" in code and f"launch_flat<false, {rows}>" in code
+    for depth in (1, 4, 5):
+        assert f"knn_two_level_kernel<{depth}>" in code
+    assert 'extern "C" int pointseg_knn(' in code and 'extern "C" int pointseg_knn_2l(' in code
+
+
 def test_flat_gather_has_a_kernel_of_its_own_and_no_switch_to_the_plain_version():
     """On a CUDA tensor `gather_rows_flat` reaches `_gather_rows_flat_cuda`
     and nothing else; that function launches `pointseg_gather_rows_flat`
     and holds no library gather, no plain version and no `try`. The
     entry point takes 64-bit sizes, and the kernel computes every offset
     in 64 bits and traps on an index outside the table."""
-    import inspect
-    import re
-
     path = _cuda_path("gather.py", "_gather_rows_flat_cuda")
     assert not re.search(LIBRARY_IN_WRAPPER + r"|torch\.take|\btry\b|\[rows\]|\[idx\]", path)
     assert '"gather_rows_flat", "pointseg_gather_rows_flat"' in path
+    # the call does nothing twice: an int64 contiguous index passes as it is,
+    # one allocation, the row's bytes from a stride, and every check is still there
+    assert "if idx.dtype != torch.int64 or not idx.is_contiguous():\n" \
+           "        idx = idx.to(torch.int64).contiguous()" in path
+    assert path.count("new_empty(") == 1 and "torch.empty(" not in path and "math." not in path
+    assert "out.stride(0) * out.element_size()" in path
+    assert "idx.device != table.device" in path and "not table.is_contiguous()" in path
     public = inspect.getsource(ops.gather_rows_flat)
     assert re.search(r"if _kernels\.on_cuda\(table\):\n\s+return _gather_rows_flat_cuda\(", public)
     assert public.count("gather_rows_flat_plain(") == 1 and "try" not in public
-    import ctypes
+    assert "idx.dim() != 1" in public and "is_floating_point()" in public
+    assert "torch.bool" in public and "table.dim() < 1" in public
     assert _kernels._SIGNATURES["pointseg_gather_rows_flat"][3:6] == (ctypes.c_int64,) * 3
     source = (_kernels.CSRC / "gather.cu").read_text()
     (kernel,) = re.findall(r"__global__ void gather_rows_flat_kernel\(.*?\n}\n", source, flags=re.S)
@@ -170,9 +290,6 @@ def test_device_store_gathers_its_point_tables_through_gather_rows_flat():
     is `gather_rows_flat`: no indexing, `index_select`, `take` or `gather`
     touches `points`, `labels` or `packed`, and nothing there reads a
     device value on the host."""
-    import inspect
-    import re
-
     from pointseg_torch.data import device as dev
 
     flat = inspect.getsource(dev._sample_batch)
@@ -193,8 +310,6 @@ def test_ball_query_source_holds_two_selection_kernels():
     """The flat and the two-level ball query are distinct `__global__`
     kernels with an entry point each; the source reaches for no library
     and the wrapper's CUDA path for no PyTorch selection or plain version."""
-    import re
-
     source = (_kernels.CSRC / "ballquery.cu").read_text()
     names = re.findall(r"__global__ void (\w+)", source)
     assert names == ["ball_query_kernel", "ball_query_two_level_kernel"]
