@@ -13,7 +13,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    - FPS, ball query and 3-NN at the PointNet++ training shapes (B=8,
      N=4096 -> 1024 -> 256 -> 64 -> 16), a ragged shape with repeated
      points and a large evaluation shape. Indices and `in_ball` must be
-     equal and 3-NN distances equal to rtol 1e-5 / atol 1e-6.
+     equal and 3-NN distances equal to rtol 1e-5 / atol 1e-6. FPS also
+     gives its device time a launch (profiler) and the kernel instance
+     that ran at each shape; at the four SA stages the register path at
+     each block size (128, 256, 512, 1024 threads), equal to the plain
+     version, and the row's latency floor (every step of the four stages
+     at the per-step time of the same kernel with one point a thread);
+     at (2, 16384, 1024) the register path (16 points a thread) against
+     the default kernel.
    - the two-level ball query against the plain version and against the
      flat kernel, index for index and `in_ball` for `in_ball`, at every
      ball-query shape of PointNeXt (four SA stages and five InvResMLP
@@ -41,12 +48,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      not 16-byte aligned), each with and without the mask and the point
      itself, flat and two-level equal to plain slot for slot.
    - the row gather at the EdgeConv shapes (8, 4096, 64 and 128) x
-     81,920 rows and at every table PointNet++ gathers from in a step
-     (centroid coordinates, the SA tables of odd width h + 3, the FP
-     interpolation sources): forward bit-equal to `torch.gather`;
-     backward (`index_add_`) equal to autograd of the plain version to
-     rtol/atol 1e-4 (both add with atomics). Its `max_abs_err` is the
-     larger of the forward's (0 when bit-equal) and the backward's.
+     81,920 rows and at the tables of a PointNet++ step (centroid
+     coordinates, the FP interpolation sources, and the concatenated SA
+     tables of odd width h + 3 that the JAX package gathers from):
+     forward bit-equal to `torch.gather`; backward (`index_add_`) equal
+     to autograd of the plain version to rtol/atol 1e-4 (both add with
+     atomics). Its `max_abs_err` is the larger of the forward's (0 when
+     bit-equal) and the backward's. Then SetAbstraction grouping at every
+     SA table of PointNet++, MSG and PointNeXt in three forms (the
+     concatenated table in one launch, two launches, the two-table
+     kernel), rows bit-equal, forward and forward + backward, under CUDA
+     events and on the device (profiler), with the two-table call beside
+     two `torch.gather` calls.
    - the flat row gather (the device store's sampler) bit-equal to
      `index_select` for rows of 1, 16 and 36 bytes (uint8, int32 x 4,
      float32 x 9) and an odd width (float32 x 35), at 8 x 4096 rows and
@@ -60,10 +73,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      Per case a line says whether the kernel's call or `index_select`'s
      is faster under CUDA events, timed in turns (the check never fails
      on a time).
-   - the host time of one flat-gather call, split into its parts and
-     into the steps it no longer takes, beside `index_select` and an
-     empty Python function (microseconds a call over 10,000 calls, host
-     clock, no synchronisation inside the loop).
+   - the host time of one flat-gather call and of one batched-gather
+     call, each split into its parts and into the steps it no longer
+     takes, beside `index_select` or `torch.gather` and an empty Python
+     function (microseconds a call over 10,000 calls, host clock, no
+     synchronisation inside the loop).
    - the flat gather and the flat kNN on a stream that is not the default
      one (the input written behind a long wait on that stream) and inside
      a captured CUDA graph replayed twice on new input, equal to the
@@ -91,7 +105,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    `ball_select="two_level"` and three with "flat" from the same weights,
    batch and seeds: ball_query_2l must launch (9 or 8 a step) and
    ball_query never, first losses equal to 1e-6 relative. Three steps of
-   PointNeXt-L give its step time and peak memory. For DeepGraphCnn three steps of DeepGraphCnn with
+   PointNeXt-L give its step time and peak memory. `train PointNeXt`
+   and `train DeepGraphCnn` again with POINTSEG_SELECT2L=1 (the JAX
+   package's switch, read by the port's CLI): ball_query_2l (9 a step)
+   and knn_2l (4 a step) must launch and the flat kernels never; the
+   kernel record's launches of the two-level kernels are these runs'.
+   For DeepGraphCnn three steps of DeepGraphCnn with
    `knn_select="two_level"` and three with "flat", from the same weights,
    batch and dropout seed: knn_2l must launch, the first losses must
    agree to 1e-6 relative (same forward) and the later ones to 1e-3 (the
@@ -141,6 +160,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -152,6 +172,7 @@ import numpy as np
 import torch
 
 SLICE_FPS = [(8, 4096, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16)]
+FPS_THREADS = (32, 64, 128, 256, 512, 1024)  # the register path's block sizes
 RADII = {4096: 0.1, 1024: 0.2, 256: 0.4, 64: 0.8}
 TIE_M2 = 1e-6  # an index may differ where the two picks' d^2 differ by less
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -215,6 +236,22 @@ def device_time_us(event) -> float:
     return event.self_cuda_time_total
 
 
+def profiled(fn, reps: int) -> list:
+    """The profiler's rows (`key_averages()`) for `reps` calls of `fn`.
+    The window opens with a short spin kernel, left out of the rows: the
+    profiler on the card drops the first device event of a window, which
+    would otherwise be the first call's first kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if "spin_kernel" not in e.key]
+
+
 def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
     """Mean device microseconds per call of `fn` inside kernels whose name
     contains `kernel`, from the profiler: unlike CUDA events around a loop
@@ -222,16 +259,9 @@ def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
     that comes back without the kernel, or with fewer launches of it than
     calls, is taken once more; NaN (printed as such, and so marking every
     sum it enters) if that one is short too."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()  # warm-up
     for _ in range(2):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if kernel in e.key]
+        rows = [e for e in profiled(fn, reps) if kernel in e.key]
         # a trace can come back a launch short: then it is taken again
         if rows and sum(e.count for e in rows) % reps == 0:
             return sum(device_time_us(e) for e in rows) / reps
@@ -350,6 +380,75 @@ def knn_library(x, k):
     return torch.topk(score - x2[:, :, None], k, dim=-1)[1]
 
 
+def fps_device(fn, reps: int = 10) -> tuple[float, str]:
+    """Device microseconds a call of `fn` in the FPS kernels and the
+    instance that ran, from the profiler: `fps_register_kernel<threads,
+    P>` or `fps_kernel` (the shared- and global-memory path)."""
+    fn()  # warm-up
+    for _ in range(2):
+        rows = [e for e in profiled(fn, reps) if re.search(r"fps_(register_)?kernel", e.key)]
+        names = sorted({m.group(0) for e in rows for m in [
+            re.search(r"fps_register_kernel<\d+, \d+>|fps_kernel", e.key)] if m})
+        if rows and sum(e.count for e in rows) % reps == 0:  # else taken again, once
+            return sum(device_time_us(e) for e in rows) / reps, "/".join(names)
+    return float("nan"), "/".join(names)
+
+
+def fps_block_sizes(device, levels: list) -> None:
+    """The register path at each block size (32 to 1024 threads) and the
+    shared-memory kernel (`fps_kernel`, the one all clouds took before
+    the register path) at the four SA stages, each equal to the plain
+    version, device us a launch; the instance the default choice runs;
+    the latency floor of the row: every step of the four stages at the
+    per-step time of the same kernel with one point a thread (N =
+    threads); and the register path against fps_kernel at N = 16384."""
+    from pointseg_torch.ops.fps import (_fps_cuda, farthest_point_sampling,
+                                        farthest_point_sampling_plain)
+
+    per_step_us = {}
+    for threads in FPS_THREADS:  # one point a thread: the cost of a step's argmax
+        pts = levels[0][:, :threads].contiguous()
+        zero = torch.zeros(pts.shape[0], dtype=torch.int32, device=device)
+        us, _ = fps_device(lambda: _fps_cuda(pts, threads, zero, None, threads))
+        per_step_us[threads] = us / threads
+    print(f"{'':11s} fps per-step device time at one point a thread (N = threads = C, B = 8): "
+          + ", ".join(f"{t} threads {us * 1e3:.1f} ns" for t, us in per_step_us.items()))
+    total_us, floor_us = 0.0, 0.0
+    for (B, N, C), pts in zip(SLICE_FPS, levels):
+        zero = torch.zeros(B, dtype=torch.int32, device=device)
+        want = farthest_point_sampling_plain(pts, C, zero)
+        us, chosen = fps_device(lambda: farthest_point_sampling(pts, C))
+        sweep = []
+        for threads in (*FPS_THREADS, -1):
+            try:
+                got = _fps_cuda(pts, C, zero, None, threads)
+            except torch.cuda.CudaError:  # the cloud is over this block size's register budget
+                sweep.append(f"{threads}: does not fit")
+                continue
+            if not torch.equal(got, want):
+                raise AssertionError(f"fps {(B, N, C)} at {threads} threads differs from plain")
+            t_us, name = fps_device(lambda: _fps_cuda(pts, C, zero, None, threads))
+            sweep.append(f"{threads if threads > 0 else 'shared-memory kernel'}: {t_us:.1f} us "
+                         f"({name})")
+        threads = int(re.search(r"<(\d+),", chosen).group(1)) if "<" in chosen else 0
+        floor = C * per_step_us[threads] if threads else float("nan")
+        total_us, floor_us = total_us + us, floor_us + floor
+        print(f"{'':11s} fps {(B, N, C)}: default {chosen} {us:.1f} us a launch on the device "
+              f"({us / C * 1e3:.1f} ns a step; latency floor {floor:.1f} us); forced block "
+              f"sizes: " + "; ".join(sweep))
+    print(f"{'':11s} fps, the four stages of a forward pass: {total_us / 1e3:.4f} ms on the "
+          f"device, latency floor {floor_us / 1e3:.4f} ms ({total_us / floor_us:.2f}x)")
+    pts = torch.from_numpy(block_cloud(np.random.default_rng(3), 2, 16384)).to(device)
+    zero = torch.zeros(2, dtype=torch.int32, device=device)
+    want = farthest_point_sampling_plain(pts, 1024, zero)
+    if not torch.equal(_fps_cuda(pts, 1024, zero, None, 1024), want):
+        raise AssertionError("fps (2, 16384, 1024) on the register path differs from plain")
+    default_us, default_name = fps_device(lambda: farthest_point_sampling(pts, 1024), reps=5)
+    reg_us, reg_name = fps_device(lambda: _fps_cuda(pts, 1024, zero, None, 1024), reps=5)
+    print(f"{'':11s} fps (2, 16384, 1024): default {default_name} {default_us:.1f} us, "
+          f"register path {reg_name} (16 points a thread, over its 64 registers) {reg_us:.1f} us")
+
+
 def pointnetpp_kernels(device, record: Record) -> list:
     """FPS, ball query (flat) and 3-NN; returns the training path's five
     clouds (4096, 1024, 256, 64 and 16 points, each the last one's picks)."""
@@ -377,6 +476,8 @@ def pointnetpp_kernels(device, record: Record) -> list:
         # C rounds of N distances (3 sub, 3 mul, 2 add) and a running min
         record.note("fps", (B, N, C), ms, plain_ms, None, 9.0 * B * C * N,
                     12 * B * N + 4 * B + 4 * B * C, flips, err, per_forward)
+        us, name = fps_device(lambda: farthest_point_sampling(pts, C), reps=10 if N <= 4096 else 3)
+        print(f"{'':11s} device time a launch (profiler): {us:.1f} us, {name}")
 
         cents = rows(pts, want)
         r = RADII.get(N, 0.1)
@@ -405,6 +506,7 @@ def pointnetpp_kernels(device, record: Record) -> list:
                         12 * B * N + 12 * B * C + 24 * B * N, flips, err, per_forward)
         if per_forward:
             levels.append(cents.contiguous())
+    fps_block_sizes(device, levels)
     return levels
 
 
@@ -657,6 +759,121 @@ def gather_kernels(device, record: Record) -> None:
               f"max |diff| {grad_err:.3g}")
 
 
+# SetAbstraction groupings of one forward pass at B = 8, N = 4096 (the
+# feature table's points, its width h, centroids, K), per model: one
+# `gather_rows_with_coords` each, feature rows of h floats and coordinate
+# rows of 3; the first stage's coordinates are a view of the (8, 4096, 9)
+# input, as in the models.
+SA_GROUPINGS = {
+    "PointNet++": [(4096, 32, 1024, 32), (1024, 64, 256, 32), (256, 128, 64, 32),
+                   (64, 256, 16, 32)],
+    "PointNet++MSG": [(4096, 16, 1024, 16), (4096, 32, 1024, 32), (1024, 64, 256, 16),
+                      (1024, 64, 256, 32), (256, 128, 64, 16), (256, 128, 64, 32),
+                      (64, 256, 16, 16), (64, 256, 16, 32)],
+    "PointNeXt": [(4096, 32, 1024, 32), (1024, 64, 1024, 32), (1024, 64, 256, 32),
+                  (256, 128, 256, 32), (256, 128, 256, 32), (256, 128, 64, 32),
+                  (64, 256, 64, 32), (64, 256, 16, 16), (16, 512, 16, 16)],
+}
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds a call of `fn`: every kernel and copy it runs
+    (profiler), none of the host's gaps between them."""
+    from torch.autograd import DeviceType
+
+    fn()  # warm-up
+    return sum(device_time_us(e) for e in profiled(fn, reps)
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / reps / 1e3
+
+
+def sa_grouping_forms(device) -> None:
+    """Three forms of SetAbstraction grouping at every SA table of
+    PointNet++, MSG and PointNeXt, forward (as in training: the features
+    need a gradient) and forward + backward (eight forwards and one
+    backward call over them, as a step has one; times per grouping): the
+    concatenated table with
+    one launch (the JAX package's form, and the port's before the
+    two-table kernel), two
+    launches, and the two-table kernel (`gather_rows_with_coords`). Rows
+    bit-equal across the three, and the two-table call beside the library
+    (two `torch.gather` calls). CUDA events (host and device) and device
+    time (profiler), in turns."""
+    from pointseg_torch.ops.gather import gather_rows, gather_rows_with_coords
+
+    def concat(f, c, idx):
+        rows = gather_rows(torch.cat([f, c], dim=-1), idx)
+        return rows[..., :f.shape[-1]], rows[..., f.shape[-1]:]
+
+    def two_launches(f, c, idx):
+        return gather_rows(f, idx), gather_rows(c, idx)
+
+    def library(f, c, idx):
+        return rows(f, idx), rows(c, idx)
+
+    forms = {"concat": concat, "two launches": two_launches,
+             "two-table kernel": gather_rows_with_coords}
+    rng = np.random.default_rng(9)
+    sums = {model: {(form, kind): 0.0 for form in forms for kind in ("fwd", "fwd+bwd",
+                                                                     "fwd device",
+                                                                     "fwd+bwd device")}
+            for model in SA_GROUPINGS}
+    lib_sum = {model: [0.0, 0.0] for model in SA_GROUPINGS}
+    shapes = dict.fromkeys(g for groupings in SA_GROUPINGS.values() for g in groupings)
+    for N, h, C, K in shapes:
+        B = 8
+        x = torch.from_numpy(rng.random((B, N, 9)).astype(np.float32)).to(device)
+        coords = x[..., :3] if N == 4096 else x[..., :3].contiguous()
+        feats = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(device)
+        feats.requires_grad_(True)
+        idx = torch.from_numpy(rng.integers(0, N, (B, C, K)).astype(np.int32)).to(device)
+        grad = torch.randn((B, C, K, h), device=device)
+        outs = {name: form(feats, coords, idx) for name, form in forms.items()}
+        want = library(feats.detach(), coords, idx)
+        for name, (gf, gc) in outs.items():
+            if not (torch.equal(gf, want[0]) and torch.equal(gc, want[1])):
+                raise AssertionError(f"SA grouping {(N, h, C, K)}, {name}: rows differ")
+        del outs
+
+        def fwd(form):
+            return lambda: form(feats, coords, idx)
+
+        def fwd_bwd(form):  # eight groupings, one backward call: a step's shape
+            return lambda: torch.autograd.backward(
+                [form(feats, coords, idx)[0] for _ in range(8)], [grad] * 8)
+
+        times = {}
+        for name in [*forms, *reversed(forms)]:  # in turns, there and back
+            times.setdefault((name, "fwd"), []).append(timed(fwd(forms[name]), 20))
+            times.setdefault((name, "fwd+bwd"), []).append(timed(fwd_bwd(forms[name]), 5) / 8)
+        for name, form in forms.items():
+            times[(name, "fwd device")] = [device_ms(fwd(form))]
+            times[(name, "fwd+bwd device")] = [device_ms(fwd_bwd(form), reps=3) / 8]
+        lib_ms = timed(lambda: library(feats.detach(), coords, idx), 20)
+        call_ms = timed(lambda: gather_rows_with_coords(feats.detach(), coords, idx), 20)
+        feats.grad = None
+        line = "; ".join(f"{name} " + " / ".join(
+            f"{sum(times[(name, kind)]) / len(times[(name, kind)]):.4f}"
+            for kind in ("fwd", "fwd+bwd", "fwd device", "fwd+bwd device")) for name in forms)
+        print(f"SA grouping (8, {N}, {h}) + coords x ({C}, {K}), ms fwd / fwd+bwd (CUDA events) "
+              f"/ fwd / fwd+bwd (device): {line}; the two-table call without a gradient "
+              f"{call_ms:.4f} against two torch.gather {lib_ms:.4f} ({call_ms / lib_ms:.2f}x)")
+        for model, groupings in SA_GROUPINGS.items():
+            n = groupings.count((N, h, C, K))
+            for key, values in times.items():
+                sums[model][key] += n * sum(values) / len(values)
+            lib_sum[model][0] += n * call_ms
+            lib_sum[model][1] += n * lib_ms
+    for model, total in sums.items():
+        line = "; ".join(f"{name} " + " / ".join(f"{total[(name, kind)]:.4f}" for kind in (
+            "fwd", "fwd+bwd", "fwd device", "fwd+bwd device")) for name in forms)
+        fastest = {kind: min(forms, key=lambda name: total[(name, kind)])
+                   for kind in ("fwd", "fwd+bwd", "fwd device", "fwd+bwd device")}
+        print(f"SA grouping, {model}'s {len(SA_GROUPINGS[model])} tables summed, ms fwd / fwd+bwd "
+              f"(CUDA events) / fwd / fwd+bwd (device): {line}; fastest {fastest}; the "
+              f"two-table calls {lib_sum[model][0]:.4f} against two torch.gather each "
+              f"{lib_sum[model][1]:.4f}")
+
+
 def sector_bytes(idx: torch.Tensor, row_bytes: int, table_bytes: int) -> int:
     """Bytes of the distinct 32-byte sectors that the rows `idx` of a
     table of `row_bytes`-wide rows touch: what these indices make the
@@ -671,7 +888,6 @@ def sector_bytes(idx: torch.Tensor, row_bytes: int, table_bytes: int) -> int:
 def gather_flat_kernels(device, record: Record, seed: int) -> None:
     """The flat gather at the device store's tables, small and full size."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pointseg_torch.ops import _kernels
     from pointseg_torch.ops.gather import gather_rows_flat, gather_rows_flat_plain
@@ -729,14 +945,10 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
         us = kernel_device_us(lambda: gather_rows_flat(table, fresh()), "gather_rows_flat_kernel")
         # whatever kernels `index_select` runs (their names change with the
         # row width and the PyTorch version): all device time of the calls
-        rows = [fresh() for _ in range(10)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for r in rows:
-                torch.index_select(table, 0, r)
-            torch.cuda.synchronize()
-        lib_us = sum(device_time_us(e) for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA) / len(rows)
+        rows = iter([fresh() for _ in range(10)])
+        lib_us = sum(device_time_us(e) for e in profiled(
+            lambda: torch.index_select(table, 0, next(rows)), 10)
+            if e.device_type == DeviceType.CUDA) / 10
         record.note("gather_rows_flat", (R, row_bytes, mrows, what), (k1 + k2) / 2,
                     (p1 + p2) / 2, lib_ms, 0.0, nbytes, 0, 0.0, per_step)
         print(f"{'':11s} device time a launch (profiler): kernel {us:.1f} us, index_select's "
@@ -868,6 +1080,87 @@ def launch_path_split(device) -> None:
     print(f"  steps no longer taken, summed {gone:.2f}")
 
 
+def gather_call_split(device) -> None:
+    """Where the host time of one `gather_rows` call goes, at the first
+    stage's centroid gather, (8, 4096, 3) x 1,024 rows, a table needing no
+    gradient (four such calls a PointNet++ step; a kernel of a few
+    microseconds, so the call is host time): each part timed by itself,
+    then the steps the call no longer takes, beside the whole call,
+    `torch.gather` and an empty Python function."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.gather import _check_batched, _GatherRows, gather_rows
+
+    gen = torch.Generator(device).manual_seed(12)
+    table = torch.rand((8, 4096, 3), device=device, generator=gen)
+    idx = torch.randint(0, 4096, (8, 1024), device=device, generator=gen, dtype=torch.int32)
+    grad_table = table.clone().requires_grad_(True)
+    flat = idx.long()[..., None].expand(-1, -1, 3)
+    out = table.new_empty((8, 1024, 3))
+    _kernels.library()
+    symbol = "pointseg_gather_rows"
+    entry = _kernels._ENTRY_POINTS[symbol]
+    index = device.index
+    stream = _kernels._raw_stream(index)
+    args = (table.data_ptr(), None, idx.data_ptr(), out.data_ptr(), None, 8, 4096, 1024, 12, 0)
+
+    def count():
+        _kernels.LAUNCHES["gather_rows"] += 0
+
+    def dispatch():  # the public function's test and its device test
+        return (table.requires_grad and torch.is_grad_enabled()) or _kernels.on_cuda(table)
+
+    def layout():  # contiguity and the index's type, nothing to convert
+        return (table.is_contiguous(), idx.dtype != torch.int32 or not idx.is_contiguous())
+
+    now = [
+        ("grad test and device dispatch", dispatch),
+        ("argument checks (_check_batched)", lambda: _check_batched(table, idx, None)),
+        ("contiguity and index type", layout),
+        ("table.new_empty of the output", lambda: table.new_empty((*idx.shape, 3))),
+        ("pointers, sizes, row bytes", lambda: (table.data_ptr(), idx.data_ptr(),
+                                                out.data_ptr(), idx.numel() // 8,
+                                                3 * table.element_size(), table.shape)),
+        ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
+        ("the ctypes call (launches the kernel)", lambda: entry(*args, index, stream)),
+        ("launch counter", count),
+    ]
+    before = [
+        ("_GatherRows.apply on a table needing a gradient, less the direct call",
+         lambda: _GatherRows.apply(grad_table, idx, None)),
+        ("table.contiguous() on a contiguous table", lambda: table.contiguous()),
+        ("idx.reshape(B, -1).to(int32).contiguous()",
+         lambda: idx.reshape(8, -1).to(torch.int32).contiguous()),
+        ("two _kernels.check calls", lambda: (
+            _kernels.check(table, "table", torch.float32, (8, 4096, 3)),
+            _kernels.check(idx.reshape(8, -1), "idx", torch.int32, (8, 1024)))),
+        ("torch.empty(shape, dtype=, device=) of the output, less new_empty's time",
+         lambda: torch.empty((8, 1024, 3), dtype=table.dtype, device=table.device)),
+    ]
+    whole = host_us(lambda: gather_rows(table, idx))
+    library_call = host_us(lambda: torch.gather(table, 1, flat))
+    nothing = host_us(lambda: None)
+    print(f"host time of one gather_rows call (8 x 1,024 rows of 3 floats from 8 x 4096, a "
+          f"table needing no gradient), us a call over 10,000 calls, host clock, no "
+          f"synchronisation:")
+    print(f"  whole call {whole:.2f}; torch.gather {library_call:.2f}; an empty Python function "
+          f"{nothing:.3f}")
+    parts = {name: host_us(fn) for name, fn in now}
+    for name, us in parts.items():
+        print(f"  part of the call: {name:45s} {us:7.2f}")
+    print(f"  parts summed {sum(parts.values()):.2f} (each part pays an empty call's "
+          f"{nothing:.3f} again)")
+    gone = 0.0
+    for name, fn in before:
+        us = host_us(fn)
+        if name.startswith("_GatherRows"):
+            us -= whole
+        elif name.startswith("torch.empty"):
+            us -= parts["table.new_empty of the output"]
+        gone += us
+        print(f"  no longer in the call: {name:45s} {us:7.2f}")
+    print(f"  steps no longer taken, summed {gone:.2f}")
+
+
 def streams_and_graphs(device) -> None:
     """Kernels 8 and 4 on a stream that is not the default one, and inside
     a captured CUDA graph that is replayed on new input; each result equal
@@ -986,21 +1279,34 @@ def steady_state(state, batch, label: str) -> dict:
 
 
 def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
-                      flags: tuple[str, ...] = (), mode: str = "host loader"):
-    """One epoch and its evaluation through the CLI, with `flags` added;
-    returns (state, launches, records). Raises unless every kernel in
-    `needed` was launched and the train split came by way of `mode`."""
+                      flags: tuple[str, ...] = (), mode: str = "host loader",
+                      env: dict | None = None):
+    """One epoch and its evaluation through the CLI, with `flags` added
+    and the environment variables `env` set for the run; returns (state,
+    launches, records). Raises unless every kernel in `needed` was
+    launched and the train split came by way of `mode`."""
     from pointseg_torch import cli
 
     argv = ["train", model_name, "--synthetic", "--data-dir", f"{workdir}/data",
             "--epochs", "1", "--train-batch-size", "8", "--train-sampling", "4096",
             "--device", "cuda", "--log-dir", f"{workdir}/logs", *flags]
     args = cli.build_parser().parse_args(argv)
-    zero_launches()
-    t0 = time.time()
-    state, records = cli.train_from_args(args)
-    launches = read_launches()
-    print(f"{model_name} {' '.join(flags)}: {time.time() - t0:.1f} s for one epoch ({state.step} "
+    env = env or {}
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        zero_launches()
+        t0 = time.time()
+        state, records = cli.train_from_args(args)
+        launches = read_launches()
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+    shown = " ".join([*(f"{k}={v}" for k, v in env.items()), *flags])
+    print(f"{model_name} {shown}: {time.time() - t0:.1f} s for one epoch ({state.step} "
           f"steps) and its evaluation; launches {launches}")
     if records["config"]["data_mode"] != mode:
         raise AssertionError(f"train {model_name} {flags}: the train split came by way of "
@@ -1124,14 +1430,13 @@ def trainer_phase(device, workdir: str):
                              f"gather launches, got {dg_launches}")
     if dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]:
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
-    knn_2l_launches = two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4,
-                                             dg_state, batch, device)
+    two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4, dg_state, batch,
+                           device)
     dg_perf = steady_state(dg_state, batch, "DeepGraphCnn")
     remat_cost(dg_state, batch, device)
     states = {"PointNet++": (pp_state, pp_perf), "DeepGraphCnn": (dg_state, dg_perf)}
 
     # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
-    bq_2l_launches = {}
     for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
         state, got, _ = train_through_cli(name, workdir,
                                           ("fps", "ball_query", "three_nn", "gather_rows"))
@@ -1142,17 +1447,30 @@ def trainer_phase(device, workdir: str):
             raise AssertionError(f"{name}: {state.step} steps and their evaluation must launch "
                                  f"{per_forward} (fps, ball_query, three_nn) per forward pass "
                                  f"and no other selection kernel, got {got}")
-        bq_2l_launches[name] = two_level_against_flat(
+        two_level_against_flat(
             name, "ball_select", "ball_query", "ball_query_2l", per_forward[1], state, batch,
             device)
         states[name] = (state, steady_state(state, batch, name))
     few_steps("PointNeXt-L", batch, device)
+    # the two-level kernels from a command a user can type: the JAX
+    # package's switch, read by the port's CLI
+    select2l = {}
+    for name, used, unused, per_step in (("PointNeXt", "ball_query_2l", "ball_query", 9),
+                                         ("DeepGraphCnn", "knn_2l", "knn", 4)):
+        state, got, _ = train_through_cli(name, workdir, (used,),
+                                          env={"POINTSEG_SELECT2L": "1"})
+        if got[unused] or got[used] < per_step * state.step:
+            raise AssertionError(f"POINTSEG_SELECT2L=1 train {name}: {state.step} steps must "
+                                 f"launch {used} at least {per_step} times a step and {unused} "
+                                 f"never, got {got}")
+        select2l[used] = got[used]
+        del state
     flat_launches = device_store_phase(device, workdir, pp_state)
 
     launches = {"fps": pp_launches["fps"], "ball_query": pp_launches["ball_query"],
-                "ball_query_2l": bq_2l_launches["PointNeXt"]["ball_query_2l"],
+                "ball_query_2l": select2l["ball_query_2l"],
                 "three_nn": pp_launches["three_nn"], "knn": dg_launches["knn"],
-                "knn_2l": knn_2l_launches["knn_2l"],
+                "knn_2l": select2l["knn_2l"],
                 "gather_rows": dg_launches["gather_rows"],
                 "gather_rows_flat": flat_launches}
     return states, launches, batch
@@ -1451,6 +1769,8 @@ def main() -> int:
     gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
     launch_path_split(device)
+    gather_call_split(device)
+    sa_grouping_forms(device)
     streams_and_graphs(device)
 
     phase("4. trainers")
@@ -1478,8 +1798,8 @@ def main() -> int:
     print(f"summary: {smi}; kernel, plain, library and bound ms are per forward pass of the "
           f"kernel's training path (its shapes summed; ball_query_2l: PointNeXt's nine "
           f"queries); launches are one epoch and its "
-          f"evaluation (knn_2l and ball_query_2l: three steps of DeepGraphCnn and of "
-          f"PointNeXt; gather_rows_flat: one PointNet++ epoch from the flat device store, two "
+          f"evaluation (knn_2l and ball_query_2l: DeepGraphCnn and PointNeXt with "
+          f"POINTSEG_SELECT2L=1; gather_rows_flat: one PointNet++ epoch from the flat device store, two "
           f"launches a step, its ms the 36-byte and the 1-byte gather of a batch from "
           f"{SYNTHETIC_ROWS} rows); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")

@@ -14,6 +14,9 @@ Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 trainer that the port does not carry yet are accepted by the parser only
 to be refused with a pointer to ROADMAP.md. `--device cuda` without a
 CUDA device raises; the port never moves work to the CPU by itself.
+The JAX package's environment switches POINTSEG_SELECT2L and
+POINTSEG_BQ_FILLER select the two-level kernels and the ball-query
+filler here too (`kernel_switches`).
 """
 
 from __future__ import annotations
@@ -115,6 +118,25 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                          "see ROADMAP.md for the order of the port")
 
 
+def kernel_switches(model: str) -> dict:
+    """Model arguments from the JAX package's two process-wide switches,
+    read from the environment as it reads them: POINTSEG_SELECT2L (set to
+    anything but "0", "false" or "False": the two-level kNN and ball-query
+    kernels; `pointseg/ops/dispatch.py::use_select2l`) and
+    POINTSEG_BQ_FILLER ("repeat", the default, or "index": what fills a
+    sparse ball; `pointseg/ops/ballquery.py::filler_mode`). The DGCNNs
+    take the first as `knn_select`, the ball-query models both as
+    `ball_select` and `filler`."""
+    two_level = os.environ.get("POINTSEG_SELECT2L", "0") not in ("0", "false", "False")
+    select = "two_level" if two_level else "flat"
+    filler = os.environ.get("POINTSEG_BQ_FILLER", "repeat")
+    if filler not in ("repeat", "index"):
+        raise SystemExit(f"POINTSEG_BQ_FILLER must be 'repeat' or 'index', got {filler!r}")
+    if model in DGCNN_NAMES:
+        return {"knn_select": select}
+    return {"ball_select": select, "filler": filler}
+
+
 def resolve_device(name: str) -> torch.device:
     """The `--device` value as a torch device; 'cuda' needs a CUDA device."""
     device = torch.device(name)
@@ -172,7 +194,7 @@ def train_from_args(args: argparse.Namespace):
         raise SystemExit("--accum-steps requires a host loader; drop "
                          "--device-data or --accum-steps")
     device = resolve_device(args.device)
-    model_kwargs = {}
+    model_kwargs = kernel_switches(args.model)
     if args.static_graph:
         if args.model not in DGCNN_NAMES:
             raise SystemExit("--static-graph only applies to DGCNN models")

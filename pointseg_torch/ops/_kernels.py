@@ -70,8 +70,8 @@ LAUNCHES = {"fps": 0, "ball_query": 0, "ball_query_2l": 0, "three_nn": 0,
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _SIGNATURES = {  # every entry point ends with (device index, stream)
-    # coords, start, mask, out, dist_scratch, B, N, C
-    "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # coords, start, mask, out, dist_scratch, B, N, C, threads
+    "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2
     "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth
@@ -82,8 +82,8 @@ _SIGNATURES = {  # every entry point ends with (device index, stream)
     "pointseg_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, norms_scratch, mask, out, B, N, F, K, include_self, depth
     "pointseg_knn_2l": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # table, idx, out, B, N, M, C
-    "pointseg_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # table, coords, idx, out, out_coords, B, N, M, row_bytes, coord_row_bytes
+    "pointseg_gather_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
     # table, idx, out, R, M, row_bytes
     "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _I, _P),
 }

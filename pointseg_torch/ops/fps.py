@@ -3,8 +3,9 @@
 Port of `pointseg/ops/fps.py`. The start index comes from an explicit
 `torch.Generator` (training) or is 0 (evaluation), as the JAX package
 draws it from the flax 'fps' stream or uses 0. On a CUDA tensor the
-whole C-step loop is one launch of `csrc/fps.cu`; on a CPU tensor the
-plain PyTorch loop below runs.
+whole C-step loop is one launch of `csrc/fps.cu` (the training stages'
+clouds in registers, one block a cloud); on a CPU tensor the plain
+PyTorch loop below runs.
 
 Selection is not differentiable: coordinates are detached before either
 version sees them.
@@ -15,6 +16,9 @@ from __future__ import annotations
 import torch
 
 from pointseg_torch.ops import _kernels
+
+# fps.cu's kMaxSmemPoints: larger clouds keep their distances in a scratch array
+MAX_SMEM_POINTS = 12288
 
 
 def farthest_point_sampling(
@@ -100,21 +104,25 @@ def farthest_point_sampling_plain(
     return out
 
 
-def _fps_cuda(coords, num_samples, start, mask):
+def _fps_cuda(coords, num_samples, start, mask, threads: int = 0):
+    """One launch of `csrc/fps.cu`. `threads` (32, 64, 128, 256, 512 or
+    1024) forces the block size of the kernel's register path, which
+    raises where the cloud does not fit it; -1 forces the shared- and
+    global-memory kernel; 0 lets the kernel choose."""
     B, N, _ = coords.shape
     _kernels.check(coords, "coords", torch.float32, (B, N, 3))
     _kernels.check(start, "start_indices", torch.int32, (B,))
     if mask is not None:
         _kernels.check(mask, "mask", torch.bool, (B, N))
-    out = torch.empty((B, num_samples), dtype=torch.int32, device=coords.device)
+    out = coords.new_empty((B, num_samples), dtype=torch.int32)
     if B == 0 or N == 0 or num_samples == 0:
         return out
-    # distance buffer for clouds too large for shared memory (see fps.cu)
-    scratch = torch.empty((B, N), dtype=torch.float32, device=coords.device)
+    # the distance buffer of clouds too large for shared memory (fps.cu)
+    scratch = coords.new_empty((B, N)) if N > MAX_SMEM_POINTS else None
     _kernels.launch(
         "fps", "pointseg_fps", coords.device,
         _kernels.ptr(coords), _kernels.ptr(start), _kernels.ptr(mask),
-        _kernels.ptr(out), _kernels.ptr(scratch), B, N, num_samples,
+        _kernels.ptr(out), _kernels.ptr(scratch), B, N, num_samples, threads,
     )
     return out
 

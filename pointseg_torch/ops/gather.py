@@ -1,16 +1,24 @@
-"""Row gathers: batched (`gather_rows`) and over one flat table
-(`gather_rows_flat`).
+"""Row gathers: batched (`gather_rows`, `gather_rows_with_coords`) and
+over one flat table (`gather_rows_flat`).
 
 `gather_rows` and `gather_rows_with_coords` are ported from
 `pointseg/ops/gather.py`. On a CUDA tensor the forward is one launch of
 `csrc/gather.cu` (the counterpart of the JAX package's forward-only
-`gather_rows_dma`); on a CPU tensor it is `gather_rows_plain`
-(`torch.gather`). The backward is a scatter-add (`index_add_` into a
-zero table) on both, as the JAX package's is a product outside any
-kernel. On the card `index_add_` adds with atomics, so gradients there
-are not bit-reproducible from run to run. The JAX package's one-hot
-matrix-unit strategies and its bf16 coordinate packing exist for the TPU
-and are not ported. Indices are selections and carry no gradient.
+`gather_rows_dma`), rows of any dtype; on a CPU tensor it is
+`gather_rows_plain` (`torch.gather`). `gather_rows_with_coords` gathers
+the feature rows and the coordinate rows of SetAbstraction grouping with
+one set of indices: one launch on the card that writes both outputs,
+where the JAX package gathers from the concatenation of the two tables
+(a TPU measure: a separate 12-byte-row gather was slow there, and on this
+card the concatenation costs a copy of the table a call). The backward
+is a scatter-add (`index_add_` into a zero table) on both devices, as the
+JAX package's is a product outside any kernel; coordinates get none. On
+the card `index_add_` adds with atomics, so gradients there are not
+bit-reproducible from run to run. A table that needs no gradient, or a
+call under `torch.no_grad()`, goes to the launch without an autograd
+node. The JAX package's one-hot matrix-unit strategies and its bf16
+coordinate packing exist for the TPU and are not ported. Indices are
+selections and carry no gradient.
 
 `gather_rows_flat(table, idx)` is the counterpart of
 `pointseg/ops/pallas/gather.py::gather_rows_flat`: rows of one table of
@@ -42,55 +50,99 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*idx.shape, C)
 
 
-def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    B, N, C = table.shape
-    table = table.contiguous()
-    flat = idx.reshape(B, -1).to(torch.int32).contiguous()
-    M = flat.shape[1]
-    _kernels.check(table, "table", torch.float32, (B, N, C))
-    _kernels.check(flat, "idx", torch.int32, (B, M))
-    if table.device != flat.device:
-        raise ValueError("table and idx must be on the same device")
-    if B > MAX_B:
-        raise ValueError(f"the CUDA gather takes B <= {MAX_B} (a grid dimension), got {B}")
-    out = torch.empty((B, M, C), dtype=table.dtype, device=table.device)
-    if out.numel():
+def _check_batched(table: torch.Tensor, idx: torch.Tensor, coords: torch.Tensor | None) -> None:
+    if (table.dim() != 3 or idx.dim() < 1 or idx.shape[0] != table.shape[0]
+            or idx.is_floating_point() or idx.dtype == torch.bool):
+        raise ValueError(f"gather_rows: need a (B, N, C) table and (B, ...) integer indices, "
+                         f"got {tuple(table.shape)} and {idx.dtype} {tuple(idx.shape)}")
+    if idx.device != table.device:
+        raise ValueError(f"table is on {table.device}, idx on {idx.device}")
+    if table.shape[0] > MAX_B:
+        raise ValueError(f"the CUDA gather takes B <= {MAX_B} (a grid dimension), "
+                         f"got {table.shape[0]}")
+    if coords is not None and (coords.dim() != 3 or coords.shape[:2] != table.shape[:2]
+                               or coords.device != table.device):
+        raise ValueError(f"coords {tuple(coords.shape)} on {coords.device} do not pair with "
+                         f"the table {tuple(table.shape)} on {table.device}")
+
+
+def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor,
+                      coords: torch.Tensor | None = None):
+    """One launch of the batched kernel: the rows of `table` at `idx` and,
+    with `coords`, the rows of `coords` at the same indices into a second
+    output. A call at the PointNet++ family's shapes is host time beside a
+    kernel of microseconds, so nothing here is done twice: an int32
+    contiguous `idx` (what ball query and kNN return) passes as it is, a
+    table is copied only when it is not contiguous, and each row's byte
+    width comes from the shape."""
+    _check_batched(table, idx, coords)
+    if not table.is_contiguous():
+        table = table.contiguous()
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    B, N, width = table.shape
+    out = table.new_empty((*idx.shape, width))
+    out2, row_bytes2 = None, 0
+    if coords is not None:
+        if not coords.is_contiguous():
+            coords = coords.contiguous()
+        out2 = coords.new_empty((*idx.shape, coords.shape[2]))
+        row_bytes2 = coords.shape[2] * coords.element_size()
+    if idx.numel():
         _kernels.launch("gather_rows", "pointseg_gather_rows", table.device,
-                        _kernels.ptr(table), _kernels.ptr(flat), _kernels.ptr(out), B, N, M, C)
-    return out.reshape(*idx.shape, C)
+                        table.data_ptr(), _kernels.ptr(coords), idx.data_ptr(), out.data_ptr(),
+                        _kernels.ptr(out2), B, N, idx.numel() // B,
+                        width * table.element_size(), row_bytes2)
+    return out if coords is None else (out, out2)
+
+
+def _gather(table: torch.Tensor, idx: torch.Tensor, coords: torch.Tensor | None):
+    """The forward on the tensors' device, with no autograd node."""
+    if _kernels.on_cuda(table):
+        return _gather_rows_cuda(table, idx, coords)
+    rows = gather_rows_plain(table, idx)
+    return rows if coords is None else (rows, gather_rows_plain(coords, idx))
 
 
 class _GatherRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.table_shape = table.shape
-        if _kernels.on_cuda(table):
-            return _gather_rows_cuda(table, idx)
-        return gather_rows_plain(table, idx)
+    """`_gather` with the scatter-add backward into `table`; `coords`
+    (None or a detached table) come back without a gradient."""
 
     @staticmethod
-    def backward(ctx, grad):
+    def forward(ctx, table, idx, coords):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        out = _gather(table, idx, coords)
+        if coords is not None:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad, *_):
         (idx,) = ctx.saved_tensors
         B, N, C = ctx.table_shape
         offsets = torch.arange(B, device=idx.device, dtype=torch.long) * N
         rows = (idx.reshape(B, -1).long() + offsets[:, None]).reshape(-1)
         out = torch.zeros((B * N, C), dtype=grad.dtype, device=grad.device)
         out.index_add_(0, rows, grad.reshape(-1, C))
-        return out.reshape(B, N, C), None
+        return out.reshape(B, N, C), None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gathers rows of a batched table by integer indices.
 
     Args:
-        table: (B, N, C) rows; float32 on a CUDA device.
-        idx: (B, ...) integer indices into N, any trailing shape.
+        table: (B, N, C) rows of any dtype.
+        idx: (B, ...) integer indices into N, any trailing shape; int32
+            goes to the kernel as it is, any other integer type is
+            converted once.
 
     Returns:
         (B, *idx.shape[1:], C); differentiable in `table`.
     """
-    return _GatherRows.apply(table, idx)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(table, idx, None)
+    return _gather(table, idx, None)
 
 
 def gather_rows_flat_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -155,16 +207,15 @@ def gather_rows_with_coords(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gathers feature rows and coordinate rows with the same indices.
 
-    One gather over the concatenated (features, coords) table when the
-    dtypes agree, two otherwise. Coordinates are selection geometry and
-    are detached, as in the JAX package; `features` stays differentiable.
+    One launch on the card, which writes both outputs, whatever the two
+    dtypes; two `torch.gather`s on the CPU. Both outputs are contiguous.
+    Coordinates are selection geometry and are detached, as in the JAX
+    package; `features` stays differentiable.
 
     Returns:
         ((B, *idx.shape[1:], H), (B, *idx.shape[1:], 3)).
     """
     coords = coords.detach()
-    h = features.shape[-1]
-    if features.dtype == coords.dtype:
-        rows = gather_rows(torch.cat([features, coords], dim=-1), idx)
-        return rows[..., :h], rows[..., h:]
-    return gather_rows(features, idx), gather_rows(coords, idx)
+    if features.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(features, idx, coords)
+    return _gather(features, idx, coords)

@@ -24,12 +24,17 @@ from pointseg_torch.ops.ballquery import (
     ball_query_plain,
     ball_query_raw,
 )
-from pointseg_torch.ops.fps import farthest_point_sampling, farthest_point_sampling_plain
+from pointseg_torch.ops.fps import (
+    _fps_cuda,
+    farthest_point_sampling,
+    farthest_point_sampling_plain,
+)
 from pointseg_torch.ops.gather import (
     gather_rows,
     gather_rows_flat,
     gather_rows_flat_plain,
     gather_rows_plain,
+    gather_rows_with_coords,
 )
 from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
 from pointseg_torch.ops.knn import _knn_cuda, knn_indices, knn_indices_plain
@@ -54,11 +59,22 @@ def _cloud(seed, B, N, device, dup_from=None):
     return torch.from_numpy(pts).to(device)
 
 
-@pytest.mark.parametrize("B,N,C", [(8, 4096, 1024), (8, 64, 16), (3, 3000, 1000),
-                                   (2, 16384, 1024)])
+# The training stages, a ragged cloud, the eval buckets; N = 37, 1100,
+# 4099 and 4096 with C = N; each power of two from 128 to 8192 (P x threads
+# of the register path at every block size) and one past it, 12,288 and
+# 12,289 (the shared-memory path's end) and 65,536 (global memory); C = 1,
+# one cloud and 64 clouds.
+FPS_CASES = [(8, 4096, 1024), (8, 64, 16), (3, 3000, 1000), (2, 16384, 1024), (2, 37, 37),
+             (2, 1100, 300), (2, 4099, 1024), (2, 4096, 4096), (1, 65536, 1024), (1, 4096, 1),
+             (64, 1024, 256), (1, 4096, 1024)]
+FPS_CASES += [(2, n + extra, 200) for n in (128, 256, 512, 1024, 2048, 4096, 8192, 12288)
+              for extra in (0, 1)]
+
+
+@pytest.mark.parametrize("B,N,C", FPS_CASES)
 def test_fps_kernel_matches_plain(device, B, N, C):
     pts = _cloud(0, B, N, device, dup_from=N - N // 4)
-    start = torch.arange(B, dtype=torch.int32, device=device) * 7
+    start = torch.arange(B, dtype=torch.int32, device=device) * 7 % N
     before = _kernels.LAUNCHES["fps"]
     got = farthest_point_sampling(pts, C, start_indices=start)
     assert _kernels.LAUNCHES["fps"] == before + 1
@@ -66,13 +82,88 @@ def test_fps_kernel_matches_plain(device, B, N, C):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_fps_kernel_mask_matches_plain(device):
-    pts = _cloud(1, 4, 500, device)
-    mask = torch.rand((4, 500), generator=torch.Generator().manual_seed(2)).to(device) > 0.3
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 1024, -1])
+@pytest.mark.parametrize("points", [1, 2, 4, 8, 16, 32])
+def test_fps_register_path_matches_plain_at_every_block_size(device, threads, points):
+    """Forced block sizes, each at P x threads points and one fewer (a
+    thread with a slot past the cloud); a P over the block size's register
+    budget is refused. -1: the shared-memory kernel at the same clouds."""
+    if threads == -1:
+        threads, forced = 256, -1
+    else:
+        forced = threads
+    if forced > 0 and points > (16 if threads >= 512 else 32):
+        with pytest.raises(torch.cuda.CudaError):
+            _fps_cuda(_cloud(1, 1, points * threads, device), 8,
+                      torch.zeros(1, dtype=torch.int32, device=device), None, threads)
+        return
+    for N in (points * threads, points * threads - 1):
+        pts = _cloud(1, 2, N, device, dup_from=N - N // 4)
+        start = torch.tensor([0, N - 1], dtype=torch.int32, device=device)
+        C = min(N, 300)
+        got = _fps_cuda(pts, C, start, None, forced)
+        torch.testing.assert_close(got, farthest_point_sampling_plain(pts, C, start),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N", [100, 4096, 16384])
+def test_fps_kernel_on_identical_points_picks_the_lowest_index(device, N):
+    """Every distance ties: after the start, every step picks index 0."""
+    pts = torch.full((2, N, 3), 0.25, device=device)
+    start = torch.tensor([5, N - 1], dtype=torch.int32, device=device)
+    got = farthest_point_sampling(pts, 50, start_indices=start)
+    torch.testing.assert_close(got, farthest_point_sampling_plain(pts, 50, start), rtol=0, atol=0)
+    assert bool((got[:, 1:] == 0).all())
+
+
+@pytest.mark.parametrize("B,N,C", [(4, 500, 100), (2, 4096, 1024), (2, 6000, 512),
+                                   (2, 16384, 256)])
+def test_fps_kernel_mask_matches_plain(device, B, N, C):
+    pts = _cloud(1, B, N, device)
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(2)).to(device) > 0.3
     start = mask.int().argmax(dim=1).to(torch.int32)
-    got = farthest_point_sampling(pts, 100, mask=mask)
-    torch.testing.assert_close(got, farthest_point_sampling_plain(pts, 100, start, mask),
+    got = farthest_point_sampling(pts, C, mask=mask)
+    torch.testing.assert_close(got, farthest_point_sampling_plain(pts, C, start, mask),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,C", [(300, 40), (4096, 1024), (16384, 1024)])
+def test_fps_kernel_with_exactly_c_valid_points_picks_them_all(device, N, C):
+    """A mask that leaves exactly C points, the start at the last index
+    (masked out, so the first valid point starts): the C picks are those
+    points, in the plain version's order."""
+    pts = _cloud(3, 2, N, device)
+    mask = torch.zeros((2, N), dtype=torch.bool, device=device)
+    for b in range(2):
+        mask[b, torch.randperm(N - 1, generator=torch.Generator().manual_seed(b))[:C]] = True
+    start = torch.full((2,), N - 1, dtype=torch.int32, device=device)
+    first_valid = mask.int().argmax(dim=1).to(torch.int32)
+    got = farthest_point_sampling(pts, C, start_indices=first_valid, mask=mask)
+    torch.testing.assert_close(got, farthest_point_sampling_plain(pts, C, first_valid, mask),
+                               rtol=0, atol=0)
+    for b in range(2):
+        assert torch.equal(got[b].sort().values.long(), torch.nonzero(mask[b])[:, 0])
+    last = farthest_point_sampling(pts, C, start_indices=start)  # unmasked, from N - 1
+    assert int(last[0, 0]) == N - 1
+    torch.testing.assert_close(last, farthest_point_sampling_plain(pts, C, start), rtol=0, atol=0)
+
+
+def test_fps_kernel_is_captured_by_a_cuda_graph_and_replayed_on_new_input(device):
+    clouds = [_cloud(4 + i, 8, 4096, device) for i in range(2)]
+    start = torch.zeros(8, dtype=torch.int32, device=device)
+    inp = clouds[0].clone()
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        farthest_point_sampling(inp, 1024, start_indices=start)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = farthest_point_sampling(inp, 1024, start_indices=start)
+    for x in (clouds[1], clouds[0]):
+        inp.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, farthest_point_sampling_plain(x, 1024, start))
 
 
 @pytest.mark.parametrize("B,C,N,r,K", [(8, 1024, 4096, 0.1, 32), (8, 16, 64, 0.8, 32),
@@ -396,32 +487,89 @@ def test_knn_kernels_stay_in_bounds_on_nan_rows(device, select):
     assert gathered.shape == (2, 500, 20, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,N,M,C", [(8, 4096, 81920, 64), (8, 4096, 81920, 128),
-                                     (8, 1024, 8192, 35), (2, 100, 7, 3), (1, 5, 33, 4)])
-def test_gather_rows_kernel_matches_plain_forward_and_backward(device, B, N, M, C):
+                                     (8, 1024, 8192, 35), (2, 100, 7, 3), (1, 5, 33, 4),
+                                     (8, 256, 2048, 131), (8, 64, 512, 259)])
+def test_gather_rows_kernel_matches_plain_forward_and_backward(device, B, N, M, C, dtype):
+    """Rows of every byte width the kernel copies in (16, 8, 4 and 2-byte
+    units); the backward in float32, where both sides add with atomics."""
     rng = np.random.default_rng(24)
-    table = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(device)
+    table = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(device, dtype)
     idx = torch.from_numpy(rng.integers(0, N, (B, M // 4, 4)).astype(np.int32)).to(device)
     weight = torch.from_numpy(rng.normal(size=(B, M // 4, 4, C)).astype(np.float32)).to(device)
-    before = _kernels.LAUNCHES["gather_rows"]
+    before = dict(_kernels.LAUNCHES)
     t1 = table.clone().requires_grad_(True)
     got = gather_rows(t1, idx)
-    assert _kernels.LAUNCHES["gather_rows"] == before + 1
+    assert _kernels.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
     t2 = table.clone().requires_grad_(True)
     want = gather_rows_plain(t2, idx)
-    assert got.shape == (B, M // 4, 4, C)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    (got * weight).sum().backward()
-    (want * weight).sum().backward()
-    # both sum the same terms with atomics, in an order that changes
-    torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-4, atol=1e-4)
-    # int64 indices and a table slice that is not 16-byte aligned
-    torch.testing.assert_close(gather_rows(table, idx.long()), want.detach(), rtol=0, atol=0)
-    if C % 4 == 0 and N > 1:
+    assert got.shape == (B, M // 4, 4, C) and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    if dtype == torch.float32:
+        (got * weight).sum().backward()
+        (want * weight).sum().backward()
+        # both sum the same terms with atomics, in an order that changes
+        torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-4, atol=1e-4)
+    # int64 indices, a table that needs no gradient, and one under no_grad
+    assert torch.equal(gather_rows(table, idx.long()), want)
+    with torch.no_grad():
+        assert torch.equal(gather_rows(t1, idx), want)
+    if N > 1:  # a table slice that is not 16-byte aligned: narrower units, same rows
         odd = table.reshape(-1)[1:1 + B * (N - 1) * C].reshape(B, N - 1, C)
         small = idx.clamp(max=N - 2)
-        torch.testing.assert_close(gather_rows(odd, small), gather_rows_plain(odd, small),
-                                   rtol=0, atol=0)
+        assert odd.data_ptr() % 16 != 0
+        assert torch.equal(gather_rows(odd, small), gather_rows_plain(odd, small))
+    # a table that is not contiguous is copied first, and gives the same rows
+    wide = torch.cat([table, table[..., :1]], dim=-1)[..., :C]
+    assert not wide.is_contiguous() and torch.equal(gather_rows(wide, idx), want)
+
+
+# SetAbstraction groupings: (N, h, centroids, K) of PointNet++, MSG and PointNeXt
+SA_GROUPINGS = [(4096, 32, 1024, 32), (1024, 64, 256, 32), (256, 128, 64, 32), (64, 256, 16, 32),
+                (4096, 16, 1024, 16), (1024, 64, 1024, 32), (16, 512, 16, 16), (5, 7, 3, 4)]
+
+
+@pytest.mark.parametrize("features_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,h,C,K", SA_GROUPINGS)
+def test_gather_rows_with_coords_is_one_launch_equal_to_the_concat_form(device, N, h, C, K,
+                                                                     features_dtype):
+    """Both outputs bit-equal to gathering the concatenated table (the
+    JAX package's form; for bf16 features, to two gathers), contiguous, in
+    one launch; `coords.grad` None, and in float32 `features.grad` equal to
+    autograd of `torch.gather` to 1e-4 (atomic adds on both sides)."""
+    rng = np.random.default_rng(25)
+    B = 8
+    feats = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(device)
+    feats = feats.to(features_dtype)
+    coords = _cloud(26, B, N, device)
+    idx = torch.from_numpy(rng.integers(0, N, (B, C, K)).astype(np.int32)).to(device)
+    weight = torch.from_numpy(rng.normal(size=(B, C, K, h)).astype(np.float32)).to(device)
+    tf, tc = feats.clone().requires_grad_(True), coords.clone().requires_grad_(True)
+    before = dict(_kernels.LAUNCHES)
+    gf, gc = gather_rows_with_coords(tf, tc, idx)
+    assert _kernels.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    if features_dtype == torch.float32:
+        rows = gather_rows_plain(torch.cat([feats, coords], dim=-1), idx)
+        want_f, want_c = rows[..., :h], rows[..., h:]
+    else:
+        want_f, want_c = gather_rows_plain(feats, idx), gather_rows_plain(coords, idx)
+    assert gf.is_contiguous() and gc.is_contiguous() and not gc.requires_grad
+    assert torch.equal(gf, want_f) and torch.equal(gc, want_c)
+    if features_dtype == torch.float32:
+        (gf * weight).sum().backward()
+        ref = feats.clone().requires_grad_(True)
+        (gather_rows_plain(ref, idx) * weight).sum().backward()
+        torch.testing.assert_close(tf.grad, ref.grad, rtol=1e-4, atol=1e-4)
+    assert tc.grad is None
+    # int64 indices and coordinates that are a view of wider rows, as the
+    # first stage's input is
+    points = torch.cat([coords, coords * 2, coords * 3], dim=-1)
+    with torch.no_grad():
+        again = gather_rows_with_coords(tf, points[..., :3], idx.long())
+    assert torch.equal(again[0], want_f) and torch.equal(again[1], want_c)
 
 
 @pytest.mark.parametrize("Mrows", [8 * 4096, 32769, 1])

@@ -31,6 +31,7 @@ from pointseg.ops.pallas import (
 )
 from pointseg.ops.pallas.ballquery import ball_query_pallas_2l
 from pointseg_torch import ops as tops
+from pointseg_torch.ops.gather import gather_rows_plain
 
 torch.set_num_threads(2)
 
@@ -351,6 +352,36 @@ def test_gather_rows_with_coords_matches_jax_and_detaches_coords():
     np.testing.assert_array_equal(gc.detach().numpy(), np.asarray(wc))
     (gf.sum() + gc.sum()).backward()
     assert tc.grad is None and tf.grad is not None
+
+
+@pytest.mark.parametrize("how", ["grad", "no_grad", "frozen", "bf16 features"])
+def test_gather_rows_with_coords_plain_gives_contiguous_outputs_and_no_coord_grad(how):
+    """Two gathers on the CPU, each output contiguous, with or without an
+    autograd node; the coordinates never get a gradient, the features get
+    the scatter-add of autograd through `torch.gather`."""
+    rng = np.random.default_rng(31)
+    feats = rng.normal(size=(2, 30, 6)).astype(np.float32)
+    coords = _cloud(31, 2, 30)
+    idx = _t(rng.integers(0, 30, size=(2, 8, 5)).astype(np.int32))
+    tf = _t(feats).to(torch.bfloat16 if how == "bf16 features" else torch.float32)
+    tf.requires_grad_(how != "frozen")
+    tc = _t(coords).requires_grad_(True)
+    with torch.set_grad_enabled(how != "no_grad"):
+        gf, gc = tops.gather_rows_with_coords(tf, tc, idx)
+    assert gf.shape == (2, 8, 5, 6) and gc.shape == (2, 8, 5, 3)
+    assert gf.is_contiguous() and gc.is_contiguous() and not gc.requires_grad
+    assert gf.dtype == tf.dtype and gc.dtype == torch.float32
+    assert torch.equal(gf, gather_rows_plain(tf.detach(), idx))
+    assert torch.equal(gc, gather_rows_plain(tc.detach(), idx))
+    assert gf.requires_grad == (how in ("grad", "bf16 features"))
+    if gf.requires_grad:
+        weight = torch.from_numpy(rng.normal(size=(2, 8, 5, 6)).astype(np.float32))
+        (gf.float() * weight).sum().backward()
+        ref = tf.detach().clone().requires_grad_(True)
+        flat = idx.reshape(2, -1).long()[..., None].expand(-1, -1, 6)
+        (torch.gather(ref, 1, flat).reshape(2, 8, 5, 6).float() * weight).sum().backward()
+        torch.testing.assert_close(tf.grad, ref.grad, rtol=1e-4, atol=1e-4)
+    assert tc.grad is None
 
 
 # -------------------------------------------------------------- pooling

@@ -319,3 +319,63 @@ def test_ball_query_source_holds_two_selection_kernels():
     path = _cuda_path("ballquery.py")
     assert not re.search(LIBRARY_IN_WRAPPER, path)
     assert '"pointseg_ball_query"' in path and '"pointseg_ball_query_2l"' in path
+
+
+def test_batched_gather_call_does_nothing_twice_and_takes_two_tables():
+    """On a CUDA tensor `gather_rows` and `gather_rows_with_coords` reach
+    `_gather_rows_cuda`, one launch of `pointseg_gather_rows`, with no
+    library gather, no plain version and no `try`. The call does nothing
+    twice: an int32 contiguous `idx` passes as it is, a table is copied
+    only when it is not contiguous, one check function, outputs from
+    `new_empty`; a table that needs no gradient skips the autograd node,
+    and the coordinates are a second table, never concatenated. The
+    kernel copies rows by bytes (two unit types, one a table) and traps
+    on an index outside the table."""
+    path = _cuda_path("gather.py", "_gather_rows_cuda")
+    assert not re.search(LIBRARY_IN_WRAPPER + r"|\btry\b|torch\.cat", path)
+    assert path.count('"gather_rows", "pointseg_gather_rows"') == 1
+    assert "if idx.dtype != torch.int32 or not idx.is_contiguous():\n" \
+           "        idx = idx.to(torch.int32).contiguous()" in path
+    assert "if not table.is_contiguous():\n        table = table.contiguous()" in path
+    assert path.count("_check_batched(") == 1 and "_kernels.check(" not in path
+    assert path.count("new_empty(") == 2 and "torch.empty(" not in path
+    for public in (ops.gather_rows, ops.gather_rows_with_coords):
+        text = inspect.getsource(public).split('"""')[-1]
+        assert re.search(r"if \w+\.requires_grad and torch\.is_grad_enabled\(\):\n"
+                         r"\s+return _GatherRows\.apply\(", text)
+        assert "torch.cat" not in text and "_gather(" in text
+    assert _kernels._SIGNATURES["pointseg_gather_rows"][8:10] == (ctypes.c_int64,) * 2
+    source = (_kernels.CSRC / "gather.cu").read_text()
+    (kernel,) = re.findall(r"template <typename T, typename U>\n__global__ void "
+                           r"gather_rows_kernel\(.*?\n}\n", source, flags=re.S)
+    assert "__trap()" in kernel and "__shared__" not in kernel and "atomic" not in kernel
+    for unit in ("uint4", "uint2", "uint32_t", "uint16_t", "uint8_t"):
+        assert f"launch_second<{unit}>(r)" in source
+
+
+def test_fps_register_kernel_keeps_points_in_registers_with_one_barrier_a_step():
+    """The register path is a template on (threads, P), bounded to its
+    block size; a step's argmax is `redux.sync` of an order-preserving key
+    and a ballot for the lowest lane holding it (neighbouring points a
+    thread), with one `__syncthreads` a step over two alternating slot
+    sets; the distance arithmetic is rounded operation by operation;
+    the picks go to global memory once, after the loop. The wrapper
+    allocates the distance scratch only for clouds past shared memory."""
+    source = (_kernels.CSRC / "fps.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in source.splitlines())
+    (kernel,) = re.findall(r"template <int kThreads, int P>\n__launch_bounds__\(kThreads\)\n"
+                           r"__global__ void fps_register_kernel\(.*?\n}\n", code, flags=re.S)
+    loop = kernel[kernel.index("for (int step = 0;"):kernel.rindex("__syncthreads();")]
+    assert loop.count("__syncthreads()") == 1 and "s_key[slot][warp]" in loop
+    assert "__shared__ unsigned s_key[2][kWarps];" in kernel
+    assert "picks[step] = far" in loop and "out[" not in loop and "out[" in kernel
+    assert "__reduce_max_sync" in code and "__ballot_sync" in code
+    assert "tid * P + j" in kernel  # a lower lane holds lower indices
+    (dist,) = re.findall(r"float sq_dist\(.*?\n}\n", code, flags=re.S)
+    assert dist.count("__fsub_rn") == 3 and dist.count("__fmul_rn") == 3
+    assert dist.count("__fadd_rn") == 2 and "fminf(dist[j], sq_dist(" in kernel
+    assert "if (md[j + width] > md[j])" in kernel  # strict: the first maximum wins
+    fps_path = _cuda_path("fps.py")
+    assert "if N > MAX_SMEM_POINTS else None" in fps_path and "torch.empty(" not in fps_path
+    assert re.search(r"constexpr int kMaxSmemPoints = (\d+);", code).group(1) == str(
+        ops.fps.MAX_SMEM_POINTS)
