@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of pointseg_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With `--parent DIR`, DIR an unpacked checkout of an earlier commit (`git
+archive <commit> | tar -x -C DIR`), the ball query and 3-NN of both trees
+are also timed in one call (see phase 3). `--kernel-times TREE OUT` is the
+helper process that does so for one tree.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -12,7 +17,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernels, each against its plain PyTorch version on the card:
    - FPS, ball query and 3-NN at the PointNet++ training shapes (B=8,
      N=4096 -> 1024 -> 256 -> 64 -> 16), a ragged shape with repeated
-     points and a large evaluation shape. Indices and `in_ball` must be
+     points and a large evaluation shape (3-NN there too). Indices and `in_ball` must be
      equal and 3-NN distances equal to rtol 1e-5 / atol 1e-6. FPS also
      gives its device time a launch (profiler) and the kernel instance
      that ran at each shape; at the four SA stages the register path at
@@ -21,6 +26,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the per-step time of the same kernel with one point a thread);
      at (2, 16384, 1024) the register path (16 points a thread) against
      the default kernel.
+   - the flat ball query (kernel 2) and 3-NN (kernel 3) at every shape of
+     PointNet++ SSG (four SA and four FP stages), MSG (eight queries) and
+     PointNeXt (nine), and at the evaluation buckets (N = 16384 and 65536;
+     r = 0.8 at 65536, a ball of thousands of members): equal to the plain
+     version (the ball query raw and with the repeat filler, 3-NN indices
+     and distance bits), device us a launch (profiler) beside the
+     exact-arithmetic floor (9 rounded FP instructions a pair over 132 SMs
+     x 128 lanes at the boost clock), and each model's row of launches
+     under CUDA events; every split of the two kernels (centroids or
+     targets a warp, warps a block, warps a centroid) at the training
+     stages and the buckets, equal to plain, device us a launch; that
+     `ball_query(filler="repeat")` runs one device kernel; the host time
+     of a ball-query and of a 3-NN call split into its parts and the steps
+     it no longer takes, beside `torch.topk` over a `baddbmm`. With
+     `--parent DIR`: the same per-shape device times and rows, and the
+     device time a train step of PointNet++, PointNeXt, PointNet++MSG and
+     DeepGraphCnn, for DIR's package and this one, each in a process of
+     its own, in turns (parent, this, this, parent), and both kernels'
+     outputs on NaN coordinates, which must equal the parent's bit for bit.
    - the two-level ball query against the plain version and against the
      flat kernel, index for index and `in_ball` for `in_ball`, at every
      ball-query shape of PointNeXt (four SA stages and five InvResMLP
@@ -98,7 +122,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    synthetic S3DIS-shaped block dataset, one epoch (12 steps) and its
    evaluation pass each, with the launch counters set to 0 just before
    and read just after: `train PointNet++` must launch fps, ball_query
-   and three_nn; `train DeepGraphCnn` must launch knn (4 per step) and
+   and three_nn 4 times each per forward pass; `train DeepGraphCnn` must launch knn (4 per step) and
    gather_rows; `train PointNeXt` must launch fps 4, ball_query 9 and
    three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
    4 times. For both of these, three steps with
@@ -493,7 +517,7 @@ def pointnetpp_kernels(device, record: Record) -> list:
                     12 * B * C + 12 * B * N + 5 * B * C * 32, flips, err, per_forward)
         print(f"{'':11s} share of in-ball slots {float(g_in.float().mean()):.3f}")
 
-        if N <= 4096:  # 3-NN upsamples each stage's centroids back onto its input
+        if N <= 16384:  # 3-NN upsamples each stage's centroids back onto its input
             g_d, g_i = three_nn(pts, cents)
             w_d, w_i = three_nn_plain(pts, cents)
             torch.testing.assert_close(g_d, w_d, rtol=1e-5, atol=1e-6)
@@ -592,6 +616,431 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
         print(f"{'':11s} {which}'s {n} queries summed: two-level {t['two_level']:.4f} ms, flat "
               f"{t['flat']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound']:.5f} ms; device "
               f"time (profiler): two-level {t['two_level_us']:.1f} us, flat {t['flat_us']:.1f} us")
+
+
+# Kernel 2's queries of a PointNet++ SSG forward pass, as POINTNEXT_QUERIES
+# and MSG_QUERIES: (centroid level, cloud level, radius, K).
+SSG_QUERIES = [(1, 0, 0.1, 32), (2, 1, 0.2, 32), (3, 2, 0.4, 32), (4, 3, 0.8, 32)]
+# The evaluation buckets, (B, N, C, radius, K): SA1's radius, and r = 0.8
+# at N = 65536, a ball of thousands of members.
+EVAL_BALLS = [(2, 16384, 1024, 0.1, 32), (1, 65536, 1024, 0.1, 32), (1, 65536, 1024, 0.8, 32)]
+# 3-NN of an FP pass upsamples level l + 1 onto level l; the evaluation
+# buckets as (B, N, M).
+FP_LEVELS = [(0, 1), (1, 2), (2, 3), (3, 4)]
+EVAL_THREE_NN = [(2, 16384, 1024), (1, 65536, 1024)]
+# Rounded FP instructions a pair that exact arithmetic needs: the Gram form
+# (3 mul, 2 add, the doubling, a subtraction and an addition) and one
+# compare; at one instruction a lane a cycle (half the FMA rate)
+EXACT_INSTR_A_PAIR = 9
+# the kernels' splits swept at each shape: ball query (centroids a warp,
+# warps a block, warps a centroid), 3-NN (targets a warp, warps a block)
+BALL_SPLITS = [(1, 8, 1), (2, 8, 1), (4, 8, 1), (8, 8, 1), (4, 4, 1), (4, 16, 1), (1, 8, 2),
+               (1, 8, 4), (1, 16, 16), (2, 8, 2), (2, 8, 4), (2, 8, 8), (4, 8, 2), (4, 16, 16)]
+THREE_NN_SPLITS = [(1, 8), (2, 8), (4, 8), (8, 8), (1, 4), (2, 4), (4, 4), (8, 4), (2, 16),
+                   (4, 16), (1, 2)]
+
+
+def floor_us(pairs: float) -> float:
+    """Exact-arithmetic floor of `pairs` distance evaluations, us: their
+    rounded FP instructions over 132 SMs x 128 lanes at the boost clock
+    (half the FMA rate that PEAK_F32_FLOPS counts)."""
+    return pairs * EXACT_INSTR_A_PAIR / (PEAK_F32_FLOPS / 2) * 1e6
+
+
+def training_levels(device) -> list:
+    """The PointNet++ training path's five clouds (4096 points, then each
+    stage's FPS picks from a start of 0), as in the kernel phase."""
+    from pointseg_torch.ops.fps import farthest_point_sampling
+    from pointseg_torch.ops.gather import gather_rows
+
+    levels = [torch.from_numpy(block_cloud(np.random.default_rng(0), 8, 4096)).to(device)]
+    for _, _, C in SLICE_FPS:
+        levels.append(gather_rows(levels[-1], farthest_point_sampling(levels[-1], C)).contiguous())
+    return levels
+
+
+def ball_cases(device, levels) -> list:
+    """(label, centroids, cloud, radius, K, launches a forward pass of SSG,
+    of MSG, of PointNeXt) for every ball query the three models run and the
+    evaluation buckets."""
+    cases = []
+    for q in dict.fromkeys(SSG_QUERIES + MSG_QUERIES + POINTNEXT_QUERIES):
+        cents, pts = levels[q[0]], levels[q[1]]
+        label = f"({cents.shape[0]}, {cents.shape[1]}, {pts.shape[1]}, r={q[2]}, K={q[3]})"
+        cases.append((label, cents, pts, q[2], q[3], int(q in SSG_QUERIES), int(q in MSG_QUERIES),
+                      POINTNEXT_QUERIES.count(q)))
+    rng = np.random.default_rng(15)
+    for B, N, C, r, K in EVAL_BALLS:
+        pts = torch.from_numpy(block_cloud(rng, B, N)).to(device)
+        cases.append((f"eval ({B}, {C}, {N}, r={r}, K={K})", pts[:, :C].contiguous(), pts, r, K,
+                      0, 0, 0))
+    return cases
+
+
+def three_nn_cases(device, levels) -> list:
+    """(label, targets, sources, launches a forward pass) for the four FP
+    stages and the evaluation buckets."""
+    cases = [(f"FP{i + 1} {tuple(levels[t].shape[:2])} <- {levels[s].shape[1]}",
+              levels[t], levels[s], 1) for i, (t, s) in enumerate(FP_LEVELS)]
+    rng = np.random.default_rng(16)
+    for B, N, M in EVAL_THREE_NN:
+        pts = torch.from_numpy(block_cloud(rng, B, N)).to(device)
+        cases.append((f"eval ({B}, {N}) <- {M}", pts, pts[:, :M].contiguous(), 0))
+    return cases
+
+
+def nan_inputs(device):
+    """A cloud with NaN coordinates (a point, a whole point) for both
+    kernels: the outputs must not change from the parent's."""
+    pts = torch.from_numpy(block_cloud(np.random.default_rng(17), 2, 2048)).to(device)
+    pts[0, 7, 1] = float("nan")
+    pts[1, 300] = float("nan")
+    pts[1, 1500, 2] = float("nan")
+    return pts
+
+
+def selection_times(device, out_path: str | None = None) -> dict:
+    """Kernels 2 and 3 of the package on the path at every shape of the
+    three PointNet++-family models and at the evaluation buckets: each
+    equal to its plain version (ball query raw and with the repeat
+    filler, 3-NN indices and distance bits), device us a launch
+    (profiler), and each model's row under CUDA events. Runs on the
+    parent's package too (`--kernel-times`), so it uses the public calls
+    only; with `out_path` it saves the outputs on NaN inputs there."""
+    from pointseg_torch.ops.ballquery import ball_query, ball_query_plain, ball_query_raw
+    from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
+
+    levels = training_levels(device)
+    res = {"ball_query_us": {}, "three_nn_us": {}, "rows_ms": {}}
+    rows = {"ball_query raw, SSG's four": 0.0, "ball_query repeat, SSG's four": 0.0,
+            "ball_query repeat, MSG's eight": 0.0, "ball_query repeat, PointNeXt's nine": 0.0,
+            "three_nn, the four FP stages": 0.0}
+    for label, cents, pts, r, K, ssg, msg, pnext in ball_cases(device, levels):
+        want_idx, want_in = ball_query_plain(cents, pts, r, K)
+        idx, in_ball = ball_query_raw(cents, pts, r, K)
+        rep, rep_in = ball_query(cents, pts, r, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, want_idx) and torch.equal(in_ball, want_in)
+                and torch.equal(rep, torch.where(want_in, want_idx, want_idx[..., :1]))
+                and torch.equal(rep_in, want_in)):
+            raise AssertionError(f"ball query {label}: differs from plain "
+                                 f"({int((idx != want_idx).sum())} slots)")
+        reps = 10 if pts.shape[1] <= 4096 else 5
+        res["ball_query_us"][label] = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K),
+                                                       "ball_query_kernel", reps)
+        if ssg or msg or pnext:
+            raw_ms = timed(lambda: ball_query_raw(cents, pts, r, K), 50)
+            rep_ms = timed(lambda: ball_query(cents, pts, r, K), 50)
+            rows["ball_query raw, SSG's four"] += ssg * raw_ms
+            rows["ball_query repeat, SSG's four"] += ssg * rep_ms
+            rows["ball_query repeat, MSG's eight"] += msg * rep_ms
+            rows["ball_query repeat, PointNeXt's nine"] += pnext * rep_ms
+        print(f"{'':11s} ball_query {label}: {res['ball_query_us'][label]:.1f} us a launch on "
+              f"the device, floor {floor_us(cents.shape[0] * cents.shape[1] * pts.shape[1]):.1f}"
+              f" us; share of in-ball slots {float(want_in.float().mean()):.3f}", flush=True)
+    for label, tgt, src, per_forward in three_nn_cases(device, levels):
+        d2, idx = three_nn(tgt, src)
+        want_d2, want_idx = three_nn_plain(tgt, src)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, want_idx)
+                and torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))):
+            raise AssertionError(f"three_nn {label}: differs from plain")
+        reps = 10 if tgt.shape[1] <= 4096 else 5
+        res["three_nn_us"][label] = kernel_device_us(lambda: three_nn(tgt, src),
+                                                     "three_nn_kernel", reps)
+        if per_forward:
+            rows["three_nn, the four FP stages"] += timed(lambda: three_nn(tgt, src), 50)
+        print(f"{'':11s} three_nn {label}: {res['three_nn_us'][label]:.1f} us a launch on the "
+              f"device, floor {floor_us(tgt.shape[0] * tgt.shape[1] * src.shape[1]):.1f} us",
+              flush=True)
+    res["rows_ms"] = rows
+    print(f"{'':11s} rows under CUDA events, ms: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in rows.items()))
+    if out_path:
+        pts = nan_inputs(device)
+        torch.save({"ball_query": ball_query_raw(pts[:, :512], pts, 0.2, 32),
+                    "three_nn": three_nn(pts, pts[:, :512])}, out_path)
+    return res
+
+
+def model_step_times(device) -> dict:
+    """Device ms a train step (profiler, 3 steps) and step ms (CUDA
+    events, 10 steps) of the three PointNet++-family models and
+    DeepGraphCnn at the reference batch, random data from a seed."""
+    from torch.autograd import DeviceType
+
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state, train_step
+
+    gen = torch.Generator(device).manual_seed(21)
+    points = torch.rand((8, 4096, 9), device=device, generator=gen)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 14, (8, 4096), device=device, generator=gen), 14).float()
+    lengths = torch.full((8,), 4096, dtype=torch.int32, device=device)
+    out = {}
+    for name in ("PointNet++", "PointNeXt", "PointNet++MSG", "DeepGraphCnn"):
+        torch.manual_seed(0)
+        run = create_train_state(create_model(name), device=device, learning_rate=1e-3, seed=0)
+        for _ in range(3):
+            train_step(run, points, labels, lengths)
+        step_ms = cuda_ms(lambda: train_step(run, points, labels, lengths), 10)
+        rows = profiled(lambda: train_step(run, points, labels, lengths), 3)
+        dev_ms = sum(device_time_us(e) for e in rows if e.device_type == DeviceType.CUDA
+                     and not e.is_user_annotation) / 3 / 1e3
+        out[name] = {"device_ms": dev_ms, "step_ms": step_ms}
+        print(f"{'':11s} {name}: device {dev_ms:.3f} ms a step (profiler), step {step_ms:.3f} ms "
+              f"(CUDA events)", flush=True)
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def selection_splits(device) -> None:
+    """Every split of kernels 2 and 3 in BALL_SPLITS / THREE_NN_SPLITS at
+    the training stages and the evaluation buckets, each equal to the plain
+    version, device us a launch, beside the split the kernel picks."""
+    from pointseg_torch.ops.ballquery import _ball_query_cuda, _radius_sq, ball_query_plain
+    from pointseg_torch.ops.interpolate import _three_nn_cuda, three_nn_plain
+
+    levels = training_levels(device)
+    cases = [c for c in ball_cases(device, levels)
+             if c[5] or c[0].startswith("eval")]  # SSG's four, the buckets
+    for label, cents, pts, r, K, *_ in cases:
+        want = ball_query_plain(cents, pts, r, K)
+        times = []
+        for config in ((0, 0, 0), *BALL_SPLITS):
+            def call():
+                return _ball_query_cuda(cents, pts, _radius_sq(r), K, None, "flat", 4, False,
+                                        config)
+            got = call()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"ball query {label} split {config} differs from plain")
+            us = kernel_device_us(call, "ball_query_kernel", 5)
+            times.append(f"{'default' if config == (0, 0, 0) else config} {us:.1f}")
+        print(f"{'':11s} ball_query {label}, device us a launch by (centroids a warp, warps a "
+              f"block, warps a centroid): " + ", ".join(times), flush=True)
+    for label, tgt, src, _ in three_nn_cases(device, levels):
+        want_d, want_i = three_nn_plain(tgt, src)
+        times = []
+        for split in ((0, 0), *THREE_NN_SPLITS):
+            d, i = _three_nn_cuda(tgt, src, None, split)
+            if not (torch.equal(i, want_i) and torch.equal(d.view(torch.int32),
+                                                           want_d.view(torch.int32))):
+                raise AssertionError(f"three_nn {label} split {split} differs from plain")
+            us = kernel_device_us(lambda: _three_nn_cuda(tgt, src, None, split),
+                                  "three_nn_kernel", 5)
+            times.append(f"{'default' if split == (0, 0) else split} {us:.1f}")
+        print(f"{'':11s} three_nn {label}, device us a launch by (targets a warp, warps a "
+              f"block): " + ", ".join(times), flush=True)
+
+
+def one_kernel_a_repeat_call(device) -> None:
+    """`ball_query(filler="repeat")` on the card: one device kernel, the
+    ball query's (profiler over one call)."""
+    from torch.autograd import DeviceType
+
+    from pointseg_torch.ops.ballquery import ball_query
+
+    levels = training_levels(device)
+    cents, pts = levels[1], levels[0]
+    rows = [e for e in profiled(lambda: ball_query(cents, pts, 0.1, 32), 1)
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if [e.count for e in rows] != [1] or "ball_query_kernel" not in rows[0].key:
+        raise AssertionError(f"ball_query(filler='repeat'): device kernels "
+                             f"{[(e.key, e.count) for e in rows]}, not one ball_query_kernel")
+    print(f"{'':11s} ball_query(filler='repeat') at SA1: one device kernel, {rows[0].key}")
+
+
+def against_parent(parent: str) -> None:
+    """Kernels 2 and 3 of this tree and of `parent` (an unpacked checkout
+    of the commit before this change) in one call, in turns parent, this,
+    this, parent, each a `--kernel-times` process that imports its own
+    package and builds its own kernels: device us a launch at every shape,
+    the rows under CUDA events, the device time a step of four models; and
+    the outputs on NaN inputs, which must be equal bit for bit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "this": []}
+    outs = {}
+    tmp = tempfile.mkdtemp(prefix="pointseg_parent_")
+    try:
+        for n, (who, tree) in enumerate((("parent", parent), ("this", here), ("this", here),
+                                         ("parent", parent))):
+            path = os.path.join(tmp, f"{n}.pt")
+            proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                                   "--kernel-times", tree, path], capture_output=True, text=True,
+                                  timeout=600)
+            print(proc.stdout[-6000:], proc.stderr[-3000:], sep="\n", flush=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"--kernel-times {tree} exited {proc.returncode}")
+            runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            outs.setdefault(who, torch.load(path))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("ball_query", "three_nn"):
+        for a, b in zip(outs["this"][key], outs["parent"][key]):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"{key} on NaN inputs differs from the parent's kernel")
+    print(f"{'':11s} on NaN inputs both kernels equal the parent's bit for bit")
+
+    def mean(who, *keys):
+        values = [r for r in runs[who]]
+        for k in keys:
+            values = [v[k] for v in values]
+        return sum(values) / len(values)
+
+    for key in ("ball_query_us", "three_nn_us"):
+        for label in runs["this"][0][key]:
+            p, t = mean("parent", key, label), mean("this", key, label)
+            print(f"{'':11s} {key[:-3]} {label}: parent {p:.1f} us, this {t:.1f} us a launch on "
+                  f"the device ({p / t:.2f}x)")
+    for label in runs["this"][0]["rows_ms"]:
+        print(f"{'':11s} row under CUDA events, {label}: parent "
+              f"{[round(r['rows_ms'][label], 4) for r in runs['parent']]} ms, this "
+              f"{[round(r['rows_ms'][label], 4) for r in runs['this']]} ms")
+    for name in runs["this"][0]["steps"]:
+        print(f"{'':11s} {name}: device ms a step parent "
+              f"{[round(r['steps'][name]['device_ms'], 3) for r in runs['parent']]}, this "
+              f"{[round(r['steps'][name]['device_ms'], 3) for r in runs['this']]}; step ms "
+              f"parent {[round(r['steps'][name]['step_ms'], 3) for r in runs['parent']]}, this "
+              f"{[round(r['steps'][name]['step_ms'], 3) for r in runs['this']]}")
+
+
+def kernel_times_main(tree: str, out_path: str) -> int:
+    """`chip_smoke.py --kernel-times TREE OUT`: `selection_times` and
+    `model_step_times` with the package of the checkout at TREE; the last
+    line is their JSON."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import pointseg_torch
+
+    if not os.path.abspath(pointseg_torch.__file__).startswith(os.path.abspath(tree)):
+        raise AssertionError(f"imported {pointseg_torch.__file__}, not the package of {tree}")
+    device = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pointseg_torch.ops import _kernels
+
+    _kernels.library()
+    print(f"kernel times of {tree}:")
+    res = selection_times(device, out_path)
+    res["steps"] = model_step_times(device)
+    print(json.dumps(res))
+    return 0
+
+
+def selection_call_split(device) -> None:
+    """Where the host time of one `ball_query(filler="repeat")` call and
+    of one `three_nn` call goes (four of each a PointNet++ step), at SA3
+    (8, 64, 256) and FP3 (8, 256) <- 64, whose kernels take a few us, so
+    that 10,000 calls in a row never wait for the card: each part timed by
+    itself, then the steps the calls no longer take, beside the whole
+    call, an empty Python function and, for 3-NN, `torch.topk` over a
+    `baddbmm`."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.ballquery import FILLERS, MAX_K, _radius_sq, ball_query
+    from pointseg_torch.ops.interpolate import three_nn
+    from pointseg_torch.ops.knn import SELECTS
+
+    levels = training_levels(device)
+    cents, pts, tgt = levels[3], levels[2], levels[2]
+    _kernels.library()
+    index = device.index
+    stream = _kernels._raw_stream(index)
+    idx = pts.new_empty((8, 64, 32), dtype=torch.int32)
+    in_ball = pts.new_empty((8, 64, 32), dtype=torch.bool)
+    d2 = pts.new_empty((8, 256, 3))
+    nn = pts.new_empty((8, 256, 3), dtype=torch.int32)
+    bq_entry = _kernels._ENTRY_POINTS["pointseg_ball_query"]
+    bq_args = (cents.data_ptr(), pts.data_ptr(), None, idx.data_ptr(), in_ball.data_ptr(), 8,
+               64, 256, 32, _radius_sq(0.4), 1, 0, 0, 0)
+    nn_entry = _kernels._ENTRY_POINTS["pointseg_three_nn"]
+    nn_args = (tgt.data_ptr(), cents.data_ptr(), None, d2.data_ptr(), nn.data_ptr(), 8, 256,
+               64, 0, 0)
+
+    def count():
+        _kernels.LAUNCHES["ball_query"] += 0
+
+    def layout(a, b):
+        return (a.dtype != torch.float32 or not a.is_contiguous(),
+                b.dtype != torch.float32 or not b.is_contiguous())
+
+    def shapes(a, b):
+        return (a.dim() != 3 or b.dim() != 3 or a.shape[2] != 3 or b.shape[2] != 3
+                or b.shape[0] != a.shape[0] or a.device != b.device)
+
+    calls = {
+        "ball_query(filler='repeat') at SA3": (
+            lambda: ball_query(cents, pts, 0.4, 32),
+            [("filler, select and K tests, device dispatch",
+              lambda: ("repeat" not in FILLERS, "flat" not in SELECTS, not 1 <= 32 <= 256,
+                       _kernels.on_cuda(pts))),
+             ("K and depth limits", lambda: (32 > MAX_K, 4 not in (1, 4, 5))),
+             ("dtype and contiguity tests", lambda: layout(cents, pts)),
+             ("shape and device checks", lambda: shapes(cents, pts)),
+             ("two new_empty outputs", lambda: (
+                 pts.new_empty((8, 64, 32), dtype=torch.int32),
+                 pts.new_empty((8, 64, 32), dtype=torch.bool))),
+             ("pointers, sizes, r^2", lambda: (cents.data_ptr(), pts.data_ptr(), idx.data_ptr(),
+                                              in_ball.data_ptr(), _radius_sq(0.4))),
+             ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
+             ("the ctypes call (launches the kernel)", lambda: bq_entry(*bq_args, index, stream)),
+             ("launch counter", count)],
+            [("detach().to(float32).contiguous() of both inputs",
+              lambda: (cents.detach().to(torch.float32).contiguous(),
+                       pts.detach().to(torch.float32).contiguous())),
+             ("two _kernels.check calls", lambda: (
+                 _kernels.check(cents, "centroids", torch.float32, (8, 64, 3)),
+                 _kernels.check(pts, "coords", torch.float32, (8, 256, 3)))),
+             ("two torch.empty(shape, dtype=, device=), less new_empty's time", lambda: (
+                 torch.empty((8, 64, 32), dtype=torch.int32, device=pts.device),
+                 torch.empty((8, 64, 32), dtype=torch.bool, device=pts.device))),
+             ("the repeat filler: torch.where(in_ball, idx, idx[..., :1])",
+              lambda: torch.where(in_ball, idx, idx[..., :1]))],
+            None),
+        "three_nn at FP3": (
+            lambda: three_nn(tgt, cents),
+            [("k test, device dispatch", lambda: (not 1 <= 3 <= 64, _kernels.on_cuda(cents),
+                                                  3 != 3)),
+             ("dtype and contiguity tests", lambda: layout(tgt, cents)),
+             ("shape and device checks", lambda: shapes(tgt, cents)),
+             ("two new_empty outputs", lambda: (
+                 cents.new_empty((8, 256, 3)),
+                 cents.new_empty((8, 256, 3), dtype=torch.int32))),
+             ("pointers, sizes", lambda: (tgt.data_ptr(), cents.data_ptr(), d2.data_ptr(),
+                                          nn.data_ptr(), tgt.shape, cents.shape[1])),
+             ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
+             ("the ctypes call (launches the kernel)", lambda: nn_entry(*nn_args, index, stream)),
+             ("launch counter", count)],
+            [("detach().to(float32).contiguous() of both inputs",
+              lambda: (tgt.detach().to(torch.float32).contiguous(),
+                       cents.detach().to(torch.float32).contiguous())),
+             ("two _kernels.check calls", lambda: (
+                 _kernels.check(tgt, "coords_tgt", torch.float32, (8, 256, 3)),
+                 _kernels.check(cents, "coords_src", torch.float32, (8, 64, 3)))),
+             ("two torch.empty(shape, dtype=, device=), less new_empty's time", lambda: (
+                 torch.empty((8, 256, 3), dtype=torch.float32, device=pts.device),
+                 torch.empty((8, 256, 3), dtype=torch.int32, device=pts.device)))],
+            lambda: three_nn_library(tgt, cents)),
+    }
+    nothing = host_us(lambda: None)
+    for what, (whole_fn, now, before, library) in calls.items():
+        whole = host_us(whole_fn)
+        lib = f"; torch.topk over a baddbmm {host_us(library, 2000):.2f}" if library else ""
+        print(f"host time of one {what} call, us a call over 10,000 calls, host clock, no "
+              f"synchronisation: whole call {whole:.2f}{lib}; an empty Python function "
+              f"{nothing:.3f}")
+        parts = {name: host_us(fn) for name, fn in now}
+        for name, us in parts.items():
+            print(f"  part of the call: {name:45s} {us:7.2f}")
+        print(f"  parts summed {sum(parts.values()):.2f} (each part pays an empty call's "
+              f"{nothing:.3f} again)")
+        gone = 0.0
+        for name, fn in before:
+            us = host_us(fn)
+            if name.startswith("two torch.empty"):
+                us -= parts["two new_empty outputs"]
+            gone += us
+            print(f"  no longer in the call: {name:45s} {us:7.2f}")
+        print(f"  steps no longer taken, summed {gone:.2f}")
 
 
 def knn_kernels(device, record: Record) -> None:
@@ -1418,6 +1867,11 @@ def trainer_phase(device, workdir: str):
     if (pp_launches["knn"] or pp_launches["knn_2l"] or pp_launches["ball_query_2l"]
             or pp_launches["gather_rows_flat"]):
         raise AssertionError(f"PointNet++ launched kernels off its path: {pp_launches}")
+    forwards = pp_launches["fps"] // 4  # train steps and eval batches
+    if forwards <= pp_state.step or any(pp_launches[k] != 4 * forwards
+                                        for k in ("fps", "ball_query", "three_nn")):
+        raise AssertionError(f"PointNet++: every forward pass must launch fps, ball_query and "
+                             f"three_nn 4 times each, got {pp_launches}")
     train_loader, _ = create_block_dataloaders(f"{workdir}/data", {6}, 8, 2, 4096, seed=1)
     batch = to_device(next(iter(train_loader)), device)
     pp_perf = steady_state(pp_state, batch, "PointNet++")
@@ -1736,6 +2190,13 @@ def output_phase(states: dict, batch) -> None:
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--kernel-times"] and len(args) == 3:
+        return kernel_times_main(args[1], args[2])
+    if args and (args[0] != "--parent" or len(args) != 2):
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
+    parent = args[1] if args else None
     phase("1. device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required",
@@ -1764,6 +2225,12 @@ def main() -> int:
     levels = pointnetpp_kernels(device, record)
     ball_query_2l_kernels(device, record, levels)
     del levels
+    selection_times(device)
+    selection_splits(device)
+    one_kernel_a_repeat_call(device)
+    selection_call_split(device)
+    if parent:
+        against_parent(parent)
     knn_kernels(device, record)
     gather_kernels(device, record)
     gather_flat_kernels(device, record, seed=7)

@@ -72,12 +72,13 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _SIGNATURES = {  # every entry point ends with (device index, stream)
     # coords, start, mask, out, dist_scratch, B, N, C, threads
     "pointseg_fps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2
-    "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth
-    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # tgt, src, src_mask, out_d, out_i, B, N, M
-    "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, repeat,
+    # groups, warps, slices
+    "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth, repeat
+    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # tgt, src, src_mask, out_d, out_i, B, N, M, targets, warps
+    "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, norms_scratch, mask, out, B, N, F, K, include_self
     "pointseg_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, norms_scratch, mask, out, B, N, F, K, include_self, depth

@@ -13,8 +13,9 @@ flat kernel (`select="flat"`, the default) or the two-level kernel
 (`select="two_level"`, the counterpart of the JAX package's
 `use_select2l` setting; here a function argument), at every shape and
 with or without a mask. On a CPU tensor the plain PyTorch version below
-runs for both. All return the same raw (idx, in_ball); `ball_query` then
-applies the filler.
+runs for both. All return the same raw (idx, in_ball); `ball_query` with
+the repeat filler has the kernel write it (still one launch), or applies
+it with `torch.where` on the CPU.
 """
 
 from __future__ import annotations
@@ -89,19 +90,29 @@ def ball_query_raw(
             outside the ball (or excluded by `mask`) in index order.
         in_ball: (B, C, K) bool, True on the member slots.
     """
+    return _select(centroids, coords, radius, K, mask, select, repeat=False)
+
+
+def _select(centroids, coords, radius, K, mask, select, repeat: bool):
+    """The selection, with the repeat filler applied when `repeat`: by
+    the kernel on a CUDA tensor (one launch), by `torch.where` over the
+    plain version's raw result on a CPU one."""
     if select not in SELECTS:
         raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
     N = coords.shape[1]
     if not 1 <= K <= N:
         raise ValueError(f"ball query needs 1 <= K <= N, got K={K}, N={N}")
-    centroids = centroids.detach().to(torch.float32).contiguous()
-    coords = coords.detach().to(torch.float32).contiguous()
-    if mask is not None:
-        mask = mask.to(device=coords.device, dtype=torch.bool).contiguous()
     if _kernels.on_cuda(coords):
         return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask, select,
-                                default_depth(K))
-    return ball_query_plain(centroids, coords, radius, K, mask=mask)
+                                default_depth(K), repeat)
+    if mask is not None:
+        mask = mask.to(device=coords.device, dtype=torch.bool)
+    idx, in_ball = ball_query_plain(centroids.detach().to(torch.float32),
+                                    coords.detach().to(torch.float32), radius, K, mask=mask)
+    if repeat:
+        # slot 0 is the nearest member whenever the ball has one
+        idx = torch.where(in_ball, idx, idx[..., :1])
+    return idx, in_ball
 
 
 def ball_query_plain(
@@ -129,31 +140,49 @@ def ball_query_plain(
     return idx[..., :K].to(torch.int32), values[..., :K] < float("inf")
 
 
-def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth):
-    """One launch of the flat or the two-level kernel; `depth` is the
-    two-level kernel's stack depth (4 or 5; 1 forces its refills)."""
-    B, C, _ = centroids.shape
-    N = coords.shape[1]
+def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth, repeat=False,
+                     config=(0, 0, 0)):
+    """One launch of the flat or the two-level kernel, which writes the
+    repeat filler itself when `repeat`. `depth` is the two-level kernel's
+    stack depth (4 or 5; 1 forces its refills); `config` forces the flat
+    kernel's (centroids a warp, warps a block, warps a centroid), (0, 0,
+    0) lets it choose. A call at the training shapes is host time beside
+    a kernel of microseconds, so nothing is done twice: f32 contiguous
+    inputs and a contiguous bool mask pass as they are, each is checked
+    once, and the outputs come from `new_empty`."""
     if K > MAX_K:
         raise ValueError(f"the CUDA ball query takes K <= {MAX_K}, got {K}")
     if depth not in (1, 4, 5):
         raise ValueError(f"the two-level ball query is built for depth 1, 4 and 5, got {depth}")
-    _kernels.check(centroids, "centroids", torch.float32, (B, C, 3))
-    _kernels.check(coords, "coords", torch.float32, (B, N, 3))
+    if centroids.dtype != torch.float32 or not centroids.is_contiguous():
+        centroids = centroids.to(torch.float32).contiguous()
+    if coords.dtype != torch.float32 or not coords.is_contiguous():
+        coords = coords.to(torch.float32).contiguous()
+    B, C = centroids.shape[:2]
+    N = coords.shape[1]
+    if (centroids.dim() != 3 or coords.dim() != 3 or centroids.shape[2] != 3
+            or coords.shape[2] != 3 or coords.shape[0] != B
+            or centroids.device != coords.device):
+        raise ValueError(f"ball query needs (B, C, 3) centroids and (B, N, 3) coords on one "
+                         f"device, got {tuple(centroids.shape)} on {centroids.device} and "
+                         f"{tuple(coords.shape)} on {coords.device}")
     if mask is not None:
-        _kernels.check(mask, "mask", torch.bool, (B, N))
-    if centroids.device != coords.device:
-        raise ValueError("centroids and coords must be on the same device")
-    idx = torch.empty((B, C, K), dtype=torch.int32, device=coords.device)
-    in_ball = torch.empty((B, C, K), dtype=torch.bool, device=coords.device)
+        if mask.dtype != torch.bool or not mask.is_contiguous() or mask.device != coords.device:
+            mask = mask.to(device=coords.device, dtype=torch.bool).contiguous()
+        if mask.shape != (B, N):
+            raise ValueError(f"mask: need shape {(B, N)}, got {tuple(mask.shape)}")
+    idx = coords.new_empty((B, C, K), dtype=torch.int32)
+    in_ball = coords.new_empty((B, C, K), dtype=torch.bool)
     if B == 0 or C == 0:
         return idx, in_ball
-    args = (_kernels.ptr(centroids), _kernels.ptr(coords), _kernels.ptr(mask),
-            _kernels.ptr(idx), _kernels.ptr(in_ball), B, C, N, K, r2)
+    args = (centroids.data_ptr(), coords.data_ptr(), _kernels.ptr(mask), idx.data_ptr(),
+            in_ball.data_ptr(), B, C, N, K, r2)
     if select == "flat":
-        _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args)
+        _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args, repeat,
+                        *config)
     else:
-        _kernels.launch("ball_query_2l", "pointseg_ball_query_2l", coords.device, *args, depth)
+        _kernels.launch("ball_query_2l", "pointseg_ball_query_2l", coords.device, *args, depth,
+                        repeat)
     return idx, in_ball
 
 
@@ -184,11 +213,7 @@ def ball_query(
     """
     if filler not in FILLERS:
         raise ValueError(f"filler must be one of {FILLERS}, got {filler!r}")
-    idx, in_ball = ball_query_raw(centroids, coords, radius, K, mask=mask, select=select)
-    if filler == "repeat":
-        # slot 0 is the nearest member whenever the ball has one
-        idx = torch.where(in_ball, idx, idx[..., :1])
-    return idx, in_ball
+    return _select(centroids, coords, radius, K, mask, select, repeat=filler == "repeat")
 
 
 def group(

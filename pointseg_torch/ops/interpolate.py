@@ -37,15 +37,14 @@ def three_nn(
     M = coords_src.shape[1]
     if not 1 <= k <= M:
         raise ValueError(f"three_nn needs 1 <= k <= M, got k={k}, M={M}")
-    coords_tgt = coords_tgt.detach().to(torch.float32).contiguous()
-    coords_src = coords_src.detach().to(torch.float32).contiguous()
-    if src_mask is not None:
-        src_mask = src_mask.to(device=coords_src.device, dtype=torch.bool).contiguous()
     if _kernels.on_cuda(coords_src):
         if k != 3:
             raise ValueError(f"the CUDA three_nn kernel takes k = 3, got {k}")
         return _three_nn_cuda(coords_tgt, coords_src, src_mask)
-    return three_nn_plain(coords_tgt, coords_src, k, src_mask=src_mask)
+    if src_mask is not None:
+        src_mask = src_mask.to(device=coords_src.device, dtype=torch.bool)
+    return three_nn_plain(coords_tgt.detach().to(torch.float32),
+                          coords_src.detach().to(torch.float32), k, src_mask=src_mask)
 
 
 def three_nn_plain(
@@ -65,23 +64,37 @@ def three_nn_plain(
     return values[..., :k], idx[..., :k].to(torch.int32)
 
 
-def _three_nn_cuda(coords_tgt, coords_src, src_mask):
+def _three_nn_cuda(coords_tgt, coords_src, src_mask, split=(0, 0)):
+    """One launch of `csrc/threenn.cu`; `split` forces its (targets a
+    warp, warps a block), (0, 0) lets the kernel choose. As the ball
+    query's call: f32 contiguous inputs and a contiguous bool mask pass as
+    they are, each is checked once, the outputs come from `new_empty`."""
+    if coords_tgt.dtype != torch.float32 or not coords_tgt.is_contiguous():
+        coords_tgt = coords_tgt.to(torch.float32).contiguous()
+    if coords_src.dtype != torch.float32 or not coords_src.is_contiguous():
+        coords_src = coords_src.to(torch.float32).contiguous()
+    if (coords_tgt.dim() != 3 or coords_src.dim() != 3 or coords_tgt.shape[2] != 3
+            or coords_src.shape[2] != 3 or coords_tgt.shape[0] != coords_src.shape[0]
+            or coords_tgt.device != coords_src.device):
+        raise ValueError(f"three_nn needs (B, N, 3) targets and (B, M, 3) sources on one "
+                         f"device, got {tuple(coords_tgt.shape)} on {coords_tgt.device} and "
+                         f"{tuple(coords_src.shape)} on {coords_src.device}")
     B, N, _ = coords_tgt.shape
     M = coords_src.shape[1]
-    _kernels.check(coords_tgt, "coords_tgt", torch.float32, (B, N, 3))
-    _kernels.check(coords_src, "coords_src", torch.float32, (B, M, 3))
     if src_mask is not None:
-        _kernels.check(src_mask, "src_mask", torch.bool, (B, M))
-    if coords_tgt.device != coords_src.device:
-        raise ValueError("coords_tgt and coords_src must be on the same device")
-    d2 = torch.empty((B, N, 3), dtype=torch.float32, device=coords_src.device)
-    idx = torch.empty((B, N, 3), dtype=torch.int32, device=coords_src.device)
+        if (src_mask.dtype != torch.bool or not src_mask.is_contiguous()
+                or src_mask.device != coords_src.device):
+            src_mask = src_mask.to(device=coords_src.device, dtype=torch.bool).contiguous()
+        if src_mask.shape != (B, M):
+            raise ValueError(f"src_mask: need shape {(B, M)}, got {tuple(src_mask.shape)}")
+    d2 = coords_src.new_empty((B, N, 3))
+    idx = coords_src.new_empty((B, N, 3), dtype=torch.int32)
     if B == 0 or N == 0:
         return d2, idx
     _kernels.launch(
         "three_nn", "pointseg_three_nn", coords_src.device,
-        _kernels.ptr(coords_tgt), _kernels.ptr(coords_src), _kernels.ptr(src_mask),
-        _kernels.ptr(d2), _kernels.ptr(idx), B, N, M,
+        coords_tgt.data_ptr(), coords_src.data_ptr(), _kernels.ptr(src_mask), d2.data_ptr(),
+        idx.data_ptr(), B, N, M, *split,
     )
     return d2, idx
 

@@ -21,8 +21,10 @@ from pointseg_torch.ops import _kernels
 from pointseg_torch.ops.ballquery import (
     _ball_query_cuda,
     _radius_sq,
+    ball_query,
     ball_query_plain,
     ball_query_raw,
+    pairwise_sqdist,
 )
 from pointseg_torch.ops.fps import (
     _fps_cuda,
@@ -36,7 +38,7 @@ from pointseg_torch.ops.gather import (
     gather_rows_plain,
     gather_rows_with_coords,
 )
-from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
+from pointseg_torch.ops.interpolate import _three_nn_cuda, three_nn, three_nn_plain
 from pointseg_torch.ops.knn import _knn_cuda, knn_indices, knn_indices_plain
 
 pytestmark = pytest.mark.cuda
@@ -300,6 +302,188 @@ def test_three_nn_kernel_mask_matches_plain(device):
     torch.testing.assert_close(d2, want_d2, rtol=0, atol=0)
 
 
+# Every ball query of a training step (SSG's four, MSG's eight, PointNeXt's
+# nine, where C = N in the InvResMLP blocks), the evaluation buckets and a
+# ball of thousands of members (r = 0.8 at N = 65536), as (B, C, N, r, K).
+BALL_SHAPES = sorted({
+    (8, 1024, 4096, 0.1, 32), (8, 256, 1024, 0.2, 32), (8, 64, 256, 0.4, 32),
+    (8, 16, 64, 0.8, 32),  # SSG
+    (8, 1024, 4096, 0.05, 16), (8, 256, 1024, 0.1, 16), (8, 64, 256, 0.2, 16),
+    (8, 16, 64, 0.4, 16),  # MSG's second radius is SSG's
+    (8, 1024, 1024, 0.1, 32), (8, 256, 256, 0.1, 32), (8, 256, 256, 0.2, 32),
+    (8, 64, 64, 0.4, 32), (8, 16, 16, 0.8, 16),  # PointNeXt's InvResMLP queries
+    (2, 1024, 16384, 0.1, 32), (1, 1024, 65536, 0.1, 32), (1, 1024, 65536, 0.8, 32)})
+
+
+@pytest.mark.parametrize("B,C,N,r,K", BALL_SHAPES)
+def test_ball_query_kernel_at_every_training_and_eval_shape(device, B, C, N, r, K):
+    """Slot for slot equal to the plain version, raw and with the repeat
+    filler written by the kernel, each one launch and nothing else; the
+    tail of each cloud repeats its head (exact ties)."""
+    pts = _cloud(35, B, N, device, dup_from=N - N // 8)
+    cents = pts[:, :C].contiguous()
+    want_idx, want_in = ball_query_plain(cents, pts, r, K)
+    for filler in ("index", "repeat"):
+        before = dict(_kernels.LAUNCHES)
+        idx, in_ball = ball_query(cents, pts, r, K, filler=filler)
+        assert _kernels.LAUNCHES["ball_query"] == before["ball_query"] + 1
+        assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        want = want_idx if filler == "index" else torch.where(want_in, want_idx,
+                                                               want_idx[..., :1])
+        torch.testing.assert_close(idx, want, rtol=0, atol=0)
+        torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+    if r == 0.8 and N == 65536:  # thousands of members in every ball
+        assert int((pts[:, :C, None, :] - pts[:, None, :4096, :]).square().sum(-1).le(
+            r * r).sum(-1).min()) > 200
+
+
+@pytest.mark.parametrize("groups,warps,slices", [(1, 1, 1), (1, 4, 4), (2, 8, 2), (4, 8, 1),
+                                                 (8, 8, 1), (8, 8, 8), (1, 16, 16),
+                                                 (4, 16, 16), (2, 2, 2)])
+@pytest.mark.parametrize("B,C,N,r,K", [(2, 300, 4099, 0.1, 32), (3, 37, 700, 0.5, 7),
+                                       (1, 64, 65536, 0.8, 32), (2, 9, 40, 0.3, 32)])
+def test_ball_query_kernel_at_every_split(device, groups, warps, slices, B, C, N, r, K):
+    """Whatever the centroids a warp, warps a block and warps a centroid
+    (forced), the same result: C and N no multiple of the block's or the
+    tile's, more warps a centroid than a ball has chunks, dense balls."""
+    pts = _cloud(36, B, N, device, dup_from=N - N // 4)
+    cents = pts[:, :C].contiguous()
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(37)).to(device) > 0.2
+    for m in (None, mask):
+        want_idx, want_in = ball_query_plain(cents, pts, r, K, mask=m)
+        for repeat in (False, True):
+            idx, in_ball = _ball_query_cuda(cents, pts, _radius_sq(r), K, m, "flat", 4, repeat,
+                                            (groups, warps, slices))
+            want = torch.where(want_in, want_idx, want_idx[..., :1]) if repeat else want_idx
+            torch.testing.assert_close(idx, want, rtol=0, atol=0)
+            torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+
+
+def test_ball_query_kernel_refuses_a_split_it_is_not_built_for(device):
+    pts = _cloud(38, 1, 100, device)
+    for config in ((3, 8, 1), (8, 16, 1), (1, 8, 3), (1, 6, 4), (1, 32, 1)):
+        with pytest.raises(torch.cuda.CudaError):
+            _ball_query_cuda(pts, pts, 0.01, 8, None, "flat", 4, False, config)
+
+
+@pytest.mark.parametrize("select,counter", [("flat", "ball_query"),
+                                            ("two_level", "ball_query_2l")])
+def test_ball_query_kernels_with_a_mask_that_empties_a_cloud(device, select, counter):
+    """A cloud with no valid point gives fillers 0..K-1 only, the repeat
+    filler repeats slot 0; other clouds keep their members."""
+    pts = _cloud(39, 3, 2000, device, dup_from=1500)
+    cents = pts[:, :500].contiguous()
+    mask = torch.rand((3, 2000), generator=torch.Generator().manual_seed(40)).to(device) > 0.3
+    mask[1] = False
+    want_idx, want_in = ball_query_plain(cents, pts, 0.2, 32, mask=mask)
+    for filler in ("index", "repeat"):
+        before = _kernels.LAUNCHES[counter]
+        idx, in_ball = ball_query(cents, pts, 0.2, 32, mask=mask, filler=filler, select=select)
+        assert _kernels.LAUNCHES[counter] == before + 1
+        want = want_idx if filler == "index" else torch.where(want_in, want_idx,
+                                                               want_idx[..., :1])
+        torch.testing.assert_close(idx, want, rtol=0, atol=0)
+        torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+    assert not bool(in_ball[1].any()) and bool(in_ball[0].any())
+
+
+def test_ball_query_repeat_filler_is_one_device_kernel(device):
+    """`ball_query(filler="repeat")` on the card runs the ball-query kernel
+    and no other device kernel (profiler over one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pts = _cloud(41, 8, 4096, device)
+    cents = pts[:, :1024].contiguous()
+    ball_query(cents, pts, 0.1, 32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the profiler may drop a window's first device event
+        ball_query(cents, pts, 0.1, 32)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin_kernel" not in e.name]
+    assert len(names) == 1 and "ball_query_kernel" in names[0], names
+
+
+# The four FP stages, the evaluation buckets, M = 3, M no multiple of any
+# split, as (B, N, M).
+THREE_NN_SHAPES = [(8, 4096, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16),
+                   (2, 16384, 1024), (1, 65536, 1024), (3, 500, 3), (2, 777, 37), (2, 300, 1500)]
+
+
+@pytest.mark.parametrize("B,N,M", THREE_NN_SHAPES)
+def test_three_nn_kernel_at_every_training_and_eval_shape(device, B, N, M):
+    """Indices and distances (bit for bit) equal to the plain version's;
+    the sources repeat (exact ties); one launch and nothing else."""
+    tgt = _cloud(46, B, N, device, dup_from=N - N // 8)
+    src = _cloud(47, B, M, device, dup_from=M - M // 3 if M > 3 else None)
+    before = dict(_kernels.LAUNCHES)
+    d2, idx = three_nn(tgt, src)
+    assert _kernels.LAUNCHES["three_nn"] == before["three_nn"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    want_d2, want_idx = three_nn_plain(tgt, src)
+    torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+    assert torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
+
+
+@pytest.mark.parametrize("targets", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", [1, 2, 8, 16])
+def test_three_nn_kernel_at_every_split(device, targets, warps):
+    """Whatever the targets a warp and warps a block (forced), the same
+    result, with and without a mask; M = 37 and 1100 are no multiple of a
+    32-source chunk, 1100 spans two tiles, N = 333 no multiple of a block."""
+    for seed, B, N, M in ((48, 2, 333, 37), (49, 2, 1000, 1100)):
+        tgt = _cloud(seed, B, N, device)
+        src = _cloud(seed + 10, B, M, device, dup_from=M - M // 4)
+        mask = torch.rand((B, M), generator=torch.Generator().manual_seed(seed)).to(device) > 0.5
+        for m in (None, mask):
+            d2, idx = _three_nn_cuda(tgt, src, m, (targets, warps))
+            want_d2, want_idx = three_nn_plain(tgt, src, src_mask=m)
+            torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+            assert torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
+
+
+def test_three_nn_kernel_refuses_a_split_it_is_not_built_for(device):
+    pts = _cloud(55, 1, 100, device)
+    for split in ((3, 8), (16, 8), (1, 17)):
+        with pytest.raises(torch.cuda.CudaError):
+            _three_nn_cuda(pts, pts, None, split)
+
+
+def test_three_nn_kernel_with_fewer_than_three_valid_sources(device):
+    """All sources of one cloud masked, two valid in another: the lists
+    end in the lowest-index masked sources at +inf, as the plain version."""
+    tgt, src = _cloud(50, 3, 900, device), _cloud(51, 3, 200, device, dup_from=150)
+    mask = torch.rand((3, 200), generator=torch.Generator().manual_seed(52)).to(device) > 0.5
+    mask[0] = False
+    mask[1] = False
+    mask[1, [17, 160]] = True
+    d2, idx = three_nn(tgt, src, src_mask=mask)
+    want_d2, want_idx = three_nn_plain(tgt, src, src_mask=mask)
+    torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+    assert torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
+    assert bool((idx[0] == torch.tensor([0, 1, 2], device=device, dtype=torch.int32)).all())
+    assert bool(torch.isinf(d2[1, :, 2]).all()) and bool((idx[1, :, 2] == 0).all())
+
+
+def test_three_nn_kernel_takes_a_nan_distance_as_0(device):
+    """The clamp is fmaxf, which turns a NaN distance into 0 (the plain
+    version keeps NaN and sorts it last): a NaN source is a nearest one
+    at 0, ties to the lowest index, as the kernel has always done."""
+    tgt, src = _cloud(53, 2, 300, device), _cloud(54, 2, 64, device)
+    src[0, 9, 2] = float("nan")
+    src[1, 40] = float("nan")
+    src[1, 41, 0] = float("nan")
+    d2, idx = three_nn(tgt, src)
+    want_d2, want_idx = three_nn_plain(tgt, src)
+    full = pairwise_sqdist(tgt, src)  # NaN where a source is
+    values, order = torch.sort(torch.where(torch.isnan(full), 0.0, full), dim=-1, stable=True)
+    torch.testing.assert_close(idx, order[..., :3].to(torch.int32), rtol=0, atol=0)
+    assert torch.equal(d2.view(torch.int32), values[..., :3].contiguous().view(torch.int32))
+    assert bool((idx[0, :, 0] == 9).all()) and bool((idx[1, :, :2] == torch.tensor(
+        [40, 41], device=device, dtype=torch.int32)).all())
+    assert not torch.equal(idx, want_idx)
+
 def _features(seed, B, N, F, device, dup_from=None):
     """Activation-like rows: LeakyReLU(0.2) of normal draws."""
     rng = np.random.default_rng(seed)
@@ -360,15 +544,30 @@ def test_knn_flat_kernel_on_rows_that_are_not_16_byte_aligned(device):
 
 
 def _launch_cases(device):
-    """(name, kernel call, plain call, two inputs) for kernels 8 and 4."""
+    """(name, kernel call, plain call, two inputs) for kernels 8, 4, 2 and 3."""
     gen = torch.Generator(device).manual_seed(43)
     table = torch.rand((240_000, 9), device=device, generator=gen)
     rows = [torch.randint(0, 240_000, (8 * 4096,), device=device, generator=gen)
             for _ in range(2)]
     clouds = [_features(29 + i, 2, 1024, 64, device) for i in range(2)]
+    points = [_cloud(45 + i, 2, 1024, device) for i in range(2)]
+
+    def ball_query_kernel(x):  # the repeat filler, in the kernel
+        idx, in_ball = ball_query(x[:, :256], x, 0.2, 32)
+        return torch.cat([idx, in_ball.int()], -1)
+
+    def ball_query_plain_repeat(x):
+        idx, in_ball = ball_query_plain(x[:, :256], x, 0.2, 32)
+        return torch.cat([torch.where(in_ball, idx, idx[..., :1]), in_ball.int()], -1)
+
+    def three_nn_bits(fn):  # distances as their bits, beside the indices
+        return lambda x: torch.cat([t.view(torch.int32) for t in fn(x, x[:, :256])], -1)
+
     return [("gather_rows_flat", lambda i: gather_rows_flat(table, i),
              lambda i: gather_rows_flat_plain(table, i), rows),
-            ("knn", lambda x: knn_indices(x, 20), lambda x: knn_indices_plain(x, 20), clouds)]
+            ("knn", lambda x: knn_indices(x, 20), lambda x: knn_indices_plain(x, 20), clouds),
+            ("ball_query", ball_query_kernel, ball_query_plain_repeat, points),
+            ("three_nn", three_nn_bits(three_nn), three_nn_bits(three_nn_plain), points)]
 
 
 def test_kernels_launch_on_the_current_stream_not_the_default_one(device):

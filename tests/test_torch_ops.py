@@ -316,6 +316,284 @@ def test_interpolate_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
+# ------------------------------------------- models of the kernels' rules
+#
+# numpy models of how the CUDA kernels order their picks, run on the same
+# clouds as the plain versions and the JAX functions, so that a wrong tie
+# rule shows here and not only on the card. The ball query (flat kernel):
+# S warps a centroid, each scanning every S-th 32-point chunk in index
+# order; a chunk's members go to a 32-entry staging list, a full list is
+# sorted once and merged into the kept 32; once K are kept a point is
+# taken only when its d² is strictly below the K-th; the fillers step over
+# the members in index order. 3-NN: one list a target, sources in chunks in
+# index order, a source a candidate when !(raw > third best) before the
+# clamp, a chunk's candidates entering nearest first until one does not.
+
+INT_MAX = 2**31 - 1
+NEG_TINY = np.float32(-1.4e-45)  # the smallest negative float32
+
+
+def _gram_raw(q, p, p_valid=None):
+    """(C, N) raw Gram d² of one cloud, rounded operation by operation in
+    float32 as the kernels do, before the clamp; |p|² is NaN (ball query)
+    where `p_valid` is False."""
+    q, p = q.astype(np.float32), p.astype(np.float32)
+    q2 = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    p2 = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]
+    if p_valid is not None:
+        p2 = np.where(p_valid, p2, np.float32(np.nan))
+    cross = (q[:, None, 0] * p[None, :, 0] + q[:, None, 1] * p[None, :, 1]) \
+        + q[:, None, 2] * p[None, :, 2]
+    with np.errstate(invalid="ignore"):
+        return (q2[:, None] - np.float32(2) * cross) + p2[None, :]
+
+
+def _flat_ball_model(raw, K, r2, S):
+    """One ball: (idx (K,), in_ball (K,)) as the flat kernel picks them."""
+    N = raw.shape[0]
+    chunks = (N + 31) // 32
+    lists, total = [], 0
+    for s in range(S):
+        lim, count, staged, kept = r2, 0, [], []
+
+        def flush():
+            nonlocal kept, staged, lim
+            kept = sorted(kept + staged)[:32]  # the bitonic sort and merge keep 32
+            staged = []
+            if len(kept) >= K:
+                kth = kept[K - 1][0]
+                lim = np.nextafter(kth, np.float32(-np.inf)) if kth > 0 else NEG_TINY
+
+        for k in range(s, chunks, S):
+            cols = np.arange(32 * k, min(32 * k + 32, N))
+            with np.errstate(invalid="ignore"):
+                bits = cols[raw[cols] <= lim]
+            if not bits.size:
+                continue
+            count += bits.size
+            if len(staged) + bits.size > 32:
+                flush()
+            staged += [(np.float32(max(raw[j], 0)), int(j)) for j in bits]
+        flush()
+        lists.append(kept)
+        total += count
+    merged = sorted(e for kept in lists for e in kept)[:32]
+    idx = [i for _, i in merged[:K]]
+    if total < K:  # every member is listed: step over them for the fillers
+        members = sorted(i for _, i in merged)
+        for j in range(K - total):
+            f = j
+            for m in members:
+                f += m <= f
+            idx.append(f)
+    return np.array(idx, np.int32), np.arange(K) < min(total, K)
+
+
+def _flat_ball_model_batch(cents, pts, r, K, S, mask=None):
+    r2 = np.float32(r) * np.float32(r)
+    B, C = cents.shape[:2]
+    idx, in_ball = np.zeros((B, C, K), np.int32), np.zeros((B, C, K), bool)
+    for b in range(B):
+        raw = _gram_raw(cents[b], pts[b], None if mask is None else mask[b])
+        for c in range(C):
+            idx[b, c], in_ball[b, c] = _flat_ball_model(raw[c], K, r2, S)
+    return idx, in_ball
+
+
+def _takes(best, d):
+    """`Best3::takes`: a candidate whose index is above every listed one
+    at its distance enters only strictly below the third, or an empty slot."""
+    return d < best[2][0] or best[2][1] == INT_MAX
+
+
+def _insert_later(best, d, i):
+    """`Best3::insert_later` of threenn.cu on a list of three (d, i)."""
+    n1 = d < best[1][0] or best[1][1] == INT_MAX
+    n0 = d < best[0][0] or best[0][1] == INT_MAX
+    best[2] = best[1] if n1 else (d, i)
+    best[1] = best[0] if n0 else ((d, i) if n1 else best[1])
+    best[0] = (d, i) if n0 else best[0]
+
+
+def _three_nn_model(tgt, src, width, src_mask=None):
+    """(d2, idx) of every target as the 3-NN kernel finds them: sources in
+    chunks of `width` (the kernel's 32 or, two an iteration, 64); a source
+    is a candidate when !(raw > third best); a chunk's candidates enter
+    nearest first by (d², index), -0 as +0, and the first that does not
+    enter ends the chunk. The result must not depend on `width`."""
+    B, N = tgt.shape[:2]
+    M = src.shape[1]
+    out_d, out_i = np.zeros((B, N, 3), np.float32), np.zeros((B, N, 3), np.int32)
+    for b in range(B):
+        raw = _gram_raw(tgt[b], src[b])
+        if src_mask is not None:  # |s|² = +inf: the distance is +inf
+            raw = np.where(src_mask[b][None, :], raw, np.float32(np.inf))
+        d_all = np.where(np.isnan(raw), np.float32(0), np.maximum(raw, np.float32(0)))
+        for n in range(N):
+            best = [(np.float32(np.inf), INT_MAX)] * 3
+            for j0 in range(0, M, width):
+                cols = [j for j in range(j0, min(j0 + width, M)) if not raw[n, j] > best[2][0]]
+                for j in sorted(cols, key=lambda j: (abs(d_all[n, j]), j)):
+                    if not _takes(best, d_all[n, j]):
+                        break
+                    _insert_later(best, d_all[n, j], j)
+            out_d[b, n] = [d for d, _ in best]
+            out_i[b, n] = [i for _, i in best]
+    return out_d, out_i
+
+
+def _tie_cloud(seed, B, N, dup_every=3, scale=(1, 1, 3)):
+    """A block cloud in which every `dup_every`-th point repeats an earlier
+    one: exact ties in d² at every centroid."""
+    pts = _cloud(seed, B, N, scale)
+    pts[:, ::dup_every] = pts[:, : (N + dup_every - 1) // dup_every]
+    return pts
+
+
+def _off_cloud(seed, B, N):
+    """A cloud whose first points, moved 10 m away, serve as centroids:
+    balls with no member at all (a radius of 0 would not do: XLA's fused
+    sums give a point's own d² as ~1e-6, the kernels' exact ones 0)."""
+    pts = _tie_cloud(seed, B, N, 2)
+    pts[:, :16] += 10.0
+    return pts
+
+
+# (cloud, C, r, K): ties, a ball 100x larger than K (every point of 512
+# inside r = 4, K = 4), centroids == points (d² = 0 ties with duplicates),
+# empty balls, a ragged N
+BALL_MODEL_CASES = {
+    "ties": (lambda: _tie_cloud(50, 2, 300), 40, 0.3, 16),
+    "ball 100x K": (lambda: _tie_cloud(51, 1, 512, 4), 24, 4.0, 4),
+    "centroids are points": (lambda: _tie_cloud(52, 2, 200, 2), 200, 0.25, 32),
+    "empty balls": (lambda: _off_cloud(53, 1, 100), 8, 0.5, 8),
+    "ragged N": (lambda: _cloud(54, 2, 77, (1, 1, 3)), 24, 0.6, 32),
+}
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(BALL_MODEL_CASES))
+def test_flat_ball_query_model_matches_plain_and_jax(case, S):
+    make, C, r, K = BALL_MODEL_CASES[case]
+    pts = make()
+    cents = pts[:, :C]
+    want_idx, want_in = tops.ball_query_raw(_t(cents), _t(pts), r, K)
+    got_idx, got_in = _flat_ball_model_batch(cents, pts, r, K, S)
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_in, want_in.numpy())
+    set_filler_mode("index")
+    try:
+        o_idx, o_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), r, K)
+    finally:
+        set_filler_mode(None)
+    np.testing.assert_array_equal(got_idx, np.asarray(o_idx))
+    np.testing.assert_array_equal(got_in, np.asarray(o_in))
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_flat_ball_query_model_with_a_mask_matches_plain_and_jax(S):
+    """Masked points are never members and still fill in index order; a
+    cloud whose points are all masked gives fillers only."""
+    pts = _tie_cloud(55, 3, 260)
+    cents = pts[:, :30]
+    mask = np.random.default_rng(56).random((3, 260)) > 0.5
+    mask[2] = False
+    got_idx, got_in = _flat_ball_model_batch(cents, pts, 0.35, 16, S, mask)
+    want_idx, want_in = tops.ball_query_raw(_t(cents), _t(pts), 0.35, 16, mask=_t(mask))
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_in, want_in.numpy())
+    o_idx, o_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), 0.35, 16,
+                                  mask=jnp.asarray(mask))  # repeat filler
+    np.testing.assert_array_equal(np.where(got_in, got_idx, got_idx[..., :1]), np.asarray(o_idx))
+    np.testing.assert_array_equal(got_in, np.asarray(o_in))
+    assert not got_in[2].any() and (got_idx[2] == np.arange(16)).all()
+
+
+@pytest.mark.parametrize("filler", ["repeat", "index"])
+@pytest.mark.parametrize("case", sorted(BALL_MODEL_CASES))
+def test_ball_query_fillers_match_jax_and_pallas_on_edge_clouds(case, filler):
+    """`ball_query` with both fillers against the JAX function and the
+    Pallas kernel in interpret mode on the same tie-heavy and edge clouds."""
+    make, C, r, K = BALL_MODEL_CASES[case]
+    pts = make()
+    cents = pts[:, :C]
+    set_filler_mode(filler)
+    try:
+        want_idx, want_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), r, K)
+    finally:
+        set_filler_mode(None)
+    idx, in_ball = tops.ball_query(_t(cents), _t(pts), r, K, filler=filler)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in))
+    with pltpu.force_tpu_interpret_mode():
+        p_idx, p_in = ball_query_pallas(jnp.asarray(cents), jnp.asarray(pts), r, K)
+    p_idx, p_in = np.asarray(p_idx), np.asarray(p_in)
+    if filler == "repeat":
+        p_idx = np.where(p_in, p_idx, p_idx[..., :1])
+    np.testing.assert_array_equal(idx.numpy(), p_idx)
+    np.testing.assert_array_equal(in_ball.numpy(), p_in)
+
+
+def _three_nn_case(name):
+    """(tgt, src, src_mask) of one edge cloud, in the unit cube: distances
+    agree with XLA's fused sums to 1e-6 there."""
+    tgt = _cloud(60, 2, 48)
+    if name == "ties":
+        return tgt, _tie_cloud(61, 2, 40, scale=(1, 1, 1)), None
+    if name == "M = 3":
+        return tgt, _cloud(62, 2, 3), None
+    if name == "all but two masked":
+        mask = np.zeros((2, 37), bool)
+        mask[:, [5, 30]] = True
+        return tgt, _tie_cloud(63, 2, 37, scale=(1, 1, 1)), mask
+    if name == "masked, ragged M":
+        mask = np.random.default_rng(65).random((2, 45)) > 0.4
+        return tgt, _tie_cloud(64, 2, 45, scale=(1, 1, 1)), mask
+    raise ValueError(name)
+
+
+THREE_NN_CASES = ["ties", "M = 3", "all but two masked", "masked, ragged M"]
+
+
+@pytest.mark.parametrize("width", [1, 8, 32, 64])
+@pytest.mark.parametrize("case", THREE_NN_CASES)
+def test_three_nn_model_matches_plain_and_jax(case, width):
+    tgt, src, mask = _three_nn_case(case)
+    got_d, got_i = _three_nn_model(tgt, src, width, mask)
+    want_d, want_i = tops.three_nn(_t(tgt), _t(src), src_mask=None if mask is None else _t(mask))
+    np.testing.assert_array_equal(got_i, want_i.numpy())
+    np.testing.assert_array_equal(got_d, want_d.numpy())
+    j_d, j_i = jops.three_nn(jnp.asarray(tgt), jnp.asarray(src),
+                             src_mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_array_equal(got_i, np.asarray(j_i))
+    np.testing.assert_allclose(got_d, np.asarray(j_d), rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", THREE_NN_CASES)
+def test_three_nn_plain_matches_jax_and_pallas_on_edge_clouds(case):
+    """`three_nn` (the plain version on the CPU) against the JAX function
+    and, where there is no mask, the Pallas kernel in interpret mode: a
+    target with fewer than three valid sources takes the lowest-index
+    masked ones after them, at +inf."""
+    tgt, src, mask = _three_nn_case(case)
+    d2, idx = tops.three_nn(_t(tgt), _t(src), src_mask=None if mask is None else _t(mask))
+    j_d, j_i = jops.three_nn(jnp.asarray(tgt), jnp.asarray(src),
+                             src_mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_i))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(j_d), rtol=RTOL, atol=1e-6)
+    if mask is None:
+        with pltpu.force_tpu_interpret_mode():
+            p_d, p_i = three_nn_pallas(jnp.asarray(tgt), jnp.asarray(src))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(p_i))
+        np.testing.assert_allclose(d2.numpy(), np.asarray(p_d), rtol=RTOL, atol=1e-6)
+    else:
+        few = mask.sum(1) < 3
+        if few.any():  # the third slot is the lowest-index masked source, at +inf
+            assert np.isinf(d2.numpy()[few][..., 2]).all()
+            first_masked = np.argmin(mask, axis=1)[few]
+            assert (idx.numpy()[few][..., 2] == first_masked[:, None]).all()
+
+
 # --------------------------------------------------------------- gather
 
 

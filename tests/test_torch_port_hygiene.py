@@ -379,3 +379,48 @@ def test_fps_register_kernel_keeps_points_in_registers_with_one_barrier_a_step()
     assert "if N > MAX_SMEM_POINTS else None" in fps_path and "torch.empty(" not in fps_path
     assert re.search(r"constexpr int kMaxSmemPoints = (\d+);", code).group(1) == str(
         ops.fps.MAX_SMEM_POINTS)
+
+
+def test_ball_query_and_three_nn_calls_do_nothing_twice_and_launch_once():
+    """On a CUDA tensor `ball_query`, `ball_query_raw` and `three_nn` reach
+    `_ball_query_cuda` / `_three_nn_cuda` and nothing else: one launch,
+    f32 contiguous inputs passed as they are, each input checked once,
+    both outputs from `new_empty`, no plain version, no `try`; the repeat
+    filler is the kernel's flag, and `torch.where` writes it only on the
+    CPU."""
+    for module in ("ballquery.py", "interpolate.py"):
+        path = _cuda_path(module)
+        assert not re.search(LIBRARY_IN_WRAPPER + r"|\btry\b|torch\.where|_kernels\.check\(|"
+                             r"torch\.empty\(|\.detach\(", path), module
+        assert path.count("new_empty(") == 2 and path.count("_kernels.launch(") == 1 + (
+            module == "ballquery.py")
+        assert path.count("dtype != torch.float32 or not") == 2
+    select = inspect.getsource(ops.ballquery._select)
+    assert re.search(r"if _kernels\.on_cuda\(coords\):\n\s+return _ball_query_cuda\(", select)
+    assert select.index("return _ball_query_cuda(") < select.index("torch.where(")
+    assert 'repeat=filler == "repeat"' in inspect.getsource(ops.ball_query)
+    bq = _cuda_path("ballquery.py")
+    assert "*args, repeat," in bq and "*args, depth,\n                        repeat)" in bq
+    three = inspect.getsource(ops.three_nn)
+    assert re.search(r"if _kernels\.on_cuda\(coords_src\):\n(.*\n){2}\s+return _three_nn_cuda\(",
+                     three)
+
+
+def test_flat_ball_query_and_three_nn_kernels_vote_once_a_chunk_and_round_every_step():
+    """Both kernels test a chunk of points against all of a warp's lists
+    with one vote and take candidates only behind it; the distance is the
+    Gram form rounded operation by operation (no fused multiply-add); the
+    ball query ranks a sparse ball's members instead of sorting them, and
+    3-NN finds a chunk's nearest candidates with `redux.sync`."""
+    for name, kernel in (("ballquery.cu", "ball_query_kernel"), ("threenn.cu", "three_nn_kernel")):
+        code = "\n".join(line.split("//")[0]
+                         for line in (_kernels.CSRC / name).read_text().splitlines())
+        assert not re.search(r"fmaf?\(|__fmaf_|mma\.|wmma|" + LIBRARY_IN_SOURCE, code)
+        (body,) = re.findall(rf"__global__ void {kernel}\(.*?\n}}\n", code, flags=re.S)
+        assert body.count("__any_sync(kFull, hit)") == 1, name
+        (gram,) = re.findall(r"float gram_sqdist\(.*?\n}\n", code, flags=re.S)
+        assert gram.count("__fmul_rn") == 4 and gram.count("__fadd_rn") == 3
+        assert gram.count("__fsub_rn") == 1
+    bq = (_kernels.CSRC / "ballquery.cu").read_text()
+    assert "write_sparse(" in bq and "rank += before(" in bq
+    assert "__reduce_min_sync" in (_kernels.CSRC / "threenn.cu").read_text()
