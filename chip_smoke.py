@@ -4,16 +4,18 @@
     python3 chip_smoke.py [--parent DIR]
 
 With `--parent DIR`, DIR an unpacked checkout of an earlier commit (`git
-archive <commit> | tar -x -C DIR`), the ball query and 3-NN of both trees
-are also timed in one call (see phase 3). `--kernel-times TREE OUT` is the
-helper process that does so for one tree.
+archive <commit> | tar -x -C DIR`), the ball queries, 3-NN and the
+two-level kNN of both trees are also timed in one call (see phase 3).
+`--kernel-times TREE OUT` is the helper process that does so for one tree.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: a CUDA device must be present; prints the torch and CUDA
    versions and `nvidia-smi --query-gpu=name,power.limit`.
 2. Build: compiles the CUDA kernels from `pointseg_torch/csrc/` (one
-   nvcc per source, all at once).
+   nvcc per source, all at once) and, beside them, `knn.cu` and
+   `ballquery.cu` once more with `-Xptxas -v`: the registers and spill
+   bytes of every instance of kernels 4, 5, 2 and 6.
 3. Kernels, each against its plain PyTorch version on the card:
    - FPS, ball query and 3-NN at the PointNet++ training shapes (B=8,
      N=4096 -> 1024 -> 256 -> 64 -> 16), a ragged shape with repeated
@@ -44,7 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      device time a train step of PointNet++, PointNeXt, PointNet++MSG and
      DeepGraphCnn, for DIR's package and this one, each in a process of
      its own, in turns (parent, this, this, parent), and both kernels'
-     outputs on NaN coordinates, which must equal the parent's bit for bit.
+     outputs on NaN coordinates, which must equal the parent's bit for bit;
+     likewise kernels 6 and 5 (two-level ball query at PointNeXt's and
+     MSG's queries and the buckets, two-level kNN at the three kNN shapes,
+     NaN coordinates and NaN activations), and the device time a step of
+     PointNeXt and DeepGraphCnn on the two-level kernels (what
+     POINTSEG_SELECT2L=1 selects).
    - the two-level ball query against the plain version and against the
      flat kernel, index for index and `in_ball` for `in_ball`, at every
      ball-query shape of PointNeXt (four SA stages and five InvResMLP
@@ -54,9 +61,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      pick refills a lane) and at two evaluation shapes (N = 16384 and
      65536). Its bound is the flat kernel's at the same shape; the flat
      kernel is timed beside it in turns (flat, two-level, two-level, flat).
-     Both kernels' device time per launch is also read from the profiler:
-     at the small stages a loop of launches under CUDA events measures
-     the host's call rate, not the kernel.
+     Both kernels' device time per launch is also read from the profiler,
+     in the same turns, beside the exact-arithmetic floor: at the small
+     stages a loop of launches under CUDA events measures the host's call
+     rate, not the kernel. The aims are printed as met or missed (two-level
+     over flat device time: <= 1.25x for PointNeXt's nine and MSG's eight
+     queries, <= 1.1x at the buckets). Then K = 48 and 64 at SA1 and at
+     (2, 1024, 16384), where `select="flat"` runs the two-level kernel:
+     one launch of it, equal to the plain version raw and with the repeat
+     filler, with a mask and at depth 1; and every split of the two-level
+     kernel in BALL_2L_SPLITS at SA1, PointNeXt's first InvResMLP query and
+     the buckets, equal to plain, device us a launch.
    - kNN, flat and two-level, at the DGCNN EdgeConv shapes (8, 4096, 3)
      and (8, 4096, 64) (LeakyReLU'd normal features), a cloud with
      repeated points and (2, 16384, 64); the two kernels must also equal
@@ -70,7 +85,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel's tiles can get wrong (N = 37, 4099, 1100; F = 1 to 132 on the
      16-byte and the 4-byte path; k = 1 and 32; one cloud; a view that is
      not 16-byte aligned), each with and without the mask and the point
-     itself, flat and two-level equal to plain slot for slot.
+     itself, flat and two-level equal to plain slot for slot. The
+     two-level kernel's aims against the flat one's device time are
+     printed as met or missed ((8, 4096, 3): <= 1x; (8, 4096, 64) and
+     (2, 16384, 64): <= 1.25x; its row under CUDA events <= 4.5 ms). Then
+     k = 33, 48 and 64 at (8, 4096, 64) and F = 640 and 1024 at (2, 4096,
+     F), where `select="flat"` runs the two-level kernel: one launch of it,
+     equal to plain with and without the mask and the point itself and at
+     depth 1, device us beside the bound and the floor; and the two-level
+     kernel at depths 1, 4 and 5 at the three timed shapes (four query rows a
+     warp) and at (1, 4096, 64) (two: a batch too small for 256 blocks of
+     four), equal to the flat kernel, device us a launch.
    - the row gather at the EdgeConv shapes (8, 4096, 64 and 128) x
      81,920 rows and at the tables of a PointNet++ step (centroid
      coordinates, the FP interpolation sources, and the concatenated SA
@@ -281,15 +306,84 @@ def kernel_device_us(fn, kernel: str, reps: int = 10) -> float:
     contains `kernel`, from the profiler: unlike CUDA events around a loop
     of launches it holds none of the host's gaps between them. A trace
     that comes back without the kernel, or with fewer launches of it than
-    calls, is taken once more; NaN (printed as such, and so marking every
-    sum it enters) if that one is short too."""
+    calls, is taken again, up to four times; NaN (printed as such, and so
+    marking every sum it enters) if the last one is short too."""
     fn()  # warm-up
-    for _ in range(2):
+    for _ in range(4):
         rows = [e for e in profiled(fn, reps) if kernel in e.key]
         # a trace can come back a launch short: then it is taken again
         if rows and sum(e.count for e in rows) % reps == 0:
             return sum(device_time_us(e) for e in rows) / reps
     return float("nan")
+
+
+def device_us_in_turns(first_fn, first_kernel: str, second_fn, second_kernel: str,
+                       reps: int = 10) -> tuple[float, float]:
+    """Device us a launch of two kernels (profiler), in turns: first,
+    second, second, first; each the mean of its two readings."""
+    a1 = kernel_device_us(first_fn, first_kernel, reps)
+    b1 = kernel_device_us(second_fn, second_kernel, reps)
+    b2 = kernel_device_us(second_fn, second_kernel, reps)
+    a2 = kernel_device_us(first_fn, first_kernel, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+# the kernels whose registers and spills phase 2 prints, per source
+PTXAS_SOURCES = {"knn.cu": ("knn_flat_kernel", "knn_two_level_kernel"),
+                 "ballquery.cu": ("ball_query_kernel", "ball_query_two_level_kernel")}
+
+
+def ptxas_start() -> dict:
+    """`nvcc -Xptxas -v` of the kNN and ball-query sources, started in the
+    background beside the build (the same flags, no output file)."""
+    from pointseg_torch.ops import _kernels
+
+    return {name: subprocess.Popen(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+         str(_kernels.CSRC / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in PTXAS_SOURCES}
+
+
+def instance(name: str, kernel: str) -> str:
+    """`kernel<1, 4, 4>` from a demangled name such as `(anonymous
+    namespace)::kernel<(bool)1, (int)4, (int)4>(const float *, ...)`."""
+    tail = name[name.index(kernel):]
+    tail = tail[:tail.index(">(") + 1] if ">(" in tail else tail.split("(")[0]
+    return tail.replace("(bool)", "").replace("(int)", "")
+
+
+def ptxas_report(procs: dict) -> None:
+    """Registers and spill bytes of every instance of kernels 4, 5, 2 and
+    6, as ptxas reports them (names demangled by cu++filt when it is
+    there)."""
+    from pointseg_torch.ops import _kernels
+
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(_kernels._nvcc()),
+                                                    "cu++filt")
+    for source, proc in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v {source} exited {proc.returncode}:\n{log}")
+        entries, name, spill = [], None, ("?", "?")
+        for line in log.splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name = m.group(1)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spill = m.groups()
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                entries.append((name, int(m.group(1)), spill))
+                name = None
+        names = [e[0] for e in entries]
+        if os.path.exists(filt):
+            out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()
+            if len(out) == len(names):
+                names = out
+        for wanted in PTXAS_SOURCES[source]:
+            rows = [f"{instance(n, wanted)} {regs} registers, spill {st}/{ld} bytes"
+                    for n, (_, regs, (st, ld)) in zip(names, entries)
+                    if wanted in n and (wanted + "<" in n or wanted + "I" in n or wanted == n)]
+            print(f"-Xptxas -v {source} {wanted}: " + "; ".join(rows), flush=True)
 
 
 class Record:
@@ -572,6 +666,7 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
         return (*check_picks(cents, pts, g_idx, w_idx), float(g_in.float().mean()))
 
     rng = np.random.default_rng(5)
+    buckets = {}
     sums = {which: {"two_level": 0.0, "flat": 0.0, "plain": 0.0, "bound": 0.0,
                     "two_level_us": 0.0, "flat_us": 0.0} for which in ("PointNeXt", "MSG")}
     extra = [  # (B, N, C, repeat_from, radius, K, kernel reps)
@@ -593,12 +688,16 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
         flops, nbytes = 10.0 * B * C * N, 12 * B * C + 12 * B * N + 5 * B * C * K
         record.note("ball_query_2l", shape, ms, plain_ms, None, flops, nbytes, flips, err,
                     per_forward)
-        us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
-                              "ball_query_two_level_kernel")
-        flat_us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K, select="flat"),
-                                   "ball_query_kernel")
-        print(f"{'':11s} flat kernel {flat_ms:9.4f} ms  device time a launch (profiler): "
-              f"two-level {us:.1f} us, flat {flat_us:.1f} us  share of in-ball slots {share:.3f}")
+        flat_us, us = device_us_in_turns(
+            lambda: ball_query_raw(cents, pts, r, K, select="flat"), "ball_query_kernel",
+            lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
+            "ball_query_two_level_kernel", 10 if N <= 4096 else 5)
+        print(f"{'':11s} flat kernel {flat_ms:9.4f} ms  device time a launch (profiler, in turns "
+              f"flat, two-level, two-level, flat): two-level {us:.1f} us, flat {flat_us:.1f} us "
+              f"({us / flat_us:.2f}x), floor {floor_us(B * C * N):.1f} us; share of in-ball "
+              f"slots {share:.3f}")
+        if per_forward == 0:
+            buckets[shape] = (us, flat_us)
         bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
         for which, count in (("PointNeXt", per_forward), ("MSG", int(in_msg))):
             for key, value in (("two_level", ms), ("flat", flat_ms), ("plain", plain_ms),
@@ -613,9 +712,108 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
             print(f"{'':11s} with a mask, at depth 1, and both: two-level equals flat and plain")
     for which, n in (("PointNeXt", "nine"), ("MSG", "eight")):
         t = sums[which]
+        ratio = t["two_level_us"] / t["flat_us"]
         print(f"{'':11s} {which}'s {n} queries summed: two-level {t['two_level']:.4f} ms, flat "
               f"{t['flat']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound']:.5f} ms; device "
-              f"time (profiler): two-level {t['two_level_us']:.1f} us, flat {t['flat_us']:.1f} us")
+              f"time (profiler): two-level {t['two_level_us']:.1f} us, flat {t['flat_us']:.1f} us "
+              f"({ratio:.2f}x; aim <= 1.25x: {'met' if ratio <= 1.25 else 'missed'})")
+    for shape, (us, flat_us) in buckets.items():
+        if shape[0] * shape[1] < 8192 and shape[2] >= 16384:  # the evaluation buckets
+            print(f"{'':11s} bucket {shape}: two-level {us:.1f} us, flat {flat_us:.1f} us "
+                  f"({us / flat_us:.2f}x; aim <= 1.1x: "
+                  f"{'met' if us <= 1.1 * flat_us else 'missed'})")
+    ball_query_2l_past_32(device, levels)
+    ball_query_2l_splits(device, levels)
+
+
+# K past the flat kernel's 32 at SA1 and an evaluation bucket, as (B, N, C,
+# radius, K); the splits of kernel 6 swept (centroids a warp, warps a
+# block, warps a centroid)
+BALL_WIDE_K = [(8, 4096, 1024, 0.1, 48), (8, 4096, 1024, 0.1, 64), (2, 16384, 1024, 0.1, 48),
+               (2, 16384, 1024, 0.1, 64)]
+BALL_2L_SPLITS = [(1, 8, 1), (2, 8, 1), (2, 16, 1), (1, 16, 1), (1, 8, 2), (1, 8, 4), (2, 8, 2),
+                  (2, 8, 4), (2, 16, 4), (2, 8, 8), (1, 16, 8), (2, 16, 8), (1, 16, 16),
+                  (2, 16, 16)]
+
+
+def ball_query_2l_past_32(device, levels) -> None:
+    """K = 48 and 64, where `select="flat"` runs kernel 6: one launch of it,
+    equal to the plain version raw and with the repeat filler, with a mask,
+    and at depth 1 (a rescan after every pick past a lane's first); device
+    us a launch beside the flat kernel at K = 32 and the floor."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.ballquery import (_ball_query_cuda, _radius_sq, ball_query,
+                                              ball_query_plain, ball_query_raw)
+
+    rng = np.random.default_rng(18)
+    for B, N, C, r, K in BALL_WIDE_K:
+        pts = levels[0] if N == 4096 else torch.from_numpy(block_cloud(rng, B, N)).to(device)
+        cents = levels[1] if N == 4096 else pts[:, :C].contiguous()
+        mask = torch.rand((B, N), device=device,
+                          generator=torch.Generator(device).manual_seed(19)) < 0.8
+        for m in (None, mask):
+            want_idx, want_in = ball_query_plain(cents, pts, r, K, mask=m)
+            want_rep = torch.where(want_in, want_idx, want_idx[..., :1])
+            for depth in (None, 1):
+                for repeat in (False, True):
+                    before = dict(_kernels.LAUNCHES)
+                    if depth is None:
+                        idx, in_ball = ball_query(cents, pts, r, K, mask=m,
+                                                  filler="repeat" if repeat else "index")
+                    else:
+                        idx, in_ball = _ball_query_cuda(cents, pts, _radius_sq(r), K, m, "flat",
+                                                        depth, repeat)
+                    if (_kernels.LAUNCHES["ball_query_2l"] != before["ball_query_2l"] + 1
+                            or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+                        raise AssertionError(f"ball query K={K}: select='flat' must launch the "
+                                             f"two-level kernel once")
+                    if not (torch.equal(idx, want_rep if repeat else want_idx)
+                            and torch.equal(in_ball, want_in)):
+                        raise AssertionError(f"ball query {(B, C, N, r, K)} mask "
+                                             f"{m is not None} depth {depth} repeat {repeat}: "
+                                             f"differs from plain")
+        flat_us, us = device_us_in_turns(
+            lambda: ball_query_raw(cents, pts, r, 32), "ball_query_kernel",
+            lambda: ball_query_raw(cents, pts, r, K), "ball_query_two_level_kernel",
+            10 if N <= 4096 else 5)
+        print(f"{'':11s} ball_query {(B, C, N, r, K)}: select='flat' runs the two-level kernel, "
+              f"equal to plain (raw, repeat, mask, depth 1); {us:.1f} us a launch on the device "
+              f"(the flat kernel at K = 32: {flat_us:.1f} us; floor {floor_us(B * C * N):.1f} us)"
+              f"; share of in-ball slots {float(want_in.float().mean()):.3f}", flush=True)
+
+
+def ball_query_2l_splits(device, levels) -> None:
+    """Every split of kernel 6 in BALL_2L_SPLITS at the four SA stages,
+    PointNeXt's first InvResMLP query and the buckets, each equal to the
+    plain version, device us a launch beside its default and the flat
+    kernel's."""
+    from pointseg_torch.ops.ballquery import (_ball_query_cuda, _radius_sq, ball_query_plain,
+                                              ball_query_raw)
+
+    rng = np.random.default_rng(20)
+    cases = [("SA1", levels[1], levels[0], 0.1), ("irmlp1", levels[1], levels[1], 0.1),
+             ("SA2", levels[2], levels[1], 0.2), ("SA3", levels[3], levels[2], 0.4),
+             ("SA4", levels[4], levels[3], 0.8)]
+    for B, N, C in ((2, 16384, 1024), (1, 65536, 1024)):
+        pts = torch.from_numpy(block_cloud(rng, B, N)).to(device)
+        cases.append((f"bucket ({B}, {C}, {N})", pts[:, :C].contiguous(), pts, 0.1))
+    for label, cents, pts, r in cases:
+        want = ball_query_plain(cents, pts, r, 32)
+        reps = 10 if pts.shape[1] <= 4096 else 5
+        flat_us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, 32), "ball_query_kernel",
+                                   reps)
+        times = [f"flat kernel {flat_us:.1f}"]
+        for config in ((0, 0, 0), *BALL_2L_SPLITS):
+            def call():
+                return _ball_query_cuda(cents, pts, _radius_sq(r), 32, None, "two_level", 4,
+                                        False, config)
+            got = call()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"two-level ball query {label} split {config} differs")
+            us = kernel_device_us(call, "ball_query_two_level_kernel", reps)
+            times.append(f"{'default' if config == (0, 0, 0) else config} {us:.1f}")
+        print(f"{'':11s} ball_query_2l {label}, device us a launch by (centroids a warp, warps "
+              f"a block, warps a centroid), each equal to plain: " + ", ".join(times), flush=True)
 
 
 # Kernel 2's queries of a PointNet++ SSG forward pass, as POINTNEXT_QUERIES
@@ -699,16 +897,20 @@ def nan_inputs(device):
     return pts
 
 
-def selection_times(device, out_path: str | None = None) -> dict:
+def selection_times(device, out_path: str | None = None, two_level: bool = False) -> dict:
     """Kernels 2 and 3 of the package on the path at every shape of the
     three PointNet++-family models and at the evaluation buckets: each
     equal to its plain version (ball query raw and with the repeat
     filler, 3-NN indices and distance bits), device us a launch
     (profiler), and each model's row under CUDA events. Runs on the
     parent's package too (`--kernel-times`), so it uses the public calls
-    only; with `out_path` it saves the outputs on NaN inputs there."""
+    only; with `out_path` it saves the outputs on NaN inputs there. With
+    `two_level`, kernels 6 and 5 too: device us a launch at every ball
+    query of PointNeXt and MSG and the buckets, and at the three kNN
+    shapes (each equal to the plain version)."""
     from pointseg_torch.ops.ballquery import ball_query, ball_query_plain, ball_query_raw
     from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
+    from pointseg_torch.ops.knn import knn_indices
 
     levels = training_levels(device)
     res = {"ball_query_us": {}, "three_nn_us": {}, "rows_ms": {}}
@@ -756,17 +958,69 @@ def selection_times(device, out_path: str | None = None) -> dict:
     res["rows_ms"] = rows
     print(f"{'':11s} rows under CUDA events, ms: "
           + "; ".join(f"{k} {v:.4f}" for k, v in rows.items()))
+    if two_level:
+        res.update(two_level_times(device, levels))
     if out_path:
         pts = nan_inputs(device)
-        torch.save({"ball_query": ball_query_raw(pts[:, :512], pts, 0.2, 32),
-                    "three_nn": three_nn(pts, pts[:, :512])}, out_path)
+        x = knn_nan_inputs(device)
+        saved = {"ball_query": ball_query_raw(pts[:, :512], pts, 0.2, 32),
+                 "three_nn": three_nn(pts, pts[:, :512])}
+        if two_level:
+            saved["ball_query_2l"] = ball_query_raw(pts[:, :512], pts, 0.2, 32,
+                                                    select="two_level")
+            saved["knn_2l"] = (knn_indices(x, 20, select="two_level"),)
+        torch.save(saved, out_path)
+    return res
+
+
+def knn_nan_inputs(device):
+    """Activations with NaN in a whole row and in one feature of another."""
+    x = torch.from_numpy(activations(np.random.default_rng(26), 2, 1000, 64)).to(device)
+    x[0, 7] = float("nan")
+    x[1, 999, 3] = float("nan")
+    return x
+
+
+def two_level_times(device, levels) -> dict:
+    """Kernels 6 and 5 through the public calls (`select="two_level"`):
+    device us a launch at every ball query of PointNeXt and MSG and at the
+    buckets, and at the kNN shapes of a DGCNN step and its bucket; each
+    equal to the plain version first."""
+    from pointseg_torch.ops.ballquery import ball_query_plain, ball_query_raw
+    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+
+    res = {"ball_query_2l_us": {}, "knn_2l_us": {}}
+    for label, cents, pts, r, K, ssg, msg, pnext in ball_cases(device, levels):
+        if not (msg or pnext or label.startswith("eval")):
+            continue
+        want_idx, want_in = ball_query_plain(cents, pts, r, K)
+        idx, in_ball = ball_query_raw(cents, pts, r, K, select="two_level")
+        if not (torch.equal(idx, want_idx) and torch.equal(in_ball, want_in)):
+            raise AssertionError(f"two-level ball query {label}: differs from plain")
+        res["ball_query_2l_us"][label] = kernel_device_us(
+            lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
+            "ball_query_two_level_kernel", 10 if pts.shape[1] <= 4096 else 5)
+        print(f"{'':11s} ball_query_2l {label}: {res['ball_query_2l_us'][label]:.1f} us a launch "
+              f"on the device", flush=True)
+    rng = np.random.default_rng(27)
+    for B, N, F in ((8, 4096, 3), (8, 4096, 64), (2, 16384, 64)):
+        x = torch.from_numpy(activations(rng, B, N, F)).to(device)
+        if not torch.equal(knn_indices(x, K_NEIGHBOURS, select="two_level"),
+                           knn_indices_plain(x, K_NEIGHBOURS)):
+            raise AssertionError(f"two-level kNN {(B, N, F)}: differs from plain")
+        label = f"({B}, {N}, {F}) k={K_NEIGHBOURS}"
+        res["knn_2l_us"][label] = kernel_device_us(
+            lambda: knn_indices(x, K_NEIGHBOURS, select="two_level"), "knn_two_level_kernel", 5)
+        print(f"{'':11s} knn_2l {label}: {res['knn_2l_us'][label]:.1f} us a launch on the "
+              f"device", flush=True)
     return res
 
 
 def model_step_times(device) -> dict:
     """Device ms a train step (profiler, 3 steps) and step ms (CUDA
     events, 10 steps) of the three PointNet++-family models and
-    DeepGraphCnn at the reference batch, random data from a seed."""
+    DeepGraphCnn at the reference batch, random data from a seed, and of
+    PointNeXt and DeepGraphCnn on the two-level kernels."""
     from torch.autograd import DeviceType
 
     from pointseg_torch.models import create_model
@@ -778,17 +1032,25 @@ def model_step_times(device) -> dict:
         torch.randint(0, 14, (8, 4096), device=device, generator=gen), 14).float()
     lengths = torch.full((8,), 4096, dtype=torch.int32, device=device)
     out = {}
-    for name in ("PointNet++", "PointNeXt", "PointNet++MSG", "DeepGraphCnn"):
+    # the last two: the model arguments POINTSEG_SELECT2L=1 sets through the CLI
+    for label, name, kwargs in (("PointNet++", "PointNet++", {}), ("PointNeXt", "PointNeXt", {}),
+                                ("PointNet++MSG", "PointNet++MSG", {}),
+                                ("DeepGraphCnn", "DeepGraphCnn", {}),
+                                ("PointNeXt, POINTSEG_SELECT2L=1", "PointNeXt",
+                                 {"ball_select": "two_level"}),
+                                ("DeepGraphCnn, POINTSEG_SELECT2L=1", "DeepGraphCnn",
+                                 {"knn_select": "two_level"})):
         torch.manual_seed(0)
-        run = create_train_state(create_model(name), device=device, learning_rate=1e-3, seed=0)
+        run = create_train_state(create_model(name, **kwargs), device=device, learning_rate=1e-3,
+                                 seed=0)
         for _ in range(3):
             train_step(run, points, labels, lengths)
         step_ms = cuda_ms(lambda: train_step(run, points, labels, lengths), 10)
         rows = profiled(lambda: train_step(run, points, labels, lengths), 3)
         dev_ms = sum(device_time_us(e) for e in rows if e.device_type == DeviceType.CUDA
                      and not e.is_user_annotation) / 3 / 1e3
-        out[name] = {"device_ms": dev_ms, "step_ms": step_ms}
-        print(f"{'':11s} {name}: device {dev_ms:.3f} ms a step (profiler), step {step_ms:.3f} ms "
+        out[label] = {"device_ms": dev_ms, "step_ms": step_ms}
+        print(f"{'':11s} {label}: device {dev_ms:.3f} ms a step (profiler), step {step_ms:.3f} ms "
               f"(CUDA events)", flush=True)
         del run
         torch.cuda.empty_cache()
@@ -852,7 +1114,7 @@ def one_kernel_a_repeat_call(device) -> None:
 
 
 def against_parent(parent: str) -> None:
-    """Kernels 2 and 3 of this tree and of `parent` (an unpacked checkout
+    """Kernels 2, 3, 6 and 5 of this tree and of `parent` (an unpacked checkout
     of the commit before this change) in one call, in turns parent, this,
     this, parent, each a `--kernel-times` process that imports its own
     package and builds its own kernels: device us a launch at every shape,
@@ -876,11 +1138,11 @@ def against_parent(parent: str) -> None:
             outs.setdefault(who, torch.load(path))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for key in ("ball_query", "three_nn"):
+    for key in ("ball_query", "three_nn", "ball_query_2l", "knn_2l"):
         for a, b in zip(outs["this"][key], outs["parent"][key]):
             if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
                 raise AssertionError(f"{key} on NaN inputs differs from the parent's kernel")
-    print(f"{'':11s} on NaN inputs both kernels equal the parent's bit for bit")
+    print(f"{'':11s} on NaN inputs kernels 2, 3, 6 and 5 equal the parent's bit for bit")
 
     def mean(who, *keys):
         values = [r for r in runs[who]]
@@ -888,7 +1150,7 @@ def against_parent(parent: str) -> None:
             values = [v[k] for v in values]
         return sum(values) / len(values)
 
-    for key in ("ball_query_us", "three_nn_us"):
+    for key in ("ball_query_us", "three_nn_us", "ball_query_2l_us", "knn_2l_us"):
         for label in runs["this"][0][key]:
             p, t = mean("parent", key, label), mean("this", key, label)
             print(f"{'':11s} {key[:-3]} {label}: parent {p:.1f} us, this {t:.1f} us a launch on "
@@ -921,7 +1183,7 @@ def kernel_times_main(tree: str, out_path: str) -> int:
 
     _kernels.library()
     print(f"kernel times of {tree}:")
-    res = selection_times(device, out_path)
+    res = selection_times(device, out_path, two_level=True)
     res["steps"] = model_step_times(device)
     print(json.dumps(res))
     return 0
@@ -973,7 +1235,7 @@ def selection_call_split(device) -> None:
             [("filler, select and K tests, device dispatch",
               lambda: ("repeat" not in FILLERS, "flat" not in SELECTS, not 1 <= 32 <= 256,
                        _kernels.on_cuda(pts))),
-             ("K and depth limits", lambda: (32 > MAX_K, 4 not in (1, 4, 5))),
+             ("K and depth limits", lambda: (32 > MAX_K, 4 not in (1, 4))),
              ("dtype and contiguity tests", lambda: layout(cents, pts)),
              ("shape and device checks", lambda: shapes(cents, pts)),
              ("two new_empty outputs", lambda: (
@@ -1080,9 +1342,13 @@ def knn_kernels(device, record: Record) -> None:
         # instructions where the bound above counts one fused multiply-add,
         # so an exact kernel's floor is twice the operation bound.
         floor_ms = 2 * flops / PEAK_F32_FLOPS * 1e3
-        us = kernel_device_us(lambda: knn_indices(x, k), "knn_flat_kernel", reps=5)
-        us_2l = kernel_device_us(lambda: knn_indices(x, k, select="two_level"),
-                                 "knn_two_level_kernel", reps=5)
+        us, us_2l = device_us_in_turns(
+            lambda: knn_indices(x, k), "knn_flat_kernel",
+            lambda: knn_indices(x, k, select="two_level"), "knn_two_level_kernel", 5)
+        aim = {"xyz": 1.0, "activations": 1.25, "eval bucket": 1.25}.get(what)
+        if aim:
+            print(f"{'':11s} knn_two_level_kernel {(B, N, F)}: {us_2l / us:.2f}x the flat kernel "
+                  f"on the device (aim <= {aim}x: {'met' if us_2l <= aim * us else 'missed'})")
         norms_us = kernel_device_us(lambda: knn_indices(x, k), "row_sqnorm_kernel", reps=5)
         # with k = 1 a row's list takes some ln(N) insertions instead of
         # k ln(N / k) + k: nearly the score pass and the tile votes alone
@@ -1095,10 +1361,15 @@ def knn_kernels(device, record: Record) -> None:
               f"{times['knn'] / floor_ms:.2f}x under CUDA events; at k = 1 (nearly no "
               f"insertions) {k1_us:.1f} us, so the insertions of k = {k} cost "
               f"{us - k1_us:.1f} us")
+    row = record.rows["knn_2l"]["ms"]
+    print(f"{'':11s} knn_2l row under CUDA events {row:.4f} ms (aim <= 4.5: "
+          f"{'met' if row <= 4.5 else 'missed'})")
     print(f"{'':11s} SM clock right after the timed loops: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     knn_edge_cases(device)
+    knn_2l_past_the_flat_limits(device)
+    knn_2l_depths(device)
 
 
 def knn_edge_cases(device) -> None:
@@ -1137,6 +1408,81 @@ def knn_edge_cases(device) -> None:
     print(f"{'':11s} {len(cases) + 1} more shapes (N = 37, 4099, 1100; F = 1, 3, 6, 8, 9, 12, "
           f"64, 67, 128, 132; k = 1, 20, 32; B = 1, 2, 5, 8; a misaligned view), each with "
           f"mask, without self, and both: flat and two-level equal plain slot for slot")
+
+
+def knn_2l_past_the_flat_limits(device) -> None:
+    """k = 33, 48, 64 at (8, 4096, 64) and F = 640, 1024 at (2, 4096, F),
+    where `select="flat"` runs kernel 5: one launch of it, equal to the
+    plain version slot for slot with and without the mask and the point
+    itself, and at depth 1; device us a launch beside the flat kernel at k
+    = 20 (where it runs), the bound and the exact-arithmetic floor."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.knn import _knn_cuda, knn_indices, knn_indices_plain
+
+    rng = np.random.default_rng(23)
+    x64 = torch.from_numpy(activations(rng, 8, 4096, 64, repeat_from=3072)).to(device)
+    cases = [(x64, k) for k in (33, 48, 64)]
+    cases += [(torch.from_numpy(activations(rng, 2, 4096, F, repeat_from=3500)).to(device), 20)
+              for F in (640, 1024)]
+    for x, k in cases:
+        B, N, F = x.shape
+        mask = torch.rand((B, N), device=device,
+                          generator=torch.Generator(device).manual_seed(24)) < 0.8
+        mask[0, 10:] = False  # a cloud with fewer than k points left
+        for kwargs in ({}, {"mask": mask}, {"include_self": False},
+                       {"mask": mask, "include_self": False}):
+            want = knn_indices_plain(x, k, **kwargs)
+            before = dict(_kernels.LAUNCHES)
+            got = knn_indices(x, k, **kwargs)
+            if (_kernels.LAUNCHES["knn_2l"] != before["knn_2l"] + 1
+                    or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+                raise AssertionError(f"kNN {(B, N, F)} k={k}: select='flat' must launch the "
+                                     f"two-level kernel once")
+            if not torch.equal(got, want):
+                raise AssertionError(f"kNN {(B, N, F)} k={k} {sorted(kwargs)}: "
+                                     f"{int((got != want).sum())} slots differ from plain")
+            if not torch.equal(_knn_cuda(x, k, "two_level", 1, **kwargs), want):
+                raise AssertionError(f"kNN {(B, N, F)} k={k} {sorted(kwargs)} at depth 1 "
+                                     f"differs from plain")
+        flops = 2.0 * B * N * N * F
+        bound = max(flops / PEAK_F32_FLOPS, (4 * B * N * F + 4 * B * N * k) / PEAK_BYTES_PER_S)
+        if F <= 512:
+            flat_us, us = device_us_in_turns(lambda: knn_indices(x, 20), "knn_flat_kernel",
+                                             lambda: knn_indices(x, k), "knn_two_level_kernel", 5)
+            beside = f"the flat kernel at k = 20: {flat_us:.1f} us"
+        else:
+            us = kernel_device_us(lambda: knn_indices(x, k), "knn_two_level_kernel", 5)
+            beside = "the flat kernel does not stage rows this wide"
+        print(f"{'':11s} knn {(B, N, F)} k={k}: select='flat' runs the two-level kernel, equal "
+              f"to plain (mask, without self, both, depth 1); {us:.1f} us a launch on the "
+              f"device ({beside}); bound {bound * 1e6:.1f} us, exact-arithmetic floor "
+              f"{2 * flops / PEAK_F32_FLOPS * 1e6:.1f} us", flush=True)
+
+
+def knn_2l_depths(device) -> None:
+    """Kernel 5 at stack depths 1, 4 and 5 at the three timed shapes (four
+    query rows a warp) and at (1, 4096, 64), whose 128 blocks of four rows
+    would not fill the card (two): equal to the flat kernel slot for slot,
+    device us a launch."""
+    from pointseg_torch.ops.knn import _knn_cuda, knn_indices
+
+    rng = np.random.default_rng(25)
+    for B, N, F in ((8, 4096, 3), (8, 4096, 64), (2, 16384, 64), (1, 4096, 64)):
+        x = torch.from_numpy(activations(rng, B, N, F)).to(device)
+        want = knn_indices(x, K_NEIGHBOURS)
+        times = []
+        for depth in (1, 4, 5):
+            def call():
+                return _knn_cuda(x, K_NEIGHBOURS, "two_level", depth)
+            if not torch.equal(call(), want):
+                raise AssertionError(f"kNN two-level {(B, N, F)} depth {depth} differs from the "
+                                     f"flat kernel")
+            us = kernel_device_us(call, "knn_two_level_kernel", 3)
+            times.append(f"depth {depth} {us:.1f}")
+        rows = 4 if B * -(-N // 32) >= 256 else 2
+        print(f"{'':11s} knn_two_level_kernel {(B, N, F)} k={K_NEIGHBOURS}, {rows} query rows a "
+              f"warp, device us a launch, each equal to the flat kernel: " + ", ".join(times),
+              flush=True)
 
 
 def check_knn_options(x, k: int, quiet: bool = False) -> None:
@@ -2216,9 +2562,11 @@ def main() -> int:
     from pointseg_torch.ops import _kernels
 
     t0 = time.time()
+    ptxas = ptxas_start()
     lib = _kernels.build()
     _kernels.library()
     print(f"built {lib} from {len(_kernels.SOURCES)} sources in {time.time() - t0:.1f} s")
+    ptxas_report(ptxas)
 
     phase("3. kernels against their plain versions")
     record = Record()

@@ -17,7 +17,8 @@
 // non-member, which is how the plain version orders it (`where(inside,
 // d2, inf)` under a stable sort); the Pallas kernels' finite
 // `1e8 + 16*col` sentinels, which misplace a real d^2 above 1e7, are not
-// carried over. K is at most 32 (one lane per output slot).
+// carried over. The flat kernel takes K <= 32 (one lane per kept slot),
+// the two-level one any K <= N.
 //
 // What bounds it on the H100: the B*C*N distance evaluations. Kept exact
 // (no fused multiply-add), a pair costs 8 rounded FP instructions and one
@@ -47,19 +48,26 @@
 // and the warps a block from the shape. The result depends on none of
 // them.
 //
-// Two-level selection (kernel 6): kWarps centroids of one cloud share a
-// block and stage the cloud through shared memory in kTile-point tiles.
-// Lane l owns the strided columns
-// {32 w + l}, which are the points it measures anyway, so pass one needs
-// no traffic between lanes: each lane keeps a sorted stack of its
-// `Depth` first columns by (key, column) in registers. Then K rounds pick
-// the first head across the warp, pop it, and refill a lane whose stack
-// ran dry although it has columns left: the warp rescans that lane's
-// columns (N/32 of them, read from global memory) for the first entry
-// behind the last one consumed. An empty stack slot is told from a
-// non-member by the lane's `have` count, not by its key. The result never
-// depends on Depth, only the time; fillers come one per lane (columns
-// 0..K-1), so sparse balls do not drain a stack faster than dense ones.
+// Two-level selection (kernel 6) scans as the flat kernel does (the same
+// float4 tile, G balls a warp, two chunks an iteration, one vote for the
+// 64 points of all G balls, S warps a ball at the evaluation buckets) and
+// selects in two levels. Lane l measures the columns {32 k + l}, the
+// strided ownership of the Pallas design, so level 1 needs no traffic
+// between lanes: each lane keeps, per ball, a sorted stack of its first
+// `Depth` members by (d^2, column) in registers. Non-members never enter,
+// and once a stack is full its threshold drops just below its last entry,
+// so the vote passes over the chunks that give no lane anything to keep.
+// Level 2 runs rounds over the lane heads (two `redux.sync`: d^2's bits,
+// then the lowest column), each popping the first head, until K members
+// are out or no lane offers one; a lane whose full stack ran dry is
+// refilled by the warp rescanning its columns for the first member behind
+// the last consumed. One warp a ball writes each round's pick to the
+// output (32 a store), so K is bounded by N only, and counts its fillers
+// rather than popping them: the j-th lowest column outside the ball, by
+// stepping over the sorted members when there are fewer than 32, else by
+// a ballot over the lowest columns. S warps a ball (K <= 32) each list
+// their first K in the lanes and merge as the flat kernel's do. The result depends on
+// none of G, S, the warps a block or Depth.
 
 #include <climits>
 
@@ -70,8 +78,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTile = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sqnorm(float x, float y, float z) {
@@ -85,26 +91,6 @@ __device__ __forceinline__ float gram_sqdist(float qx, float qy, float qz, float
   const float cross =
       __fadd_rn(__fadd_rn(__fmul_rn(qx, x), __fmul_rn(qy, y)), __fmul_rn(qz, z));
   return __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, cross)), c2);
-}
-
-// Kernel 6's tile of the cloud in shared memory, with the points' squared norms.
-struct Tile {
-  float x[kTile], y[kTile], z[kTile], n2[kTile];
-};
-
-// Loads points [base, base + n) of the cloud; ends with a block-wide barrier.
-__device__ __forceinline__ void load_tile(Tile& t, const float* pts, int base, int n) {
-  __syncthreads();  // the previous tile is no longer read
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float x = pts[3 * (base + i)];
-    const float y = pts[3 * (base + i) + 1];
-    const float z = pts[3 * (base + i) + 2];
-    t.x[i] = x;
-    t.y[i] = y;
-    t.z[i] = z;
-    t.n2[i] = sqnorm(x, y, z);
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------- kernel 2
@@ -160,7 +146,14 @@ __device__ __forceinline__ void sort32(int& v) {
 // The flat kernel's tile: a point a float4, (x, y, z, |p|^2), |p|^2 NaN for
 // a point the mask excludes, so that d^2 <= r^2 refuses it as it refuses a
 // NaN coordinate. Padded with NaN points to a whole number of 32-point
-// chunks.
+// chunks. `load_point` reads point i as the tile holds it.
+__device__ __forceinline__ float4 load_point(const float* pts, const bool* valid, int i) {
+  const float* src = pts + 3 * i;
+  float4 p = make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), 0.f);
+  p.w = (valid == nullptr || valid[i]) ? sqnorm(p.x, p.y, p.z) : CUDART_NAN_F;
+  return p;
+}
+
 constexpr int kFlatTile = 1024;
 constexpr int kMaxFlatLists = 64;  // warps x centroids a warp, a block
 constexpr int kMaxFlatWarps = 16;
@@ -315,17 +308,9 @@ __global__ void ball_query_kernel(const float* __restrict__ centroids,
     const int n = min(kFlatTile, N - base);
     const int chunks = (n + 31) >> 5;
     __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < chunks * 32; t += blockDim.x) {
-      float4 p = make_float4(0.f, 0.f, 0.f, CUDART_NAN_F);
-      if (t < n) {
-        const float* src = pts + 3 * (base + t);
-        p.x = __ldg(src);
-        p.y = __ldg(src + 1);
-        p.z = __ldg(src + 2);
-        p.w = (valid == nullptr || valid[base + t]) ? sqnorm(p.x, p.y, p.z) : CUDART_NAN_F;
-      }
-      tile[t] = p;
-    }
+    for (int t = threadIdx.x; t < chunks * 32; t += blockDim.x)
+      tile[t] = t < n ? load_point(pts, valid, base + t)
+                      : make_float4(0.f, 0.f, 0.f, CUDART_NAN_F);
     __syncthreads();
 
     // two chunks an iteration: twice the independent chains a warp
@@ -435,171 +420,371 @@ int launch_flat(const void* centroids, const void* coords, const void* mask, voi
 
 // ---------------------------------------------------------------- kernel 6
 
-__device__ __forceinline__ void warp_first(float& v, int& c) {
+// The warp's first (d^2 asc, column asc) of one (d^2, column) a lane, d^2
+// >= +0 or the empty key 0xffffffff: d^2's bits order as unsigned ints,
+// so two `redux.sync` do it, key then column among the lanes that hold it.
+__device__ __forceinline__ int warp_first_member(unsigned key, int col, unsigned& best) {
+  best = __reduce_min_sync(kFull, key);
+  return __reduce_min_sync(kFull, key == best ? col : INT_MAX);
+}
+constexpr unsigned kNoMember = 0xffffffffu;
+
+// One ball's selection state in kernel 6: the centroid, and this lane's
+// sorted stack of its first `Depth` members by (d^2, column); an empty
+// slot is (+inf, INT_MAX). A point enters while raw d^2 <= lim: r^2 until
+// the stack is full, then just below its last entry (a later column loses
+// a tie), so a member that cannot enter costs one compare.
+template <int Depth>
+struct Stack {
+  float qx, qy, qz, q2, lim;
+  float sv[Depth];
+  int sc[Depth];
+};
+
+template <int Depth>
+__device__ __forceinline__ void push(Stack<Depth>& s, float raw, int col) {
+  const float d = raw > 0.f ? raw : 0.f;  // -0 and < 0 as +0
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oc = __shfl_xor_sync(kFull, c, off);
-    if (before(ov, oc, v, c)) {
-      v = ov;
-      c = oc;
+  for (int t = Depth - 1; t >= 0; --t) {  // deepest first: each step reads old levels
+    if (t > 0 && before(d, col, s.sv[t - 1], s.sc[t - 1])) {
+      s.sv[t] = s.sv[t - 1];
+      s.sc[t] = s.sc[t - 1];
+    } else if (before(d, col, s.sv[t], s.sc[t])) {
+      s.sv[t] = d;
+      s.sc[t] = col;
     }
+  }
+  if (s.sc[Depth - 1] != INT_MAX) {
+    const float tail = s.sv[Depth - 1];
+    s.lim = tail > 0.f ? __int_as_float(__float_as_int(tail) - 1) : -CUDART_INF_F;
   }
 }
 
-// A point's selection key: its clamped d^2 when it is in the ball (never
-// NaN, never above r2), +inf otherwise.
-__device__ __forceinline__ float ball_key(float raw, float r2, bool valid) {
-  return (raw <= r2 && valid) ? fmaxf(raw, 0.f) : CUDART_INF_F;
+// Lane l's first member behind (ld, lc) by (d^2, column), among its columns
+// 32 k + l for the chunks k = slice (mod S): lane t of the warp measures the
+// chunks slice + S (t + 32 m), with the scan's arithmetic, reading `tile`
+// when it holds the whole cloud (else null). Returns the key (kNoMember when
+// there is none) and the column.
+__device__ __forceinline__ unsigned rescan_ball(const float4* tile, const float* pts,
+                                                const bool* valid, int N, int S, int slice,
+                                                float qx, float qy, float qz, float q2, float r2,
+                                                int l, float ld, int lc, int& best_col) {
+  const int lane = threadIdx.x & 31;
+  float bd = CUDART_INF_F;
+  int bc = INT_MAX;
+  for (int m = 0; 32 * (slice + 32 * S * m) + l < N; ++m) {  // uniform across the warp
+    const int col = 32 * (slice + S * (lane + 32 * m)) + l;
+    if (col >= N) continue;
+    const float4 p = tile ? tile[col] : load_point(pts, valid, col);
+    const float raw = gram_sqdist(qx, qy, qz, q2, p.x, p.y, p.z, p.w);
+    if (!(raw <= r2)) continue;
+    const float d = raw > 0.f ? raw : 0.f;
+    if (before(ld, lc, d, col) && before(d, col, bd, bc)) {
+      bd = d;
+      bc = col;
+    }
+  }
+  unsigned best;
+  best_col = warp_first_member(bc == INT_MAX ? kNoMember : __float_as_uint(bd), bc, best);
+  return best;
 }
 
-template <int Depth>
+// Level 2 of one ball in one warp: up to `K` rounds over the lane heads,
+// each taking the first head and popping it, a dry lane refilled by a
+// rescan when its stack had filled (members may lie behind it). Round j's
+// (d^2, column) goes to `emit(j, key, col)`. Returns the rounds that found
+// a member; they stop when no lane offers one.
+template <int Depth, typename Emit>
+__device__ __forceinline__ int rounds(Stack<Depth>& s, const float4* tile, const float* pts,
+                                      const bool* valid, int N, int S, int slice, float r2, int K,
+                                      Emit emit) {
+  const int lane = threadIdx.x & 31;
+  int have = 0;
+#pragma unroll
+  for (int t = 0; t < Depth; ++t) have += s.sc[t] != INT_MAX;
+  bool more = have == Depth;  // members this lane may hold behind its stack
+  float last_d = 0.f;
+  int last_c = -1;
+  for (int j = 0; j < K; ++j) {
+    unsigned dry = __ballot_sync(kFull, have == 0 && more);
+    while (dry) {
+      const int l = __ffs(dry) - 1;
+      dry &= dry - 1;
+      int bc;
+      const unsigned bk = rescan_ball(tile, pts, valid, N, S, slice, s.qx, s.qy, s.qz, s.q2, r2,
+                                      l, __shfl_sync(kFull, last_d, l),
+                                      __shfl_sync(kFull, last_c, l), bc);
+      if (lane == l) {
+        if (bk == kNoMember) {
+          more = false;
+        } else {
+          s.sv[0] = __uint_as_float(bk);
+          s.sc[0] = bc;
+          have = 1;
+        }
+      }
+    }
+    unsigned best;
+    const int bc = warp_first_member(have > 0 ? __float_as_uint(s.sv[0]) : kNoMember,
+                                     have > 0 ? s.sc[0] : INT_MAX, best);
+    if (best == kNoMember) return j;
+    emit(j, best, bc);
+    if (have > 0 && s.sc[0] == bc) {  // pop this lane's head
+      last_d = s.sv[0];
+      last_c = bc;
+#pragma unroll
+      for (int t = 0; t + 1 < Depth; ++t) {
+        s.sv[t] = s.sv[t + 1];
+        s.sc[t] = s.sc[t + 1];
+      }
+      s.sv[Depth - 1] = CUDART_INF_F;
+      s.sc[Depth - 1] = INT_MAX;
+      --have;
+    }
+  }
+  return K;
+}
+
+// G centroids a warp, W / S groups of S warps a block, the S warps of a
+// group sharing its G centroids, each scanning every S-th 32-point chunk
+// (S > 1 needs K <= 32). The scan is the flat kernel's. Registers (nvcc
+// 12.8, sm_90a, -Xptxas -v; chip_smoke.py prints them): two blocks of 16
+// warps an SM allow 64, which G = 2 takes at depth 4 with no spill (at
+// depth 5 12 bytes spill, hence stacks 4 deep); G = 1 52. With no minimum
+// of blocks ptxas spilled G = 1 to 40 registers (three blocks); with a
+// minimum of one, G = 2 took 69-71 and one block an SM, which made
+// PointNeXt's nine queries 1.5x the flat kernel's time against 1.34x.
+template <int G, int Depth>
+__launch_bounds__(kMaxFlatWarps * 32, 2)
 __global__ void ball_query_two_level_kernel(const float* __restrict__ centroids,
                                             const float* __restrict__ coords,
                                             const bool* __restrict__ mask,
                                             int* __restrict__ out_idx,
-                                            bool* __restrict__ out_in_ball,
-                                            int C, int N, int K, float r2, int repeat) {
-  __shared__ Tile tile;
+                                            bool* __restrict__ out_in_ball, int C, int N, int K,
+                                            float r2, int repeat, int S) {
+  extern __shared__ float4 smem[];
+  float4* tile = smem;
+  int2* lists = reinterpret_cast<int2*>(tile + kFlatTile);  // [warp][g][32], S > 1
+  int* counts = reinterpret_cast<int*>(lists + (blockDim.x >> 5) * G * 32);  // [warp][g]
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + warp;
-  const bool active = c < C;  // uniform across the warp
+  const int slice = warp % S;
+  const int c0 = (blockIdx.x * (blockDim.x >> 5) / S + warp / S) * G;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f, q2 = 0.f;
-  if (active) {
-    const float* q = centroids + (static_cast<size_t>(b) * C + c) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-    q2 = sqnorm(qx, qy, qz);
+  Stack<Depth> s[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    s[g].qx = s[g].qy = s[g].qz = s[g].q2 = CUDART_NAN_F;  // past C: a ball with no member
+    if (c0 + g < C) {
+      const float* q = centroids + (static_cast<size_t>(b) * C + c0 + g) * 3;
+      s[g].qx = q[0];
+      s[g].qy = q[1];
+      s[g].qz = q[2];
+      s[g].q2 = sqnorm(s[g].qx, s[g].qy, s[g].qz);
+    }
+    s[g].lim = r2;
+#pragma unroll
+    for (int t = 0; t < Depth; ++t) {
+      s[g].sv[t] = CUDART_INF_F;
+      s[g].sc[t] = INT_MAX;
+    }
   }
+
+  // level 1: the flat kernel's scan, members into the lanes' stacks
   const float* pts = coords + static_cast<size_t>(b) * N * 3;
   const bool* valid = mask ? mask + static_cast<size_t>(b) * N : nullptr;
+  for (int base = 0; base < N; base += kFlatTile) {
+    const int n = min(kFlatTile, N - base);
+    const int chunks = (n + 31) >> 5;
+    __syncthreads();  // the previous tile is no longer read
+    for (int t = threadIdx.x; t < chunks * 32; t += blockDim.x)
+      tile[t] = t < n ? load_point(pts, valid, base + t)
+                      : make_float4(0.f, 0.f, 0.f, CUDART_NAN_F);
+    __syncthreads();
 
-  // level 1: the first `have` (at most Depth) of this lane's columns
-  // {32 w + lane} by (key, column), sorted
-  float sv[Depth];
-  int sc[Depth];
+    for (int k = slice; k < chunks; k += 2 * S) {
+      const bool second = k + S < chunks;  // uniform across the warp
+      const float4 p0 = tile[32 * k + lane];
+      const float4 p1 =
+          second ? tile[32 * (k + S) + lane] : make_float4(0.f, 0.f, 0.f, CUDART_NAN_F);
+      float raw0[G], raw1[G];
+      bool hit = false;
 #pragma unroll
-  for (int t = 0; t < Depth; ++t) {
-    sv[t] = CUDART_INF_F;
-    sc[t] = INT_MAX;
+      for (int g = 0; g < G; ++g) {
+        raw0[g] = gram_sqdist(s[g].qx, s[g].qy, s[g].qz, s[g].q2, p0.x, p0.y, p0.z, p0.w);
+        raw1[g] = gram_sqdist(s[g].qx, s[g].qy, s[g].qz, s[g].q2, p1.x, p1.y, p1.z, p1.w);
+        hit |= (raw0[g] <= s[g].lim) | (raw1[g] <= s[g].lim);
+      }
+      if (!__any_sync(kFull, hit)) continue;  // most chunks of most balls
+      const int idx = base + 32 * k + lane;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {  // a lane's columns in ascending order
+        if (raw0[g] <= s[g].lim) push(s[g], raw0[g], idx);
+        if (raw1[g] <= s[g].lim) push(s[g], raw1[g], idx + 32 * S);
+      }
+    }
   }
-  int have = 0;
 
-  for (int base = 0; base < N; base += kTile) {  // kTile is a multiple of 32
-    const int n = min(kTile, N - base);
-    load_tile(tile, pts, base, n);
-    if (!active) continue;
-    for (int j = lane; j < n; j += 32) {
-      const float raw =
-          gram_sqdist(qx, qy, qz, q2, tile.x[j], tile.y[j], tile.z[j], tile.n2[j]);
-      const float v = ball_key(raw, r2, valid == nullptr || valid[base + j]);
-      // A lane visits its columns in ascending order, so the candidate
-      // goes in front of a listed entry only on a strictly smaller key,
-      // and behind the last one only while a slot is empty.
-      if (have == Depth && !(v < sv[Depth - 1])) continue;
-      // insertion chain, deepest level first so each step reads old levels
+  const size_t row = (static_cast<size_t>(b) * C + c0) * K;  // the first centroid's slots
+  const float4* const whole = N <= kFlatTile ? tile : nullptr;  // the tile holds the cloud
+  if (S == 1) {
+    // level 2: the rounds write the members in order, 32 slots a store
+    // (round j's column waits in lane j % 32); then the fillers
 #pragma unroll
-      for (int t = Depth - 1; t >= 0; --t) {
-        const int up = t > 0 ? t - 1 : 0;
-        if (t > 0 && (up >= have || v < sv[up])) {
-          sv[t] = sv[up];
-          sc[t] = sc[up];
-        } else if (t >= have || v < sv[t]) {
-          sv[t] = v;
-          sc[t] = base + j;
+    for (int g = 0; g < G; ++g) {
+      if (c0 + g >= C) break;
+      int* const idx_out = out_idx + row + g * K;
+      bool* const in_out = out_in_ball + row + g * K;
+      int picked = INT_MAX, first = 0;
+      const int m = rounds(s[g], whole, pts, valid, N, 1, 0, r2, K, [&](int j, unsigned, int col) {
+        if (j == 0) first = col;
+        if (lane == (j & 31)) picked = col;
+        if ((j & 31) == 31) {
+          idx_out[(j & ~31) + lane] = picked;
+          in_out[(j & ~31) + lane] = true;
         }
+      });
+      if ((m & 31) != 0 && lane < (m & 31)) {
+        idx_out[(m & ~31) + lane] = picked;
+        in_out[(m & ~31) + lane] = true;
       }
-      if (have < Depth) ++have;
-    }
-  }
-  if (!active) return;
-
-  // level 2: K rounds over the lane heads
-  const int owned = (N - lane + 31) / 32;  // columns this lane owns
-  int taken = 0;                           // of which consumed
-  float last_v = 0.f;                      // the last one consumed
-  int last_c = -1;
-  int picked = 0;  // lane j keeps round j's column and whether it is a member
-  bool picked_in = false;
-
-  for (int j = 0; j < K; ++j) {
-    unsigned dry = __ballot_sync(kFull, have == 0 && taken < owned);
-    while (dry) {
-      const int l = __ffs(dry) - 1;
-      dry &= dry - 1;
-      // the warp rescans lane l's columns for its first entry behind
-      // (last_v, last_c), which exists: the lane has columns left. Lane t
-      // takes the columns 32 (t + 32 m) + l.
-      const float lv = __shfl_sync(kFull, last_v, l);
-      const int lc = __shfl_sync(kFull, last_c, l);
-      float bv = CUDART_INF_F;
-      int bc = INT_MAX;
-      for (int col = 32 * lane + l; col < N; col += 1024) {
-        const float x = pts[3 * col], y = pts[3 * col + 1], z = pts[3 * col + 2];
-        const float raw = gram_sqdist(qx, qy, qz, q2, x, y, z, sqnorm(x, y, z));
-        const float v = ball_key(raw, r2, valid == nullptr || valid[col]);
-        if (before(lv, lc, v, col) && before(v, col, bv, bc)) {
-          bv = v;
-          bc = col;
+      if (m == K) continue;
+      // slot m + j takes the j-th lowest column outside the ball: under
+      // the repeat filler slot 0's member (column 0 when the ball has
+      // none); with fewer than 32 members, counted by stepping over their
+      // sorted columns (all in the lanes), as the flat kernel does; else by
+      // a ballot over the cloud's lowest columns
+      if (repeat || m < 32) {
+        int member = lane < m ? picked : INT_MAX;
+        if (!repeat) sort32(member);
+        for (int j0 = m; j0 < K; j0 += 32) {  // uniform across the warp: it shuffles
+          int f = first;
+          if (!repeat) {
+            f = j0 + lane - m;
+            for (int t = 0; t < m; ++t) f += __shfl_sync(kFull, member, t) <= f;
+          }
+          if (j0 + lane < K) {
+            idx_out[j0 + lane] = f;
+            in_out[j0 + lane] = false;
+          }
         }
+        continue;
       }
-      warp_first(bv, bc);
-      if (lane == l) {
-        sv[0] = bv;
-        sc[0] = bc;
-        have = 1;
+      int filled = 0;
+      for (int base = 0; filled < K - m; base += 32) {
+        const int col = base + lane;
+        bool outside = false;
+        if (col < N) {
+          const float4 p = whole ? whole[col] : load_point(pts, valid, col);
+          outside = !(gram_sqdist(s[g].qx, s[g].qy, s[g].qz, s[g].q2, p.x, p.y, p.z, p.w) <= r2);
+        }
+        const unsigned bits = __ballot_sync(kFull, outside);
+        const int slot = m + filled + __popc(bits & ((1u << lane) - 1u));
+        if (outside && slot < K) {
+          idx_out[slot] = col;
+          in_out[slot] = false;
+        }
+        filled += __popc(bits);
       }
     }
-
-    const bool offers = have > 0;
-    const int mine = sc[0];
-    float hv = offers ? sv[0] : CUDART_INF_F;
-    int hc = offers ? mine : INT_MAX;
-    warp_first(hv, hc);  // K <= N: some lane still offers a column
-    if (lane == j) {
-      picked = hc;
-      picked_in = hv < CUDART_INF_F;
-    }
-    if (offers && mine == hc) {  // pop this lane's head
-      last_v = sv[0];
-      last_c = sc[0];
-#pragma unroll
-      for (int t = 0; t + 1 < Depth; ++t) {
-        sv[t] = sv[t + 1];
-        sc[t] = sc[t + 1];
-      }
-      sv[Depth - 1] = CUDART_INF_F;
-      sc[Depth - 1] = INT_MAX;
-      --have;
-      ++taken;
-    }
+    return;
   }
 
-  const int first = __shfl_sync(kFull, picked, 0);
-  if (lane < K) {
-    const size_t o = (static_cast<size_t>(b) * C + c) * K + lane;
-    out_idx[o] = (repeat && !picked_in) ? first : picked;
-    out_in_ball[o] = picked_in;
+  // S > 1 (K <= 32): each warp's rounds list its first K members, lane j
+  // holding round j; the group's first warp merges the S sorted lists as
+  // the flat kernel does, and writes the ball as it does.
+  Ball merged[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float kd = CUDART_INF_F;
+    int ki = INT_MAX;
+    const int m = rounds(s[g], whole, pts, valid, N, S, slice, r2, K,
+                         [&](int j, unsigned key, int col) {
+                           if (lane == j) {
+                             kd = __uint_as_float(key);
+                             ki = col;
+                           }
+                         });
+    lists[(warp * G + g) * 32 + lane] = make_int2(__float_as_int(kd), ki);
+    if (lane == 0) counts[warp * G + g] = m;
+    merged[g].kd = kd;
+    merged[g].ki = ki;
+    merged[g].count = m;
+  }
+  __syncthreads();
+  if (slice != 0) return;
+  for (int o = 1; o < S; ++o) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int2 e = lists[((warp + o) * G + g) * 32 + 31 - lane];
+      if (before(__int_as_float(e.x), e.y, merged[g].kd, merged[g].ki)) {
+        merged[g].kd = __int_as_float(e.x);
+        merged[g].ki = e.y;
+      }
+      merge32(merged[g].kd, merged[g].ki);
+      merged[g].count += counts[(warp + o) * G + g];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (c0 + g >= C) break;
+    write_ball(merged[g], out_idx + row + g * K, out_in_ball + row + g * K, K, repeat);
   }
 }
 
-template <typename Kernel>
-int launch_ball_query(Kernel kernel, const void* centroids, const void* coords, const void* mask,
-                      void* out_idx, void* out_in_ball, int B, int C, int N, int K, float r2,
-                      int repeat, int device, void* stream) {
-  const DeviceScope scope(device);
-  if (scope.status() != 0) return scope.status();
-  const dim3 grid((C + kWarps - 1) / kWarps, B);
-  kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// Centroids a warp (G), warps a block (W) and warps a centroid (S) of
+// kernel 6, from chip_smoke.py's sweep (NVIDIA H100 80GB HBM3, 700 W): a
+// warp scans at most 4096 points, as in pick_flat, but with at most 8
+// warps a ball, whose lists the first merges ((1, 1024, 65536): 98 us at
+// (2, 16, 8), 123-161 at (4, 16, 16)); fewer than 1024 balls (the deep
+// stages, latency-bound) take two warps a ball, each with half the rounds
+// ((8, 16, 64): 5.0 us against 7.0-7.4 at one); at most two balls a warp,
+// whose stacks leave room for two blocks of 16 warps an SM ((8, 1024,
+// 4096): 31.9-33.0 us at (2, 16, 1), 34.5-40.3 at (4, 16, 1)). One warp a
+// ball when K > 32. The result depends on none of them.
+void pick_two_level(int B, int C, int N, int K, int& G, int& W, int& S) {
+  const long long balls = static_cast<long long>(B) * C;
+  S = 1;
+  if (K <= 32) {
+    while (S < 8 && N / S > 4096) S <<= 1;
+    if (S == 1 && balls < 1024 && N > 32) S = 2;
+  }
+  const long long wanted = S > 1 ? 4096 : 2048;
+  G = 2;
+  while (G > 1 && balls / G * S < wanted) G >>= 1;
+  W = G == 2 ? 16 : 8;
+}
+
+template <int G, int Depth>
+int launch_two_level(const void* centroids, const void* coords, const void* mask, void* out_idx,
+                     void* out_in_ball, int B, int C, int N, int K, float r2, int repeat, int W,
+                     int S, cudaStream_t stream) {
+  const int per_block = W / S * G;
+  const size_t smem = kFlatTile * sizeof(float4) + W * G * (32 * sizeof(int2) + sizeof(int));
+  const dim3 grid((C + per_block - 1) / per_block, B);
+  ball_query_two_level_kernel<G, Depth><<<grid, W * 32, smem, stream>>>(
       static_cast<const float*>(centroids), static_cast<const float*>(coords),
       static_cast<const bool*>(mask), static_cast<int*>(out_idx),
-      static_cast<bool*>(out_in_ball), C, N, K, r2, repeat);
+      static_cast<bool*>(out_in_ball), C, N, K, r2, repeat, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int Depth>
+int launch_two_level_groups(int G, const void* centroids, const void* coords, const void* mask,
+                            void* out_idx, void* out_in_ball, int B, int C, int N, int K,
+                            float r2, int repeat, int W, int S, cudaStream_t stream) {
+  switch (G) {
+    case 1:
+      return launch_two_level<1, Depth>(centroids, coords, mask, out_idx, out_in_ball, B, C, N, K,
+                                        r2, repeat, W, S, stream);
+    case 2:
+      return launch_two_level<2, Depth>(centroids, coords, mask, out_idx, out_in_ball, B, C, N, K,
+                                        r2, repeat, W, S, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -645,21 +830,34 @@ extern "C" int pointseg_ball_query(const void* centroids, const void* coords,
 }
 
 // As pointseg_ball_query, by the two-level selection with per-lane stacks
-// of `depth` entries: 4 or 5 in use, 1 to force refills in tests.
+// of `depth` members (4 in use, 1 to force refills in tests); any K
+// <= N. `groups` (1 or 2), `warps` and `slices` force the split as for
+// pointseg_ball_query (slices > 1 needs K <= 32); 0 lets pick_two_level
+// choose.
 extern "C" int pointseg_ball_query_2l(const void* centroids, const void* coords,
                                       const void* mask, void* out_idx, void* out_in_ball,
                                       int B, int C, int N, int K, float r2, int depth,
-                                      int repeat, int device, void* stream) {
+                                      int repeat, int groups, int warps, int slices, int device,
+                                      void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != 0) return scope.status();
+  int G, W, S;
+  pick_two_level(B, C, N, K, G, W, S);
+  G = groups ? groups : G;
+  W = warps ? warps : W;
+  S = slices ? slices : S;
+  if (W < 1 || W > kMaxFlatWarps || S < 1 || (S & (S - 1)) || W % S || W * G > kMaxFlatLists ||
+      (S > 1 && K > 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (depth) {
     case 1:
-      return launch_ball_query(ball_query_two_level_kernel<1>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, repeat, device, stream);
+      return launch_two_level_groups<1>(G, centroids, coords, mask, out_idx, out_in_ball, B,
+                                          C, N, K, r2, repeat, W, S, s);
     case 4:
-      return launch_ball_query(ball_query_two_level_kernel<4>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, repeat, device, stream);
-    case 5:
-      return launch_ball_query(ball_query_two_level_kernel<5>, centroids, coords, mask, out_idx,
-                               out_in_ball, B, C, N, K, r2, repeat, device, stream);
+      return launch_two_level_groups<4>(G, centroids, coords, mask, out_idx, out_in_ball, B,
+                                          C, N, K, r2, repeat, W, S, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

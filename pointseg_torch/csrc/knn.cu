@@ -73,17 +73,24 @@
 // Registers, occupancy and where the time goes: see the note at
 // `knn_flat_kernel`.
 //
-// Two-level selection (kernel 5) keeps one query row a warp and a
-// feature-major tile (its own helpers below): lane l owns the strided
-// columns {32 w + l}, which are exactly the candidates it scores, so
-// pass one needs no traffic between lanes: each lane keeps a sorted
-// top-`Depth` stack of its own columns in registers, and eight rows a
-// warp would need eight such stacks. Then k rounds pick the best
-// head across the warp (ties to the lowest column), pop it, and refill
-// a lane whose stack ran dry although it has columns left: the warp
-// rescans that lane's columns (N/32 of them, read from global memory)
-// for the best entry after the last one consumed in (score desc,
-// column asc) order. The result never depends on Depth, only the time.
+// Two-level selection (kernel 5) scores exactly as kernel 4 does (the
+// same register tile of kRows query rows a warp, the same cp.async
+// tiles, the same bits), with the query rows staged a 64-feature chunk at
+// a time beside the candidates, so that no shared-memory size grows with
+// F and any F is taken. Lane l scores the columns {32 i + l}, the strided
+// ownership of the Pallas design, so the first level needs no traffic
+// between lanes: per row, each lane keeps a sorted stack of its best
+// `Depth` columns in registers; a candidate that is not strictly in front
+// of a full stack's last entry costs one compare, and one vote a row and
+// tile skips the stacks of a tile that none of the 32 lanes enters. Then,
+// per row, K rounds take the first lane head across the warp (two
+// `redux.sync`: score as an ordered key, then the lowest column), write it
+// to `out` (32 rounds a store) and pop it. A lane whose stack ran dry while
+// it has columns left is refilled: the warp rescans that lane's N/32
+// columns for its best Depth behind the last consumed, summing each score
+// in the same order from the same +0, so it gets the level-1 bits. K is
+// bounded by N only; the result never depends on Depth or kRows, only
+// the time.
 
 #include <climits>
 #include <cstdint>
@@ -147,6 +154,24 @@ inline int flat_stride(int F, bool vec) {
 inline size_t flat_smem_bytes(int rows, int F, int stride) {
   return (static_cast<size_t>(rows) * F + rows + 2 * kTile +
           2 * static_cast<size_t>(kTile) * stride) * sizeof(float);
+}
+
+// Kernel 5's: one or two buffers of a 64-feature chunk of the query rows
+// (the rows' norms stay in registers), two buffers of candidate norms and
+// two candidate tiles. At most 2 x 32 x 64 + 256 + 2 x 128 x 68 floats
+// (87,040 bytes at four rows a warp), whatever F.
+inline size_t two_level_smem_bytes(int rows, int F, int stride) {
+  const int buffers = F > kChunk ? 2 : 1;
+  return (static_cast<size_t>(buffers) * rows * kChunk + 2 * kTile +
+          2 * static_cast<size_t>(kTile) * stride) * sizeof(float);
+}
+
+// Query rows a warp of kernel 5: four, or two when four leave fewer than
+// kMinBlocks blocks (a small batch or cloud), as kernel 4 chooses its
+// own. Eight measured slower: their stacks leave room for one block an SM.
+inline int two_level_rows(int B, int N) {
+  const long long blocks = static_cast<long long>(B) * ((N + kWarps * 4 - 1) / (kWarps * 4));
+  return blocks >= kMinBlocks ? 4 : 2;
 }
 
 // `bytes` (16 or 4) from global to shared memory without passing through
@@ -421,225 +446,376 @@ __global__ void knn_flat_kernel(const float* __restrict__ x, const float* __rest
   }
 }
 
-// ------------------------------------------- kernel 5's tile and score pass
-// One query row a warp, kWarps rows a block.
-
-constexpr int kStride = kTile + 1;  // padded row stride of the feature-major tile
-
-// Shared memory of one block: the tile, feature-major (F rows of kStride),
-// the candidates' squared norms, and the block's query rows.
-struct Smem {
-  float* tile;
-  float* c2;
-  float* q;
-  __device__ Smem(float* base, int F)
-      : tile(base), c2(base + F * kStride), q(base + F * kStride + kTile) {}
-};
-
-__host__ __device__ inline size_t smem_bytes(int F) {
-  return (static_cast<size_t>(F) * kStride + kTile + static_cast<size_t>(kWarps) * F) *
-         sizeof(float);
-}
-
-// Copies this warp's query row into shared memory (zeros for a warp past
-// the last row, so its arithmetic stays finite).
-__device__ __forceinline__ void stage_query(const Smem& sm, const float* cloud, int row,
-                                            bool active, int F) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int f = lane; f < F; f += 32)
-    sm.q[warp * F + f] = active ? cloud[static_cast<size_t>(row) * F + f] : 0.f;
-}
-
-// Loads candidates [base, base + n) of the cloud into the tile; ends with
-// a block-wide barrier;
-// a masked-out candidate gets |x|^2 = +inf and hence the score -inf.
-__device__ __forceinline__ void load_tile(const Smem& sm, const float* cloud,
-                                          const float* norms, const unsigned char* mask,
-                                          int base, int n, int F) {
-  __syncthreads();  // the previous tile is no longer read
-  const float* src = cloud + static_cast<size_t>(base) * F;
-  for (int t = threadIdx.x; t < n * F; t += blockDim.x) {
-    const int i = t / F, f = t - i * F;
-    sm.tile[f * kStride + i] = src[t];
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    sm.c2[i] = (mask == nullptr || mask[base + i]) ? norms[base + i] : CUDART_INF_F;
-  __syncthreads();
-}
-
-// Scores of this warp's query against tile candidates lane, lane + 32, ...
-// `self` is the query's own position in the tile when it is to be
-// excluded (any value outside [0, kTile) otherwise).
-__device__ __forceinline__ void score_tile(const Smem& sm, int F, float q2, int self,
-                                           float (&s)[kPerLane]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* q = sm.q + warp * F;
-  const float* col = sm.tile + lane;
-  float q0 = q[0];
-#pragma unroll
-  for (int c = 0; c < kPerLane; ++c) s[c] = __fmul_rn(q0, col[32 * c]);
-  for (int f = 1; f < F; ++f) {
-    const float qf = q[f];
-    const float* row = col + f * kStride;
-#pragma unroll
-    for (int c = 0; c < kPerLane; ++c) s[c] = __fadd_rn(s[c], __fmul_rn(qf, row[32 * c]));
-  }
-#pragma unroll
-  for (int c = 0; c < kPerLane; ++c) {
-    s[c] = finish_score(s[c], q2, sm.c2[lane + 32 * c]);
-    if (lane + 32 * c == self) s[c] = -CUDART_INF_F;
-  }
-}
-
 // ---------------------------------------------------------------- kernel 5
+
+// A score (never NaN here) as an unsigned key in the same order, -0 and +0
+// as one key; 0 is below every score's key and stands for "no offer".
+__device__ __forceinline__ unsigned score_key(float s) {
+  const unsigned u = __float_as_uint(s == 0.f ? 0.f : s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_score(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+}
 
 // (score desc, column asc): is (v, c) in front of (bv, bc)?
 __device__ __forceinline__ bool in_front(float v, int c, float bv, int bc) {
   return v > bv || (v == bv && c < bc);
 }
 
-__device__ __forceinline__ void warp_best(float& v, int& c) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oc = __shfl_xor_sync(kFull, c, off);
-    if (in_front(ov, oc, v, c)) {
-      v = ov;
-      c = oc;
-    }
-  }
+// The warp's first (score desc, column asc) of one (key, column) a lane:
+// two reductions, key then column among the lanes that hold the key.
+__device__ __forceinline__ int warp_first_column(unsigned key, int col, unsigned& best) {
+  best = __reduce_max_sync(kFull, key);
+  return __reduce_min_sync(kFull, key == best ? col : INT_MAX);
 }
 
-template <int Depth>
-__global__ void knn_two_level_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ norms,
-                                     const unsigned char* __restrict__ mask,
-                                     int* __restrict__ out, int N, int F, int K,
-                                     int include_self) {
-  extern __shared__ float smem_raw[];
-  const Smem sm(smem_raw, F);
+// Refills lane l's empty stack (`sv`, `sc`, written in lane l only) with
+// its best Depth columns behind (lv, lc) in (score desc, column asc)
+// order, among its columns {32 i + l}; returns how many it found (0: none
+// is left), the same in every lane. Lane t of the warp scores the columns
+// 32 (t + 32 m) + l, each product rounded and added in ascending feature
+// order from +0, as the score pass does, so that a column scores the same
+// bits here and there and "behind the last one consumed" neither skips
+// nor repeats one; it keeps its own best Depth of them, and Depth rounds
+// across the warp hand them to lane l in order. The query row goes
+// through `qw` (this warp's own 64 floats of shared memory) a chunk at a
+// time. A whole stack, not one entry: a lane that holds many of a row's
+// neighbours (the copies of a repeated point share a lane) rescans once
+// per Depth picks, not once a pick.
+template <bool kVec, int Depth>
+__device__ __forceinline__ int rescan(const float* cloud, const float* cloud_norms, float* qw,
+                                      int row, int N, int F, float q2, int self, int l, float lv,
+                                      int lc, float (&sv)[Depth], int (&sc)[Depth]) {
+  const int lane = threadIdx.x & 31;
+  const float* query = cloud + static_cast<size_t>(row) * F;
+  const int chunks = (F + kChunk - 1) / kChunk;
+  const auto stage = [&](int c) {
+    const int f0 = c * kChunk, width = min(kChunk, F - f0);
+    __syncwarp();  // the previous chunk is no longer read
+    for (int f = lane; f < width; f += 32) qw[f] = query[f0 + f];
+    __syncwarp();
+  };
+  if (chunks == 1) stage(0);
+  float tv[Depth];  // this lane's best Depth behind (lv, lc), sorted
+  int tc[Depth];
+#pragma unroll
+  for (int d = 0; d < Depth; ++d) {
+    tv[d] = -CUDART_INF_F;
+    tc[d] = INT_MAX;
+  }
+  for (int m = 0; 32 * 32 * m + l < N; ++m) {  // uniform across the warp
+    const int col = 32 * (lane + 32 * m) + l;
+    const bool valid = col < N;
+    const float* cand = cloud + static_cast<size_t>(valid ? col : 0) * F;
+    float dot = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      if (chunks > 1) stage(c);
+      const int f0 = c * kChunk, width = min(kChunk, F - f0);
+      if (!valid) continue;
+      if (kVec) {
+        for (int g = 0; g < width; g += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(cand + f0 + g);
+          dot = __fadd_rn(dot, __fmul_rn(qw[g], v.x));
+          dot = __fadd_rn(dot, __fmul_rn(qw[g + 1], v.y));
+          dot = __fadd_rn(dot, __fmul_rn(qw[g + 2], v.z));
+          dot = __fadd_rn(dot, __fmul_rn(qw[g + 3], v.w));
+        }
+      } else {
+        for (int g = 0; g < width; ++g) dot = __fadd_rn(dot, __fmul_rn(qw[g], cand[f0 + g]));
+      }
+    }
+    if (!valid) continue;
+    float v = finish_score(dot, q2, cloud_norms[col]);
+    if (col == self) v = -CUDART_INF_F;
+    const bool behind_last = lc < 0 || v < lv || (v == lv && col > lc);
+    if (!behind_last || !in_front(v, col, tv[Depth - 1], tc[Depth - 1])) continue;
+#pragma unroll
+    for (int d = Depth - 1; d >= 0; --d) {  // deepest first: each step reads old levels
+      if (d > 0 && in_front(v, col, tv[d - 1], tc[d - 1])) {
+        tv[d] = tv[d - 1];
+        tc[d] = tc[d - 1];
+      } else if (in_front(v, col, tv[d], tc[d])) {
+        tv[d] = v;
+        tc[d] = col;
+      }
+    }
+  }
+  int found = 0;
+#pragma unroll
+  for (int d = 0; d < Depth; ++d) {
+    unsigned best;
+    const int bc = warp_first_column(tc[0] == INT_MAX ? 0u : score_key(tv[0]), tc[0], best);
+    if (bc == INT_MAX) break;  // uniform across the warp
+    if (lane == l) {
+      sv[d] = key_score(best);
+      sc[d] = bc;
+    }
+    if (tc[0] == bc) {  // hand over this lane's head
+#pragma unroll
+      for (int e = 0; e + 1 < Depth; ++e) {
+        tv[e] = tv[e + 1];
+        tc[e] = tc[e + 1];
+      }
+      tv[Depth - 1] = -CUDART_INF_F;
+      tc[Depth - 1] = INT_MAX;
+    }
+    ++found;
+  }
+  return found;
+}
+
+// Registers (nvcc 12.8, sm_90a, -Xptxas -v; chip_smoke.py prints them for
+// every instance): kRows rows a warp hold kRows x 4 running sums and
+// kRows stacks of Depth (score, column) pairs, 2 x kRows x Depth
+// registers, beside kernel 4's 16 candidate and kRows query values. Two
+// blocks of 8 warps an SM allow 128: four rows take 128 at depth 4, and
+// at depth 5 (k > 20) spill 4 bytes on the 16-byte path (144 without the
+// bound). Both spill-free choices measured slower at k = 33-64: depth 4
+// (more refills) and two rows a warp at depth 5 (less reuse of a tile);
+// the spill lies off the score loop. Eight rows (166 at depth 4) would
+// leave one block an SM.
+template <bool kVec, int kRows, int Depth>
+__launch_bounds__(kWarps * 32, 2)
+__global__ void knn_two_level_kernel(const float* __restrict__ x, const float* __restrict__ norms,
+                                     int* __restrict__ out, int N, int F, int K, int include_self,
+                                     int stride) {
+  constexpr int kBlockRows = kWarps * kRows;
+  extern __shared__ float4 smem_aligned[];
+  const int chunks = (F + kChunk - 1) / kChunk;
+  // one buffer of query chunks when the rows are one chunk wide (loaded
+  // once), two (double-buffered with the tiles) otherwise
+  float* const qs = reinterpret_cast<float*>(smem_aligned);
+  float* const c2s = qs + (chunks > 1 ? 2 : 1) * kBlockRows * kChunk;
+  float* const tiles = c2s + 2 * kTile;
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  const bool active = row < N;
+  const int row0 = blockIdx.x * kBlockRows + warp * kRows;  // this warp's first query row
   const float* cloud = x + static_cast<size_t>(b) * N * F;
-  const float* cloud_norms = norms + static_cast<size_t>(b) * N;
-  const unsigned char* cloud_mask = mask ? mask + static_cast<size_t>(b) * N : nullptr;
-  const int self = include_self ? -1 : row;
+  const float* cloud_norms = norms + static_cast<size_t>(b) * N;  // +inf where masked out
 
-  stage_query(sm, cloud, row, active, F);
-  const float q2 = active ? cloud_norms[row] : 0.f;
+  // Chunk `c` of candidate tile `t` (and its norms with the first chunk)
+  // into buffer `buf`, as kernel 4 loads it; with it chunk `c` of the
+  // block's query rows, each warp's feature-major (kRows values a
+  // feature), zeros past the last row. A one-chunk query is loaded once.
+  auto load_chunk = [&](int t, int c, int buf) {
+    const int base = t * kTile, f0 = c * kChunk;
+    const int width = min(kChunk, F - f0), n = min(kTile, N - base);
+    float* dst = tiles + static_cast<size_t>(buf) * kTile * stride;
+    const int half = threadIdx.x >> 4, l16 = threadIdx.x & 15;
+    for (int i = half; i < kTile; i += 2 * kWarps) {
+      const bool valid = i < n;
+      const float* src = cloud + static_cast<size_t>(valid ? base + i : 0) * F + f0;
+      if (kVec) {
+        for (int v = 4 * l16; v < width; v += 64)
+          copy_async_16(dst + i * stride + v, src + v, valid);
+      } else {
+        for (int v = l16; v < width; v += 16) copy_async_4(dst + i * stride + v, src + v, valid);
+      }
+    }
+    if (c == 0 && threadIdx.x < kTile) {
+      const bool valid = static_cast<int>(threadIdx.x) < n;
+      copy_async_4(c2s + (t & 1) * kTile + threadIdx.x,
+                   cloud_norms + (valid ? base + threadIdx.x : 0), valid);
+    }
+    if (chunks > 1 || t == 0) {
+      float* qdst = qs + (chunks > 1 ? buf : 0) * kBlockRows * kChunk;
+      for (int e = threadIdx.x; e < kBlockRows * width; e += blockDim.x) {
+        const int rr = e / width, f = e - rr * width;  // block row, feature
+        const int row = blockIdx.x * kBlockRows + rr;
+        const bool valid = row < N;
+        copy_async_4(qdst + (rr / kRows) * kRows * kChunk + f * kRows + rr % kRows,
+                     cloud + static_cast<size_t>(valid ? row : 0) * F + f0 + f, valid);
+      }
+    }
+    copy_async_commit();
+  };
 
-  // level 1: this lane's sorted top-Depth of the columns {32 w + lane}
-  float sv[Depth];
-  int sc[Depth];
+  const int tiles_n = (N + kTile - 1) / kTile;
+  load_chunk(0, 0, 0);
+
+  // level 1: per row, this lane's top Depth of its columns {32 i + lane}
+  // by (score desc, column asc), sorted; an empty slot is (-inf, INT_MAX)
+  float sv[kRows][Depth];
+  int sc[kRows][Depth];
 #pragma unroll
-  for (int t = 0; t < Depth; ++t) {
-    sv[t] = -CUDART_INF_F;
-    sc[t] = INT_MAX;
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int d = 0; d < Depth; ++d) {
+      sv[r][d] = -CUDART_INF_F;
+      sc[r][d] = INT_MAX;
+    }
   }
-  int have = 0;  // filled stack slots
+  float q2_lane = 0.f;  // lane r < kRows: |x_row0+r|^2, summed over the first tile's chunks
 
-  for (int base = 0; base < N; base += kTile) {
-    const int n = min(kTile, N - base);
-    load_tile(sm, cloud, cloud_norms, cloud_mask, base, n, F);
-    if (!active) continue;
-    float s[kPerLane];
-    score_tile(sm, F, q2, self - base, s);
+  const bool scoring = row0 < N;  // uniform across the warp
+  int stage = 0;
+  for (int t = 0; t < tiles_n; ++t) {
+    float acc[kRows][kPerLane];
 #pragma unroll
-    for (int c = 0; c < kPerLane; ++c) {
-      const int j = 32 * c + lane;
-      if (j >= n) continue;
-      const float v = s[c];
-      // insertion chain, deepest level first so each step reads old
-      // levels; strictly greater, so an equal score stays behind the
-      // earlier (lower) column. An empty slot holds -inf, so an excluded
-      // column (-inf) never enters: the refill below finds it if needed.
-      if (have < Depth && v > sv[Depth - 1]) ++have;
+    for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-      for (int t = Depth - 1; t >= 0; --t) {
-        const int up = t > 0 ? t - 1 : 0;
-        if (t > 0 && v > sv[up]) {
-          sv[t] = sv[up];
-          sc[t] = sc[up];
-        } else if (v > sv[t]) {
-          sv[t] = v;
-          sc[t] = base + j;
+      for (int j = 0; j < kPerLane; ++j) acc[r][j] = 0.f;
+    }
+
+    for (int c = 0; c < chunks; ++c, ++stage) {
+      copy_async_wait_all();
+      __syncthreads();
+      if (c + 1 < chunks) {
+        load_chunk(t, c + 1, (stage + 1) & 1);
+      } else if (t + 1 < tiles_n) {
+        load_chunk(t + 1, 0, (stage + 1) & 1);
+      }
+      if (!scoring) continue;
+
+      const int width = min(kChunk, F - c * kChunk);
+      const float* cand = tiles + static_cast<size_t>(stage & 1) * kTile * stride + lane * stride;
+      const float* qc = qs + (chunks > 1 ? (stage & 1) : 0) * kBlockRows * kChunk +
+                        warp * kRows * kChunk;
+      if (t == 0 && lane < kRows) {  // the rows' squared norms, in feature order
+        for (int g = 0; g < width; ++g) {
+          const float v = qc[g * kRows + lane];
+          q2_lane = (c == 0 && g == 0) ? __fmul_rn(v, v) : __fadd_rn(q2_lane, __fmul_rn(v, v));
+        }
+      }
+      if (kVec) {
+        for (int g = 0; g < width; g += 4) {
+          float4 c4[kPerLane];
+#pragma unroll
+          for (int j = 0; j < kPerLane; ++j)
+            c4[j] = *reinterpret_cast<const float4*>(cand + 32 * j * stride + g);
+          const float cx[kPerLane] = {c4[0].x, c4[1].x, c4[2].x, c4[3].x};
+          const float cy[kPerLane] = {c4[0].y, c4[1].y, c4[2].y, c4[3].y};
+          const float cz[kPerLane] = {c4[0].z, c4[1].z, c4[2].z, c4[3].z};
+          const float cw[kPerLane] = {c4[0].w, c4[1].w, c4[2].w, c4[3].w};
+          add_products<kRows>(acc, qc + g * kRows, cx);
+          add_products<kRows>(acc, qc + (g + 1) * kRows, cy);
+          add_products<kRows>(acc, qc + (g + 2) * kRows, cz);
+          add_products<kRows>(acc, qc + (g + 3) * kRows, cw);
+        }
+      } else {
+        for (int g = 0; g < width; ++g) {
+          float c1[kPerLane];
+#pragma unroll
+          for (int j = 0; j < kPerLane; ++j) c1[j] = cand[32 * j * stride + g];
+          add_products<kRows>(acc, qc + g * kRows, c1);
+        }
+      }
+    }
+    if (!scoring) continue;
+
+    // the tile's scores are complete: into the lanes' stacks, row by row
+    const int base = t * kTile, n = min(kTile, N - base);
+    float c2[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) c2[j] = c2s[(t & 1) * kTile + 32 * j + lane];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const float q2 = __shfl_sync(kFull, q2_lane, r);
+      if (row >= N) continue;  // uniform across the warp
+      float s[kPerLane];
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) s[j] = finish_score(acc[r][j], q2, c2[j]);
+      const int self = row - base;  // the row's own place in the tile, if it has one
+      if (!include_self && static_cast<unsigned>(self) < kTile) {
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j)
+          if (32 * j + lane == self) s[j] = -CUDART_INF_F;
+      }
+      if (n < kTile) {  // the cloud's last tile: nothing past its end enters
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j)
+          if (32 * j + lane >= n) s[j] = -CUDART_INF_F;
+      }
+      bool beats = false;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) beats = beats || s[j] > sv[r][Depth - 1];
+      // past the first tiles few lanes take anything: one vote a row
+      if (!__any_sync(kFull, beats)) continue;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const float v = s[j];
+        // strictly in front of the last entry: a lane offers its columns in
+        // ascending order, so an equal score stays behind the earlier
+        // column, and -inf (excluded, masked, NaN) never enters
+        if (!(v > sv[r][Depth - 1])) continue;
+        const int col = base + 32 * j + lane;
+#pragma unroll
+        for (int d = Depth - 1; d >= 0; --d) {  // deepest first: each step reads old levels
+          if (d > 0 && v > sv[r][d - 1]) {
+            sv[r][d] = sv[r][d - 1];
+            sc[r][d] = sc[r][d - 1];
+          } else if (v > sv[r][d]) {
+            sv[r][d] = v;
+            sc[r][d] = col;
+          }
         }
       }
     }
   }
-  if (!active) return;
+  if (!scoring) return;
 
-  // level 2: K rounds over the lane heads
+  // level 2: per row, K rounds over the lane heads; a lane whose stack ran
+  // dry while it has columns left is refilled by a rescan. No barrier from
+  // here on; the warp's query area is its own.
+  float* const qw = qs + warp * kRows * kChunk;
   const int owned = (N - lane + 31) / 32;  // columns this lane owns
-  int taken = 0;                           // of which consumed
-  float last_v = 0.f;                      // the last one consumed
-  int last_c = -1;
-  int picked = INT_MAX;  // lane j keeps round j's column
-  const float* q = sm.q + warp * F;
-
-  for (int j = 0; j < K; ++j) {
-    unsigned dry = __ballot_sync(kFull, have == 0 && taken < owned);
-    while (dry) {
-      const int l = __ffs(dry) - 1;
-      dry &= dry - 1;
-      // the warp rescans lane l's columns for its best entry behind
-      // (last_v, last_c); lane t takes the columns 32 (t + 32 m) + l
-      const float lv = __shfl_sync(kFull, last_v, l);
-      const int lc = __shfl_sync(kFull, last_c, l);
-      float bv = -CUDART_INF_F;
-      int bc = INT_MAX;
-      for (int col = 32 * lane + l; col < N; col += 1024) {
-        const float* cand = cloud + static_cast<size_t>(col) * F;
-        float dot = __fmul_rn(q[0], cand[0]);
-        for (int f = 1; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(q[f], cand[f]));
-        float v = finish_score(dot, q2, cloud_norms[col]);
-        if (col == self || (cloud_mask != nullptr && !cloud_mask[col])) v = -CUDART_INF_F;
-        const bool behind_last = lc < 0 || v < lv || (v == lv && col > lc);
-        if (behind_last && in_front(v, col, bv, bc)) {
-          bv = v;
-          bc = col;
-        }
-      }
-      warp_best(bv, bc);
-      if (lane == l) {
-        if (bc == INT_MAX) {
-          taken = owned;  // nothing comparable is left in this lane
-        } else {
-          sv[0] = bv;
-          sc[0] = bc;
-          have = 1;
-        }
-      }
-    }
-
-    float hv = have > 0 ? sv[0] : -CUDART_INF_F;
-    int hc = have > 0 ? sc[0] : INT_MAX;
-    const bool mine_valid = have > 0;
-    const int my_col = hc;
-    warp_best(hv, hc);
-    if (lane == j) picked = hc;
-    if (mine_valid && my_col == hc) {  // pop this lane's head
-      last_v = sv[0];
-      last_c = sc[0];
 #pragma unroll
-      for (int t = 0; t + 1 < Depth; ++t) {
-        sv[t] = sv[t + 1];
-        sc[t] = sc[t + 1];
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    if (row >= N) break;  // uniform across the warp
+    const float q2 = __shfl_sync(kFull, q2_lane, r);
+    const int self = include_self ? -1 : row;
+    int have = 0;
+#pragma unroll
+    for (int d = 0; d < Depth; ++d) have += sc[r][d] != INT_MAX;
+    int taken = 0;  // of the owned columns, consumed
+    float last_v = 0.f;
+    int last_c = -1;
+    int picked = 0;  // lane j % 32 holds round j's column until the 32 are written
+    int* const dst = out + (static_cast<size_t>(b) * N + row) * K;
+    for (int j = 0; j < K; ++j) {
+      unsigned dry = __ballot_sync(kFull, have == 0 && taken < owned);
+      while (dry) {
+        const int l = __ffs(dry) - 1;
+        dry &= dry - 1;
+        const int found = rescan<kVec, Depth>(cloud, cloud_norms, qw, row, N, F, q2, self, l,
+                                              __shfl_sync(kFull, last_v, l),
+                                              __shfl_sync(kFull, last_c, l), sv[r], sc[r]);
+        if (lane == l) {
+          if (found == 0) {
+            taken = owned;  // nothing is left in this lane
+          } else {
+            have = found;
+          }
+        }
       }
-      sv[Depth - 1] = -CUDART_INF_F;
-      sc[Depth - 1] = INT_MAX;
-      --have;
-      ++taken;
+      unsigned best;
+      const int bc = warp_first_column(have > 0 ? score_key(sv[r][0]) : 0u,
+                                       have > 0 ? sc[r][0] : INT_MAX, best);
+      if (lane == (j & 31)) picked = bc;
+      if ((j & 31) == 31 || j == K - 1) {
+        if (lane <= (j & 31)) dst[(j & ~31) + lane] = picked;
+      }
+      if (have > 0 && sc[r][0] == bc) {  // pop this lane's head
+        last_v = sv[r][0];
+        last_c = sc[r][0];
+#pragma unroll
+        for (int d = 0; d + 1 < Depth; ++d) {
+          sv[r][d] = sv[r][d + 1];
+          sc[r][d] = sc[r][d + 1];
+        }
+        sv[r][Depth - 1] = -CUDART_INF_F;
+        sc[r][Depth - 1] = INT_MAX;
+        --have;
+        ++taken;
+      }
     }
   }
-
-  if (lane < K) out[(static_cast<size_t>(b) * N + row) * K + lane] = picked;
 }
 
-// `mask` null: plain squared norms (kernel 5 applies the mask itself).
 int launch_norms(const float* x, const unsigned char* mask, float* norms, int B, int N, int F,
                  cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * N;
@@ -667,19 +843,38 @@ int launch_flat(const float* x, const float* norms, int* out, int B, int N, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Kernel>
-int launch_two_level(Kernel kernel, const float* x, const float* norms,
-                     const unsigned char* mask, int* out, int B, int N, int F, int K,
+template <bool kVec, int kRows, int Depth>
+int launch_two_level(const float* x, const float* norms, int* out, int B, int N, int F, int K,
                      int include_self, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(F);
+  constexpr int kBlockRows = kWarps * kRows;
+  const int stride = flat_stride(F, kVec);
+  const size_t bytes = two_level_smem_bytes(kBlockRows, F, stride);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        knn_two_level_kernel<kVec, kRows, Depth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((N + kWarps - 1) / kWarps, B);
-  kernel<<<grid, kWarps * 32, bytes, stream>>>(x, norms, mask, out, N, F, K, include_self);
+  const dim3 grid((N + kBlockRows - 1) / kBlockRows, B);
+  knn_two_level_kernel<kVec, kRows, Depth><<<grid, kWarps * 32, bytes, stream>>>(
+      x, norms, out, N, F, K, include_self, stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows, int Depth>
+int launch_two_level_vec(bool vec, const float* x, const float* norms, int* out, int B, int N,
+                         int F, int K, int include_self, cudaStream_t stream) {
+  return vec ? launch_two_level<true, kRows, Depth>(x, norms, out, B, N, F, K, include_self, stream)
+             : launch_two_level<false, kRows, Depth>(x, norms, out, B, N, F, K, include_self,
+                                                     stream);
+}
+
+template <int Depth>
+int launch_two_level_rows(bool vec, const float* x, const float* norms, int* out, int B, int N,
+                          int F, int K, int include_self, cudaStream_t stream) {
+  return two_level_rows(B, N) == 4
+             ? launch_two_level_vec<4, Depth>(vec, x, norms, out, B, N, F, K, include_self, stream)
+             : launch_two_level_vec<2, Depth>(vec, x, norms, out, B, N, F, K, include_self, stream);
 }
 
 }  // namespace
@@ -720,8 +915,8 @@ extern "C" int pointseg_knn(const void* x, void* norms, const void* mask, void* 
 }
 
 // As pointseg_knn, by the two-level selection with per-lane stacks of
-// `depth` entries: 4 or 5 in use, 1 to force refills in tests. Needs
-// smem_bytes(F) <= 227 KB (F <= 423).
+// `depth` entries (4 or 5 in use, 1 to force refills in tests). Takes any
+// K <= N and any F >= 1: its shared memory does not grow with F.
 extern "C" int pointseg_knn_2l(const void* x, void* norms, const void* mask, void* out, int B,
                                int N, int F, int K, int include_self, int depth, int device,
                                void* stream) {
@@ -730,17 +925,17 @@ extern "C" int pointseg_knn_2l(const void* x, void* norms, const void* mask, voi
   const auto s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* nf = static_cast<float*>(norms);
-  const auto* m = static_cast<const unsigned char*>(mask);
   int* o = static_cast<int*>(out);
-  const int err = launch_norms(xf, nullptr, nf, B, N, F, s);
+  const int err = launch_norms(xf, static_cast<const unsigned char*>(mask), nf, B, N, F, s);
   if (err != 0) return err;
+  const bool vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   switch (depth) {
     case 1:
-      return launch_two_level(knn_two_level_kernel<1>, xf, nf, m, o, B, N, F, K, include_self, s);
+      return launch_two_level_rows<1>(vec, xf, nf, o, B, N, F, K, include_self, s);
     case 4:
-      return launch_two_level(knn_two_level_kernel<4>, xf, nf, m, o, B, N, F, K, include_self, s);
+      return launch_two_level_rows<4>(vec, xf, nf, o, B, N, F, K, include_self, s);
     case 5:
-      return launch_two_level(knn_two_level_kernel<5>, xf, nf, m, o, B, N, F, K, include_self, s);
+      return launch_two_level_rows<5>(vec, xf, nf, o, B, N, F, K, include_self, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

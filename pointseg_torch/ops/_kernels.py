@@ -75,8 +75,10 @@ _SIGNATURES = {  # every entry point ends with (device index, stream)
     # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, repeat,
     # groups, warps, slices
     "pointseg_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
-    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth, repeat
-    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # centroids, coords, mask, out_idx, out_in_ball, B, C, N, K, r2, depth, repeat,
+    # groups, warps, slices
+    "pointseg_ball_query_2l": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                               _P),
     # tgt, src, src_mask, out_d, out_i, B, N, M, targets, warps
     "pointseg_three_nn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, norms_scratch, mask, out, B, N, F, K, include_self

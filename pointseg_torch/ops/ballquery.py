@@ -11,9 +11,11 @@ here it is the `filler` argument.
 On a CUDA tensor the selection is one launch of `csrc/ballquery.cu`: the
 flat kernel (`select="flat"`, the default) or the two-level kernel
 (`select="two_level"`, the counterpart of the JAX package's
-`use_select2l` setting; here a function argument), at every shape and
-with or without a mask. On a CPU tensor the plain PyTorch version below
-runs for both. All return the same raw (idx, in_ball); `ball_query` with
+`use_select2l` setting; here a function argument), with or without a
+mask. The flat kernel keeps one slot a warp lane (K <= `MAX_K`);
+`select="flat"` with a larger K runs the two-level kernel, which takes
+any K <= N (the launch counters show which ran). On a CPU tensor the
+plain PyTorch version below runs for both. All return the same raw (idx, in_ball); `ball_query` with
 the repeat filler has the kernel write it (still one launch), or applies
 it with `torch.where` on the CPU.
 """
@@ -24,10 +26,15 @@ import numpy as np
 import torch
 
 from pointseg_torch.ops import _kernels
-from pointseg_torch.ops.knn import SELECTS, default_depth
+from pointseg_torch.ops.knn import SELECTS
 
 FILLERS = ("repeat", "index")
-MAX_K = 32  # the kernels keep one output slot per warp lane
+MAX_K = 32  # the flat kernel keeps one slot per warp lane; the two-level one any K
+# The two-level kernel's per-lane stack depth at every K: at five its two
+# balls a warp spill registers at two blocks an SM (`csrc/ballquery.cu`),
+# and four measured as fast. The result never depends on it; depth 1 (a
+# refill after every pick) is built for tests.
+TWO_LEVEL_DEPTH = 4
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -104,7 +111,7 @@ def _select(centroids, coords, radius, K, mask, select, repeat: bool):
         raise ValueError(f"ball query needs 1 <= K <= N, got K={K}, N={N}")
     if _kernels.on_cuda(coords):
         return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask, select,
-                                default_depth(K), repeat)
+                                TWO_LEVEL_DEPTH, repeat)
     if mask is not None:
         mask = mask.to(device=coords.device, dtype=torch.bool)
     idx, in_ball = ball_query_plain(centroids.detach().to(torch.float32),
@@ -142,18 +149,18 @@ def ball_query_plain(
 
 def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth, repeat=False,
                      config=(0, 0, 0)):
-    """One launch of the flat or the two-level kernel, which writes the
-    repeat filler itself when `repeat`. `depth` is the two-level kernel's
-    stack depth (4 or 5; 1 forces its refills); `config` forces the flat
-    kernel's (centroids a warp, warps a block, warps a centroid), (0, 0,
-    0) lets it choose. A call at the training shapes is host time beside
-    a kernel of microseconds, so nothing is done twice: f32 contiguous
-    inputs and a contiguous bool mask pass as they are, each is checked
-    once, and the outputs come from `new_empty`."""
-    if K > MAX_K:
-        raise ValueError(f"the CUDA ball query takes K <= {MAX_K}, got {K}")
-    if depth not in (1, 4, 5):
-        raise ValueError(f"the two-level ball query is built for depth 1, 4 and 5, got {depth}")
+    """One launch of the flat or the two-level kernel (the two-level one
+    also for `select="flat"` where K > MAX_K), which writes the repeat
+    filler itself when `repeat`. `depth` is the two-level kernel's stack
+    depth (`TWO_LEVEL_DEPTH`; 1 forces its refills); `config` forces the kernel's
+    (centroids a warp, warps a block, warps a centroid), (0, 0, 0) lets it
+    choose. A call at the training shapes is host time beside a kernel of
+    microseconds, so nothing is done twice: f32 contiguous inputs and a
+    contiguous bool mask pass as they are, each is checked once, and the
+    outputs come from `new_empty`."""
+    if depth not in (1, TWO_LEVEL_DEPTH):
+        raise ValueError(f"the two-level ball query is built for depth 1 and {TWO_LEVEL_DEPTH}, "
+                         f"got {depth}")
     if centroids.dtype != torch.float32 or not centroids.is_contiguous():
         centroids = centroids.to(torch.float32).contiguous()
     if coords.dtype != torch.float32 or not coords.is_contiguous():
@@ -177,12 +184,12 @@ def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth, repeat=False
         return idx, in_ball
     args = (centroids.data_ptr(), coords.data_ptr(), _kernels.ptr(mask), idx.data_ptr(),
             in_ball.data_ptr(), B, C, N, K, r2)
-    if select == "flat":
+    if select == "flat" and K <= MAX_K:
         _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args, repeat,
                         *config)
     else:
         _kernels.launch("ball_query_2l", "pointseg_ball_query_2l", coords.device, *args, depth,
-                        repeat)
+                        repeat, *config)
     return idx, in_ball
 
 
@@ -205,7 +212,8 @@ def ball_query(
         K: neighbours per ball.
         mask: optional (B, N) bool; False points are never members.
         filler: 'repeat' or 'index' (module docstring).
-        select: 'flat' or 'two_level', the CUDA kernel to launch.
+        select: 'flat' or 'two_level', the CUDA kernel to launch
+            ('flat' with K > `MAX_K` runs the two-level kernel).
 
     Returns:
         idx: (B, C, K) int32 indices into N.

@@ -15,7 +15,11 @@ register tile, 16-byte loads when F is a multiple of 4) or the two-level kernel
 (`select="two_level"`, the counterpart of the JAX package's
 `use_select2l` setting; here a function argument). Both give the same
 indices, and both take `mask` and `include_self` themselves (the JAX
-package sends those two to its oracle). The plain PyTorch version below
+package sends those two to its oracle). The flat kernel keeps one list
+slot a warp lane and stages a block's query rows whole, so it takes k <=
+`MAX_K` and F <= `MAX_F`; `select="flat"` runs the two-level kernel,
+which takes any k <= N and any F, for the shapes past either limit. The
+launch counters show which kernel ran. The plain PyTorch version below
 runs on a CPU tensor only.
 """
 
@@ -28,20 +32,19 @@ from pointseg_torch.ops.gather import gather_rows
 
 SELECTS = ("flat", "two_level")
 MAX_K = 32  # the flat kernel keeps one list slot per warp lane
-# Shared memory of a block (227 KB on an H100). The flat kernel streams the
-# features in chunks of 64, so only its 64 query rows grow with F: it would
-# take F <= 631. The two-level kernel holds a whole feature-major tile of
-# 128 candidates (129 F + 8 F floats): F <= 423. One limit for both, with
-# room to spare:
-MAX_F = 384
+# The flat kernel holds a block's 64 query rows whole in shared memory
+# (227 KB a block on an H100), beside two 128-candidate tiles of 64
+# features: F <= 631 fits, and MAX_F keeps room to spare. The two-level
+# kernel stages the query rows 64 features at a time and takes any F.
+MAX_F = 512
 PLAIN_BLOCK_BYTES = 64 << 20  # size of one (B, rows, N) score block
 
 
 def default_depth(k: int) -> int:
-    """Per-lane stack depth of the two-level kernels (kNN and ball
-    query) at which refills are rare (as
-    `pointseg/ops/pallas/select2l.py::default_depth` from k = 4 up; below,
-    the deeper stack costs nothing here). The result never depends on it."""
+    """Per-lane stack depth of the two-level kNN kernel at which refills
+    are rare (as `pointseg/ops/pallas/select2l.py::default_depth` from k =
+    4 up; below, the deeper stack costs nothing here). The result never
+    depends on it; depth 1 (a refill after every pick) is built for tests."""
     return 4 if k <= 20 else 5
 
 
@@ -59,7 +62,7 @@ def knn_indices(
         x: (B, N, F) point features, channels-last. A NaN score (a
             diverged activation) ranks last, like an excluded point, so
             every index returned lies in [0, N).
-        k: neighbours per point, 1 <= k <= N (and <= 32 on a CUDA tensor).
+        k: neighbours per point, 1 <= k <= N.
         mask: optional (B, N) bool; False points are never neighbours
             while a row has k others to take; with fewer, the excluded
             points fill the tail of its list in index order. (The lists
@@ -67,7 +70,8 @@ def knn_indices(
             downstream.)
         include_self: keep the point itself in its neighbourhood (the
             reference's semantics).
-        select: 'flat' or 'two_level', the CUDA kernel to launch.
+        select: 'flat' or 'two_level', the CUDA kernel to launch
+            ('flat' past `MAX_K` or `MAX_F` runs the two-level kernel).
 
     Returns:
         (B, N, k) int32 neighbour indices. Selection carries no gradient.
@@ -142,13 +146,12 @@ def knn_indices_plain(
 
 def _knn_cuda(x: torch.Tensor, k: int, select: str, depth: int, *,
               mask: torch.Tensor | None = None, include_self: bool = True) -> torch.Tensor:
-    """One launch of the flat or the two-level kernel; `depth` is the
+    """One launch of the flat or the two-level kernel; the two-level one
+    also for `select="flat"` where k > MAX_K or F > MAX_F. `depth` is the
     two-level kernel's stack depth (4 or 5; 1 forces its refills)."""
     B, N, F = x.shape
-    if k > MAX_K:
-        raise ValueError(f"the CUDA kNN kernels take k <= {MAX_K}, got {k}")
-    if not 1 <= F <= MAX_F:
-        raise ValueError(f"the CUDA kNN kernels take 1 <= F <= {MAX_F}, got {F}")
+    if F < 1:
+        raise ValueError(f"the kNN kernels need F >= 1 features, got {F}")
     if depth not in (1, 4, 5):
         raise ValueError(f"the two-level kNN kernel is built for depth 1, 4 and 5, got {depth}")
     _kernels.check(x, "x", torch.float32, (B, N, F))
@@ -159,7 +162,7 @@ def _knn_cuda(x: torch.Tensor, k: int, select: str, depth: int, *,
     if B == 0:
         return out
     norms = torch.empty((B, N), dtype=torch.float32, device=x.device)  # the kernels' scratch
-    if select == "flat":
+    if select == "flat" and k <= MAX_K and F <= MAX_F:
         _kernels.launch("knn", "pointseg_knn", x.device, _kernels.ptr(x),
                         _kernels.ptr(norms), _kernels.ptr(mask), _kernels.ptr(out),
                         B, N, F, k, int(include_self))

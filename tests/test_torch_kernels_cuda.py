@@ -19,6 +19,7 @@ import torch
 from pointseg_torch.models import create_model
 from pointseg_torch.ops import _kernels
 from pointseg_torch.ops.ballquery import (
+    TWO_LEVEL_DEPTH,
     _ball_query_cuda,
     _radius_sq,
     ball_query,
@@ -211,7 +212,7 @@ def _assert_ball_query_2l(cents, pts, r, K, depth=None, mask=None):
     return in_ball
 
 
-@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("depth", [1, TWO_LEVEL_DEPTH])
 @pytest.mark.parametrize("N,r,K", [(N, r, K) for N, r in ((16, 0.8), (64, 0.8), (100, 0.3),
                                                           (4096, 0.1))
                                    for K in (1, 16, 32) if K <= N])
@@ -238,7 +239,7 @@ def test_ball_query_two_level_kernel_at_the_models_shapes(device, B, C, N, r, K)
     _assert_ball_query_2l(pts[:, :C].contiguous(), pts, r, K)
 
 
-@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("depth", [1, TWO_LEVEL_DEPTH])
 def test_ball_query_two_level_kernel_mask_and_empty_balls(device, depth):
     """Masked points are never members and still fill in index order; a
     fully masked cloud and a radius of 0 around centroids off the cloud
@@ -684,6 +685,158 @@ def test_knn_kernels_stay_in_bounds_on_nan_rows(device, select):
     gathered = gather_rows(x, got)
     torch.cuda.synchronize()
     assert gathered.shape == (2, 500, 20, 8)
+
+
+# ------------------------------------------ the two-level kernels (5 and 6)
+# at the shapes the flat kernels refuse (k or K > 32, F > MAX_F), where
+# `select="flat"` runs them, at every split and at depth 1
+
+
+@pytest.mark.parametrize("k", [33, 48, 64])
+@pytest.mark.parametrize("options", ["plain", "mask", "no_self", "mask_no_self"])
+def test_knn_past_32_neighbours_runs_the_two_level_kernel(device, k, options):
+    """DGCNN's (8, 4096, 64) with k > 32: `select="flat"` launches the
+    two-level kernel, equal to the plain version slot for slot; the tail
+    repeats the head (exact ties)."""
+    x = _features(50, 8, 4096, 64, device, dup_from=3072)
+    kwargs = {}
+    if "mask" in options:
+        kwargs["mask"] = torch.rand((8, 4096), generator=torch.Generator().manual_seed(51)).to(
+            device) < 0.8
+    if "no_self" in options:
+        kwargs["include_self"] = False
+    want = knn_indices_plain(x, k, **kwargs)
+    for select in ("flat", "two_level"):
+        before = dict(_kernels.LAUNCHES)
+        got = knn_indices(x, k, select=select, **kwargs)
+        assert _kernels.LAUNCHES["knn_2l"] == before["knn_2l"] + 1
+        assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F", [513, 640, 1024])
+def test_knn_past_max_f_runs_the_two_level_kernel(device, F):
+    """Rows wider than the flat kernel stages (F > MAX_F, on the 4-byte and
+    the 16-byte path), with and without the mask and the point itself."""
+    x = _features(52, 2, 4096, F, device, dup_from=3500)
+    mask = torch.rand((2, 4096), generator=torch.Generator().manual_seed(53)).to(device) < 0.7
+    for kwargs in ({}, {"mask": mask, "include_self": False}):
+        want = knn_indices_plain(x, 20, **kwargs)
+        before = dict(_kernels.LAUNCHES)
+        got = knn_indices(x, 20, **kwargs)
+        assert _kernels.LAUNCHES["knn_2l"] == before["knn_2l"] + 1
+        assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_knn_flat_kernel_takes_max_f(device):
+    x = _features(54, 2, 700, 512, device, dup_from=600)
+    before = _kernels.LAUNCHES["knn"]
+    torch.testing.assert_close(knn_indices(x, 20), knn_indices_plain(x, 20), rtol=0, atol=0)
+    assert _kernels.LAUNCHES["knn"] == before + 1
+
+
+@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("B,N,F,k", [
+    # four query rows a warp (256 blocks or more)
+    (8, 4096, 64, 20), (8, 4096, 3, 20), (2, 4099, 67, 40), (3, 2800, 128, 33),
+    (4, 2100, 130, 64),
+    # two (a batch or cloud too small for 256 blocks of four)
+    (2, 1100, 67, 40), (1, 37, 64, 37), (3, 700, 130, 64), (2, 300, 9, 7), (1, 4096, 64, 20)])
+def test_two_level_knn_at_both_row_counts_and_every_depth(device, depth, B, N, F, k):
+    """At four and at two query rows a warp and at every stack depth (1: a
+    rescan after every pick), the plain version's lists, with and without
+    the mask and the point itself; and the flat kernel's where it runs."""
+    x = _features(55, B, N, F, device, dup_from=N - N // 4)
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(56)).to(device) < 0.8
+    mask[0, 10:] = False  # a cloud with fewer than k points left
+    for kwargs in ({}, {"mask": mask}, {"include_self": False},
+                   {"mask": mask, "include_self": False}):
+        want = knn_indices_plain(x, k, **kwargs)
+        got = _knn_cuda(x, k, "two_level", depth, **kwargs)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if k <= 32:
+            torch.testing.assert_close(knn_indices(x, k, **kwargs), got, rtol=0, atol=0)
+
+
+def test_two_level_knn_refuses_a_depth_it_is_not_built_for(device):
+    x = _features(57, 1, 100, 8, device)
+    with pytest.raises(ValueError, match="depth"):
+        _knn_cuda(x, 8, "two_level", 3)
+
+
+# (B, C, N, r, K): SA1 and an evaluation bucket with K past the flat
+# kernel's 32, a ragged cloud, and balls of fewer and of more than K members
+BALL_WIDE_K = [(8, 1024, 4096, 0.1, 48), (8, 1024, 4096, 0.1, 64), (2, 1024, 16384, 0.1, 48),
+               (2, 1024, 16384, 0.1, 64), (3, 300, 1000, 0.3, 100), (2, 64, 700, 0.5, 33)]
+
+
+@pytest.mark.parametrize("depth", [None, 1])
+@pytest.mark.parametrize("B,C,N,r,K", BALL_WIDE_K)
+def test_ball_query_past_32_runs_the_two_level_kernel(device, depth, B, C, N, r, K):
+    """`select="flat"` with K > 32 launches the two-level kernel, equal to
+    the plain version raw and with the repeat filler, with and without a
+    mask; at depth 1 every pick past a lane's first rescans it."""
+    pts = _cloud(58, B, N, device, dup_from=N - N // 8)
+    cents = pts[:, :C].contiguous()
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(59)).to(device) > 0.2
+    for m in (None, mask):
+        want_idx, want_in = ball_query_plain(cents, pts, r, K, mask=m)
+        for repeat in (False, True):
+            before = dict(_kernels.LAUNCHES)
+            if depth is None:
+                idx, in_ball = ball_query(cents, pts, r, K, mask=m,
+                                          filler="repeat" if repeat else "index")
+            else:
+                idx, in_ball = _ball_query_cuda(cents, pts, _radius_sq(r), K, m, "flat", depth,
+                                                repeat)
+            assert _kernels.LAUNCHES["ball_query_2l"] == before["ball_query_2l"] + 1
+            assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+            want = torch.where(want_in, want_idx, want_idx[..., :1]) if repeat else want_idx
+            torch.testing.assert_close(idx, want, rtol=0, atol=0)
+            torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+    assert bool(in_ball.any()) and not bool(in_ball.all())
+
+
+TWO_LEVEL_SPLITS = [(1, 1, 1), (1, 4, 4), (2, 8, 2), (2, 8, 1), (2, 16, 1), (2, 8, 4),
+                    (1, 16, 16), (2, 16, 16), (2, 2, 2), (1, 8, 1)]
+
+
+# (B, C, N, r, K) at every split; warps a centroid need K <= 32
+TWO_LEVEL_SPLIT_CASES = [
+    (split, shape) for split in TWO_LEVEL_SPLITS
+    for shape in [(2, 300, 4099, 0.1, 32), (3, 37, 700, 0.5, 7), (1, 64, 65536, 0.8, 32),
+                  (2, 9, 40, 0.3, 32), (2, 100, 3000, 0.3, 48)]
+    if split[2] == 1 or shape[4] <= 32]
+
+
+@pytest.mark.parametrize("depth", [1, TWO_LEVEL_DEPTH])
+@pytest.mark.parametrize("split,shape", TWO_LEVEL_SPLIT_CASES)
+def test_ball_query_two_level_kernel_at_every_split(device, depth, split, shape):
+    """Whatever the centroids a warp, warps a block, warps a centroid and
+    stack depth (forced), the plain version's result, raw and with the
+    repeat filler, with and without a mask: C and N no multiple of the
+    block's or the tile's, dense balls, K past 32."""
+    B, C, N, r, K = shape
+    pts = _cloud(60, B, N, device, dup_from=N - N // 4)
+    cents = pts[:, :C].contiguous()
+    mask = torch.rand((B, N), generator=torch.Generator().manual_seed(61)).to(device) > 0.2
+    for m in (None, mask):
+        want_idx, want_in = ball_query_plain(cents, pts, r, K, mask=m)
+        for repeat in (False, True):
+            idx, in_ball = _ball_query_cuda(cents, pts, _radius_sq(r), K, m, "two_level", depth,
+                                            repeat, split)
+            want = torch.where(want_in, want_idx, want_idx[..., :1]) if repeat else want_idx
+            torch.testing.assert_close(idx, want, rtol=0, atol=0)
+            torch.testing.assert_close(in_ball, want_in, rtol=0, atol=0)
+
+
+def test_ball_query_two_level_kernel_refuses_a_split_it_is_not_built_for(device):
+    pts = _cloud(62, 1, 100, device)
+    for config, K in (((3, 8, 1), 8), ((4, 8, 1), 8), ((8, 8, 1), 8), ((1, 8, 3), 8),
+                      ((1, 6, 4), 8), ((1, 32, 1), 8), ((1, 8, 2), 33)):
+        with pytest.raises(torch.cuda.CudaError):
+            _ball_query_cuda(pts, pts, 0.01, K, None, "two_level", 4, False, config)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])

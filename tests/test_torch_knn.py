@@ -13,6 +13,8 @@ have the same float64 distance, and the explicit test below demands
 index equality there.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from pointseg.ops.pallas.knn import knn_indices_pallas, knn_indices_pallas_2l
 from pointseg_torch import ops as tops
 from pointseg_torch.ops import _kernels
 from pointseg_torch.ops.gather import gather_rows_plain
+from pointseg_torch.ops.ballquery import TWO_LEVEL_DEPTH
 from pointseg_torch.ops.knn import default_depth, knn_indices_plain
 
 torch.set_num_threads(2)
@@ -137,18 +140,19 @@ def test_knn_tile_edge_shapes_equal_the_pallas_kernels_in_interpret_mode(B, N, F
 
 
 def test_knn_cuda_limits_are_the_kernels():
-    """`MAX_F` and `MAX_K` are what `csrc/knn.cu` can take: one list slot a
-    lane, and the two-level kernel's whole-F tile within a block's shared
-    memory (the flat kernel, which streams 64 features at a time, takes
-    more)."""
+    """`MAX_K` and `MAX_F` are what the flat kernel of `csrc/knn.cu` can
+    take: one list slot a lane, and a block's 64 query rows held whole in
+    shared memory beside two 128-candidate tiles. Past them `select="flat"`
+    runs the two-level kernel, which stages the query rows 64 features at
+    a time: its shared memory does not grow with F, so it takes any F."""
     from pointseg_torch.ops import knn as knn_module
 
     shared = 227 * 1024
-    two_level = lambda F: 4 * (F * 129 + 128 + 8 * F)  # noqa: E731
     flat = lambda F: 4 * (64 * F + 64 + 2 * 128 + 2 * 128 * 68)  # noqa: E731
+    two_level = lambda F: 4 * ((2 if F > 64 else 1) * 32 * 64 + 2 * 128 + 2 * 128 * 68)  # noqa
     assert knn_module.MAX_K == 32
-    assert two_level(knn_module.MAX_F) <= shared and flat(knn_module.MAX_F) <= shared
-    assert two_level(424) > shared and flat(631) <= shared < flat(632)
+    assert flat(knn_module.MAX_F) <= shared and flat(631) <= shared < flat(632)
+    assert two_level(10**6) == two_level(65) <= shared // 2
 
 
 def test_knn_repeated_points_resolve_to_the_lowest_index():
@@ -263,3 +267,168 @@ def test_gather_rows_refuses_an_index_out_of_range_on_the_cpu():
         tops.gather_rows(table, torch.tensor([[4]]))
     assert tops.gather_neighbors(table, torch.zeros((1, 4, 3), dtype=torch.int32)).shape == (
         1, 4, 3, 2)
+
+
+# ------------------------------------- a model of the two-level kernel's rules
+#
+# numpy model of how `knn_two_level_kernel` orders its picks, on the same
+# clouds as the plain version, the JAX oracle and the Pallas two-level
+# kernel: lane l of a warp owns the columns {32 i + l} (four of each
+# 128-wide tile), offered in ascending order; a sorted stack of `depth`
+# (score, column) a lane, entered only strictly in front of its last entry
+# (-inf never enters); k rounds take the first head by (score desc, column
+# asc) and pop it; a lane whose stack ran dry while it owns columns not yet
+# consumed is refilled with its best `depth` columns behind the last one
+# consumed.
+
+
+def _two_level_knn_model(x, k, depth, mask=None, include_self=True):
+    """(B, N, k) int32 as the two-level kernel picks them; the scores are the
+    plain version's bits, -inf where masked, excluded or NaN."""
+    from pointseg_torch.ops.knn import _scores, _sqnorm
+
+    xt = torch.from_numpy(x)
+    x2 = _sqnorm(xt)
+    s = _scores(xt, x2, xt, x2).numpy()
+    B, N, _ = x.shape
+    s = np.where(np.isnan(s), np.float32(-np.inf), s)
+    if mask is not None:
+        s = np.where(mask[:, None, :], s, np.float32(-np.inf))
+    if not include_self:
+        s[:, np.arange(N), np.arange(N)] = -np.inf
+    out = np.zeros((B, N, k), np.int32)
+    front = lambda a, b: a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])  # noqa: E731
+    for b in range(B):
+        for row in range(N):
+            v = s[b, row].tolist()
+            stacks = []
+            for lane in range(32):
+                stack = []
+                for tile in range(0, N, 128):
+                    for col in range(tile + lane, min(tile + 128, N), 32):
+                        if len(stack) == depth and not v[col] > stack[-1][0]:
+                            continue
+                        if v[col] == -math.inf:
+                            continue
+                        at = next((i for i, e in enumerate(stack) if v[col] > e[0]), len(stack))
+                        stack = (stack[:at] + [(v[col], col)] + stack[at:])[:depth]
+                stacks.append(stack)
+            owned = [len(range(lane, N, 32)) for lane in range(32)]
+            taken, last = [0] * 32, [None] * 32
+            for j in range(k):
+                for lane in range(32):
+                    if stacks[lane] or taken[lane] >= owned[lane]:
+                        continue
+                    behind = [(v[c], c) for c in range(lane, N, 32)
+                              if last[lane] is None or front(last[lane], (v[c], c))]
+                    if behind:  # its best `depth` behind the last consumed
+                        stacks[lane] = sorted(behind, key=lambda e: (-e[0], e[1]))[:depth]
+                    else:
+                        taken[lane] = owned[lane]
+                heads = [(st[0], lane) for lane, st in enumerate(stacks) if st]
+                (hv, hc), lane = heads[0]
+                for (ev, ec), el in heads[1:]:
+                    if front((ev, ec), (hv, hc)):
+                        (hv, hc), lane = (ev, ec), el
+                out[b, row, j] = hc
+                last[lane] = stacks[lane].pop(0)
+                taken[lane] += 1
+    return out
+
+
+def _grid_cloud(seed, B, N, F):
+    """Features on a 1/8 grid, the last quarter repeating the first: every
+    product and sum is exact in float32 whatever its order, so all exact
+    ties, and the JAX oracle and the Pallas kernel give the same bits."""
+    x = (np.round(np.random.default_rng(seed).normal(size=(B, N, F)) * 8) / 8).astype(np.float32)
+    x[:, N - N // 4:] = x[:, : N // 4]
+    return x
+
+
+@pytest.mark.parametrize("k", [6, 20, 40])
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("options", ["plain", "mask", "no_self", "mask_no_self"])
+def test_two_level_knn_model_matches_plain_jax_and_pallas_2l(k, deep, options):
+    """Depth 1 (a rescan after every pick) and the kernel's depth, with and
+    without the mask and the point itself, k below and past 32."""
+    x = _grid_cloud(70, 2, 256, 4)
+    depth = default_depth(k) if deep else 1
+    mask = np.random.default_rng(71).random((2, 256)) > 0.3
+    mask[1, 20:] = False  # a cloud with fewer than k points left
+    kw_j, kw_t, kw_m = {}, {}, {}
+    if "mask" in options:
+        kw_j["mask"], kw_t["mask"], kw_m["mask"] = jnp.asarray(mask), torch.from_numpy(mask), mask
+    if "no_self" in options:
+        kw_j["include_self"] = kw_t["include_self"] = kw_m["include_self"] = False
+    got = _two_level_knn_model(x, k, depth, **kw_m)
+    np.testing.assert_array_equal(got, knn_indices_plain(torch.from_numpy(x), k, **kw_t).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jops.knn_indices(jnp.asarray(x), k, **kw_j)))
+    if options == "plain":
+        with pltpu.force_tpu_interpret_mode():
+            pallas = knn_indices_pallas_2l(jnp.asarray(x), k, tile=128, seg=128)
+        np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("B,N,F,k", [(2, 256, 8, 33), (2, 256, 8, 64), (2, 128, 640, 20),
+                                     (1, 96, 700, 40)])
+def test_knn_past_the_flat_kernels_limits_matches_jax(B, N, F, k):
+    """The shapes the CUDA path sends to the two-level kernel (k > 32, F >
+    MAX_F): the plain version (both selects on the CPU) equal to the JAX
+    oracle, on grid clouds, whose scores are exact in any order."""
+    x = _grid_cloud(72, B, N, F)
+    want = np.asarray(jops.knn_indices(jnp.asarray(x), k))
+    for select in ("flat", "two_level"):
+        got = tops.knn_indices(torch.from_numpy(x), k, select=select).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+class _Launches:
+    """Stands in for `_kernels.launch` and `_kernels.check` on the CPU: the
+    calls a CUDA tensor would make, recorded, no kernel run."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(_kernels, "launch", lambda kernel, symbol, device, *args:
+                            self.calls.append((kernel, symbol)))
+        monkeypatch.setattr(_kernels, "check", lambda *args: None)
+
+
+@pytest.mark.parametrize("k,F,want", [(20, 64, "pointseg_knn"), (32, 512, "pointseg_knn"),
+                                      (40, 64, "pointseg_knn_2l"), (20, 700, "pointseg_knn_2l"),
+                                      (64, 1024, "pointseg_knn_2l")])
+def test_knn_flat_select_routes_past_its_limits_to_the_two_level_kernel(monkeypatch, k, F, want):
+    from pointseg_torch.ops.knn import _knn_cuda
+
+    launches = _Launches(monkeypatch)
+    x = torch.zeros((1, 64, F))
+    _knn_cuda(x, k, "flat", default_depth(k))
+    _knn_cuda(x, k, "two_level", default_depth(k))
+    assert launches.calls == [(want.replace("pointseg_", ""), want), ("knn_2l", "pointseg_knn_2l")]
+
+
+@pytest.mark.parametrize("select", ["flat", "two_level"])
+def test_knn_cuda_refuses_rows_of_no_feature_and_depths_it_lacks(monkeypatch, select):
+    """F = 0 (no shape the JAX function takes) and a stack depth the
+    two-level kernel is not built for raise before any launch."""
+    from pointseg_torch.ops.knn import _knn_cuda
+
+    launches = _Launches(monkeypatch)
+    with pytest.raises(ValueError, match="F >= 1"):
+        _knn_cuda(torch.zeros((1, 64, 0)), 4, select, default_depth(4))
+    with pytest.raises(ValueError, match="depth"):
+        _knn_cuda(torch.zeros((1, 64, 3)), 4, select, 3)
+    assert launches.calls == []
+
+
+@pytest.mark.parametrize("K,want", [(16, "pointseg_ball_query"), (32, "pointseg_ball_query"),
+                                    (33, "pointseg_ball_query_2l"), (48, "pointseg_ball_query_2l")])
+def test_ball_query_flat_select_routes_past_32_to_the_two_level_kernel(monkeypatch, K, want):
+    from pointseg_torch.ops.ballquery import _ball_query_cuda
+
+    launches = _Launches(monkeypatch)
+    pts = torch.zeros((1, 64, 3))
+    for repeat in (False, True):
+        _ball_query_cuda(pts, pts, 0.01, K, None, "flat", TWO_LEVEL_DEPTH, repeat)
+    _ball_query_cuda(pts, pts, 0.01, K, None, "two_level", TWO_LEVEL_DEPTH)
+    assert launches.calls == [(want.replace("pointseg_", ""), want)] * 2 + [
+        ("ball_query_2l", "pointseg_ball_query_2l")]

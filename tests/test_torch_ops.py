@@ -32,6 +32,7 @@ from pointseg.ops.pallas import (
 from pointseg.ops.pallas.ballquery import ball_query_pallas_2l
 from pointseg_torch import ops as tops
 from pointseg_torch.ops.gather import gather_rows_plain
+from pointseg_torch.ops.ballquery import TWO_LEVEL_DEPTH
 
 torch.set_num_threads(2)
 
@@ -532,6 +533,154 @@ def test_ball_query_fillers_match_jax_and_pallas_on_edge_clouds(case, filler):
         p_idx = np.where(p_in, p_idx, p_idx[..., :1])
     np.testing.assert_array_equal(idx.numpy(), p_idx)
     np.testing.assert_array_equal(in_ball.numpy(), p_in)
+
+
+# The two-level ball query (kernel 6): the flat kernel's scan, S warps a
+# ball each owning every S-th 32-point chunk, lane l of a warp the columns
+# 32 k + l of its chunks, offered in ascending order. A lane keeps a sorted
+# stack of `depth` members by (d², index); a member enters while its raw d²
+# <= lim, r² until the stack is full, then just below the stack's last
+# entry. Rounds take the first head and pop it, a dry lane whose stack had
+# filled refilled with its first member behind the last consumed, until K
+# are out or no lane offers one. One warp a ball writes the rounds and
+# counts the fillers (the j-th lowest index outside the ball); S warps each
+# list their first K and merge as the flat kernel's do.
+
+
+def _two_level_ball_model(raw, K, r2, S, depth):
+    """One ball: (idx (K,), in_ball (K,)) as the two-level kernel picks them."""
+    N = raw.shape[0]
+    with np.errstate(invalid="ignore"):
+        member = raw <= r2
+    d = np.where(raw > 0, raw, np.float32(0))
+    key = lambda j: (float(d[j]), int(j))  # noqa: E731
+    lists, total = [], 0
+    for s in range(S):
+        stacks, fulls = [], []
+        for lane in range(32):
+            cols = [32 * k + lane for k in range(s, (N + 31) // 32, S) if 32 * k + lane < N]
+            stack, lim = [], r2
+            for j in cols:
+                if not raw[j] <= lim:
+                    continue
+                stack = sorted(stack + [key(j)])[:depth]
+                if len(stack) == depth:
+                    tail = np.float32(stack[-1][0])
+                    lim = np.nextafter(tail, np.float32(-np.inf)) if tail > 0 else -np.inf
+            stacks.append((stack, cols))
+            fulls.append(len(stack) == depth)
+        picks, last = [], [None] * 32
+        while len(picks) < K:
+            for lane, (stack, cols) in enumerate(stacks):
+                if stack or not fulls[lane]:
+                    continue
+                behind = sorted(key(j) for j in cols if member[j] and key(j) > last[lane])
+                if behind:
+                    stack.append(behind[0])
+                else:
+                    fulls[lane] = False
+            heads = [(stack[0], lane) for lane, (stack, _) in enumerate(stacks) if stack]
+            if not heads:
+                break
+            head, lane = min(heads)
+            picks.append(head)
+            last[lane] = stacks[lane][0].pop(0)
+        lists.append(picks)
+        total += len(picks)
+    picks = sorted(e for picks in lists for e in picks)[:K]
+    idx = [i for _, i in picks]
+    fillers = [j for j in range(N) if not member[j]]
+    idx += fillers[: K - len(idx)]
+    return np.array(idx, np.int32), np.arange(K) < min(total, K)
+
+
+def _two_level_ball_model_batch(cents, pts, r, K, S, depth, mask=None):
+    r2 = np.float32(r) * np.float32(r)
+    B, C = cents.shape[:2]
+    idx, in_ball = np.zeros((B, C, K), np.int32), np.zeros((B, C, K), bool)
+    for b in range(B):
+        raw = _gram_raw(cents[b], pts[b], None if mask is None else mask[b])
+        for c in range(C):
+            idx[b, c], in_ball[b, c] = _two_level_ball_model(raw[c], K, r2, S, depth)
+    return idx, in_ball
+
+
+# BALL_MODEL_CASES and a K past 32 (one warp a ball only)
+TWO_LEVEL_BALL_CASES = {**BALL_MODEL_CASES,
+                        "K past 32": (lambda: _tie_cloud(57, 2, 300), 30, 0.5, 48)}
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+@pytest.mark.parametrize("case,S", [(case, S) for case in sorted(TWO_LEVEL_BALL_CASES)
+                                    for S in (1, 2, 4)
+                                    if S == 1 or TWO_LEVEL_BALL_CASES[case][3] <= 32])
+def test_two_level_ball_query_model_matches_plain_and_jax(case, S, depth):
+    """Warps a ball (S) merge lists of at most 32: K past 32 is one warp a
+    ball, as the kernel takes it."""
+    make, C, r, K = TWO_LEVEL_BALL_CASES[case]
+    pts = make()
+    cents = pts[:, :C]
+    got_idx, got_in = _two_level_ball_model_batch(cents, pts, r, K, S, depth)
+    want_idx, want_in = tops.ball_query_raw(_t(cents), _t(pts), r, K)
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_in, want_in.numpy())
+    set_filler_mode("index")
+    try:
+        o_idx, o_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), r, K)
+    finally:
+        set_filler_mode(None)
+    np.testing.assert_array_equal(got_idx, np.asarray(o_idx))
+    np.testing.assert_array_equal(got_in, np.asarray(o_in))
+
+
+@pytest.mark.parametrize("depth", [1, TWO_LEVEL_DEPTH])
+@pytest.mark.parametrize("S,K", [(1, 16), (4, 16), (1, 40)])
+def test_two_level_ball_query_model_with_a_mask_matches_plain_jax_and_pallas_2l(S, K, depth):
+    """On a tie cloud of 256 points (two 128-column segments, what the
+    Pallas two-level kernel needs): unmasked against the Pallas kernel in
+    interpret mode; masked (a cloud all masked: fillers only) against the
+    plain version and the JAX function."""
+    pts = _tie_cloud(58, 3, 256)
+    cents = pts[:, :40]
+    got_idx, got_in = _two_level_ball_model_batch(cents, pts, 0.35, K, S, depth)
+    with pltpu.force_tpu_interpret_mode():
+        p_idx, p_in = ball_query_pallas_2l(jnp.asarray(cents), jnp.asarray(pts), 0.35, K, seg=128)
+    np.testing.assert_array_equal(got_idx, np.asarray(p_idx))
+    np.testing.assert_array_equal(got_in, np.asarray(p_in))
+    mask = np.random.default_rng(59).random((3, 256)) > 0.5
+    mask[2] = False
+    got_idx, got_in = _two_level_ball_model_batch(cents, pts, 0.35, K, S, depth, mask)
+    want_idx, want_in = tops.ball_query_raw(_t(cents), _t(pts), 0.35, K, mask=_t(mask))
+    np.testing.assert_array_equal(got_idx, want_idx.numpy())
+    np.testing.assert_array_equal(got_in, want_in.numpy())
+    set_filler_mode("index")
+    try:
+        o_idx, o_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), 0.35, K,
+                                      mask=jnp.asarray(mask))
+    finally:
+        set_filler_mode(None)
+    np.testing.assert_array_equal(got_idx, np.asarray(o_idx))
+    np.testing.assert_array_equal(got_in, np.asarray(o_in))
+    assert not got_in[2].any() and (got_idx[2] == np.arange(K)).all()
+
+
+@pytest.mark.parametrize("filler", ["repeat", "index"])
+@pytest.mark.parametrize("K", [48, 64])
+def test_ball_query_past_32_matches_jax(K, filler):
+    """The K the CUDA path sends to the two-level kernel: the plain version
+    (both selects on the CPU) against the JAX function, both fillers."""
+    pts = _tie_cloud(66, 2, 300)
+    cents = pts[:, :50]
+    set_filler_mode(filler)
+    try:
+        want_idx, want_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), 0.4, K)
+    finally:
+        set_filler_mode(None)
+    for select in ("flat", "two_level"):
+        idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.4, K, filler=filler, select=select)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in))
+    assert 0 < np.asarray(want_in).mean() < 1
 
 
 def _three_nn_case(name):

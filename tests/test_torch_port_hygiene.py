@@ -235,7 +235,8 @@ def test_knn_kernels_round_every_product_and_stream_the_tile():
     is a rounding intrinsic and the build forbids contraction, so no fused
     multiply-add can change a near-tie. The flat kernel is the register
     tile (rows per warp a template argument, a bound on its registers),
-    fed by asynchronous copies; the two-level kernel keeps its own tile."""
+    fed by asynchronous copies; the two-level kernel scores with the same
+    tile and copies, and selects with its own lane stacks and rounds."""
     knn = (_kernels.CSRC / "knn.cu").read_text()
     code = "\n".join(line.split("//")[0] for line in knn.splitlines())  # comments off
     assert "--fmad=false" in _kernels.NVCC_FLAGS
@@ -251,8 +252,16 @@ def test_knn_kernels_round_every_product_and_stream_the_tile():
     assert flat.count("__syncthreads()") == 1  # one barrier a chunk
     for rows in (8, 4, 2):
         assert f"launch_flat<true, {rows}>" in code and f"launch_flat<false, {rows}>" in code
+    (two,) = re.findall(r"__global__ void knn_two_level_kernel\(.*?\n}\n", code, flags=re.S)
+    assert two.count("add_products<kRows>(") == 5 and "finish_score(acc[r][j], q2, c2[j])" in two
+    assert two.count("__syncthreads()") == 1 and "copy_async_4(qdst" in two
+    assert re.search(
+        r"template <bool kVec, int kRows, int Depth>\n__launch_bounds__\(kWarps \* 32,", code)
     for depth in (1, 4, 5):
-        assert f"knn_two_level_kernel<{depth}>" in code
+        assert f"launch_two_level_rows<{depth}>(" in code
+    for rows in (4, 2):  # the rows a warp `two_level_rows` may choose
+        assert f"launch_two_level_vec<{rows}, Depth>(" in code
+    assert "launch_two_level_vec<8, Depth>(" not in code
     assert 'extern "C" int pointseg_knn(' in code and 'extern "C" int pointseg_knn_2l(' in code
 
 
@@ -314,8 +323,12 @@ def test_ball_query_source_holds_two_selection_kernels():
     names = re.findall(r"__global__ void (\w+)", source)
     assert names == ["ball_query_kernel", "ball_query_two_level_kernel"]
     assert not re.search(LIBRARY_IN_SOURCE, source)
-    for depth in (1, 4, 5):  # the depths the wrapper may ask for
-        assert f"ball_query_two_level_kernel<{depth}>" in source
+    for depth in (1, 4):  # the depths the wrapper may ask for
+        assert f"launch_two_level_groups<{depth}>(" in source
+    assert "launch_two_level_groups<5>(" not in source
+    for groups in (1, 2):  # the balls a warp `pick_two_level` may choose
+        assert f"launch_two_level<{groups}, Depth>(" in source
+    assert "launch_two_level<4, Depth>(" not in source
     path = _cuda_path("ballquery.py")
     assert not re.search(LIBRARY_IN_WRAPPER, path)
     assert '"pointseg_ball_query"' in path and '"pointseg_ball_query_2l"' in path
@@ -400,19 +413,22 @@ def test_ball_query_and_three_nn_calls_do_nothing_twice_and_launch_once():
     assert select.index("return _ball_query_cuda(") < select.index("torch.where(")
     assert 'repeat=filler == "repeat"' in inspect.getsource(ops.ball_query)
     bq = _cuda_path("ballquery.py")
-    assert "*args, repeat," in bq and "*args, depth,\n                        repeat)" in bq
+    assert "*args, repeat," in bq
+    assert "*args, depth,\n                        repeat, *config)" in bq
     three = inspect.getsource(ops.three_nn)
     assert re.search(r"if _kernels\.on_cuda\(coords_src\):\n(.*\n){2}\s+return _three_nn_cuda\(",
                      three)
 
 
 def test_flat_ball_query_and_three_nn_kernels_vote_once_a_chunk_and_round_every_step():
-    """Both kernels test a chunk of points against all of a warp's lists
-    with one vote and take candidates only behind it; the distance is the
+    """Both kernels, and the two-level ball query, which scans as the flat
+    one does, test a chunk of points against all of a warp's lists with
+    one vote and take candidates only behind it; the distance is the
     Gram form rounded operation by operation (no fused multiply-add); the
     ball query ranks a sparse ball's members instead of sorting them, and
     3-NN finds a chunk's nearest candidates with `redux.sync`."""
-    for name, kernel in (("ballquery.cu", "ball_query_kernel"), ("threenn.cu", "three_nn_kernel")):
+    for name, kernel in (("ballquery.cu", "ball_query_kernel"), ("threenn.cu", "three_nn_kernel"),
+                         ("ballquery.cu", "ball_query_two_level_kernel")):
         code = "\n".join(line.split("//")[0]
                          for line in (_kernels.CSRC / name).read_text().splitlines())
         assert not re.search(r"fmaf?\(|__fmaf_|mma\.|wmma|" + LIBRARY_IN_SOURCE, code)
