@@ -200,6 +200,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    point's logits far beyond any tolerance: the differing graph slots
    per layer and the points that moved beyond 1e-4 are counted and
    printed, not bounded.
+6. Checkpoint, resume and evaluate, through `pointseg_torch.cli` with the
+   plain versions of the kernels made to raise on a tensor on the card:
+   `train PointNet++ --model-dir D --lr-schedule warmup_cosine
+   --warmup-steps 4 --grad-clip 1.0` one epoch, then `--resume` from its
+   checkpoint one more (the checkpoint must hold twice the steps of an
+   epoch); a fresh state on the card restored from that checkpoint must
+   equal the resumed one bit for bit (every parameter and BatchNorm
+   buffer, the Adam moments and counts, the step, the FPS generator) and
+   give bit-equal eval logits. `evaluate` on blocks: a synthetic area 6
+   of 3 m x 3 m rooms of 140,000 and 500,000 points, whose 1 m blocks
+   fill the 16384 and 65536 buckets (blocks and batches per bucket
+   printed), for that PointNet++ checkpoint and for phase 4's DeepGraphCnn
+   saved as one: fps, ball_query, three_nn and gather_rows must launch
+   for PointNet++, knn for DeepGraphCnn; one batch of the 16384 bucket on
+   the card against the CPU. `evaluate --whole-rooms` with `--stream
+   device` and `--stream host` over a synthetic area 6 of four rooms of
+   1,000,000 points (fps and three_nn four times a forward: one a group
+   of 8 windows, or one a window); the two streams' averaged logits per
+   point (their predictions may differ only where the top two lie within
+   1e-4); one room of 20,000 points on the card against the CPU. Card
+   against CPU: logits within rtol/atol 1e-4, predictions equal outside
+   near-ties. Each `evaluate` prints points/s and ms a block batch or a
+   room under CUDA events over the whole call, peak allocated memory,
+   the launches of each kernel and the metrics.
 
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
@@ -207,6 +231,8 @@ The next-to-last line of output is the kernels' JSON record; the last is
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import math
 import os
@@ -2084,7 +2110,8 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
 
     argv = ["train", model_name, "--synthetic", "--data-dir", f"{workdir}/data",
             "--epochs", "1", "--train-batch-size", "8", "--train-sampling", "4096",
-            "--device", "cuda", "--log-dir", f"{workdir}/logs", *flags]
+            "--device", "cuda", "--log-dir", f"{workdir}/logs",
+            "--model-dir", f"{workdir}/models", *flags]
     args = cli.build_parser().parse_args(argv)
     env = env or {}
     saved = {name: os.environ.get(name) for name in env}
@@ -2535,6 +2562,331 @@ def output_phase(states: dict, batch) -> None:
                      cpu_copy("DeepGraphCnn", model, static_graph=True)(x.cpu()))
 
 
+# Phase 6: 3 m x 3 m rooms of area 6 whose 1 m blocks fill the 16384 and
+# 65536 buckets; whole rooms of a real size (S3DIS: 273 M points in 272 rooms)
+EVAL_ROOM_POINTS = (140_000, 500_000)
+EVAL_BUCKETS_REACHED = (16384, 65536)  # the first also checked card against CPU
+WHOLE_ROOMS, WHOLE_ROOM_POINTS = 4, 1_000_000
+TRAIN_SHAPE = ("--train-batch-size", "8", "--train-sampling", "4096")
+NEAR_TIE = 1e-4  # a prediction may differ where the top two logits lie this close
+SCHEDULE = ("--lr-schedule", "warmup_cosine", "--warmup-steps", "4", "--grad-clip", "1.0")
+PLAIN_VERSIONS = (("fps", "farthest_point_sampling_plain"), ("ballquery", "ball_query_plain"),
+                  ("interpolate", "three_nn_plain"), ("knn", "knn_indices_plain"),
+                  ("gather", "gather_rows_plain"), ("gather", "gather_rows_flat_plain"))
+
+
+@contextlib.contextmanager
+def no_plain_version_on_the_card():
+    """Every plain version of the port's kernels raises if it is handed a
+    tensor on the card while the block runs."""
+    import importlib
+
+    saved = []
+    for module_name, name in PLAIN_VERSIONS:
+        module = importlib.import_module(f"pointseg_torch.ops.{module_name}")
+        plain = getattr(module, name)
+
+        def guard(*args, _plain=plain, _name=f"{module_name}.{name}", **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                raise AssertionError(f"the plain version {_name} ran on the card")
+            return _plain(*args, **kwargs)
+
+        setattr(module, name, guard)
+        saved.append((module, name, plain))
+    try:
+        yield
+    finally:
+        for module, name, plain in saved:
+            setattr(module, name, plain)
+
+
+def timed_call(fn):
+    """(fn's result, ms under CUDA events over the whole call, peak
+    allocated bytes, kernel launches), no plain version allowed on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with no_plain_version_on_the_card():
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated(), read_launches()
+
+
+def train_and_resume(device, workdir: str):
+    """`train PointNet++` one epoch with checkpoints, a schedule and a
+    clip, then `--resume` with `--epochs 2`: the resumed run's schedule
+    spans 2 epochs from the restored step, so its updates have a nonzero
+    rate and must move the weights. Returns (the resumed run's checkpoint
+    dir, its state, steps an epoch)."""
+    from pointseg_torch import cli
+    from pointseg_torch.io.checkpoint import latest_checkpoint, load_checkpoint
+
+    argv = ["train", "PointNet++", "--synthetic", "--data-dir", f"{workdir}/data",
+            *TRAIN_SHAPE, "--device", str(device), "--log-dir", f"{workdir}/logs", *SCHEDULE]
+    parse = cli.build_parser().parse_args
+    first, _ = cli.train_from_args(parse(argv + ["--epochs", "1",
+                                                 "--model-dir", f"{workdir}/ckpt_first"]))
+    (first_dir,) = glob.glob(f"{workdir}/ckpt_first/PointNet++/*")
+    resumed, records = cli.train_from_args(parse(argv + ["--epochs", "2",
+                                                         "--model-dir", f"{workdir}/ckpt_resumed",
+                                                         "--resume", first_dir]))
+    (run_dir,) = glob.glob(f"{workdir}/ckpt_resumed/PointNet++/*")
+    path = latest_checkpoint(run_dir)
+    step = load_checkpoint(path)["step"]
+    moved = sum(not torch.equal(a, b) for a, b in zip(first.model.parameters(),
+                                                       resumed.model.parameters()))
+    print(f"train PointNet++ {' '.join(SCHEDULE)}: {first.step} steps an epoch; after --resume "
+          f"--epochs 2 the checkpoint {os.path.basename(path)} holds step {step}; the resumed "
+          f"updates moved {moved} of {len(list(first.model.parameters()))} parameter tensors")
+    if step != 3 * first.step or resumed.step != step:
+        raise AssertionError(f"resumed checkpoint at step {step}, state at {resumed.step}, "
+                             f"want {3 * first.step}")
+    if not moved:
+        raise AssertionError("the resumed run's updates moved no parameter")
+    if not all(math.isfinite(v) for v in records["train_loss"] + records["val_loss"]):
+        raise AssertionError(f"non-finite loss after the resume: {records}")
+    return run_dir, resumed, first.step
+
+
+def restore_bit_for_bit(device, run_dir: str, resumed, steps: int, x) -> None:
+    """A fresh state on the card restored from `run_dir` equals the state
+    that wrote it, and gives the same eval logits."""
+    from pointseg_torch.io.checkpoint import restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    torch.manual_seed(99)
+    fresh = create_train_state(create_model("PointNet++"), device=device, seed=99,
+                               schedule="warmup_cosine", total_steps=2 * steps, warmup_steps=4,
+                               grad_clip=1.0)
+    restore_train_state(run_dir, fresh)
+    differ = [k for k, v in resumed.model.state_dict().items()
+              if not torch.equal(v, fresh.model.state_dict()[k])]
+    want, got = resumed.optimizer.state_dict(), fresh.optimizer.state_dict()
+    differ += [f"adam {i} {name}" for i, moments in want["state"].items()
+               for name, value in moments.items()
+               if not torch.equal(value, got["state"][i][name])]
+    if fresh.step != resumed.step:
+        differ.append(f"step {fresh.step} vs {resumed.step}")
+    if not torch.equal(fresh.generator.get_state(), resumed.generator.get_state()):
+        differ.append("FPS generator")
+    with torch.no_grad():
+        a, b = resumed.model.eval()(x), fresh.model.eval()(x)
+    if not torch.equal(a, b):
+        differ.append(f"eval logits (max |diff| {float((a - b).abs().max()):.3g})")
+    if differ:
+        raise AssertionError(f"restore on the card differs: {differ[:10]}")
+    print(f"restore on the card: {len(want['state'])} parameters' Adam moments, "
+          f"{len(resumed.model.state_dict())} state_dict entries, step {fresh.step} and the FPS "
+          f"generator bit-equal; eval logits of one {tuple(x.shape)} batch bit-equal")
+
+
+def eval_block_dataset(path: str) -> None:
+    """Areas 1-5 one small room each; area 6 rooms of EVAL_ROOM_POINTS."""
+    from pointseg_torch.data.blocks import preprocess_dataset
+    from pointseg_torch.data.prepare import save_room_archive
+    from pointseg_torch.data.s3dis import S3DIS_CLASSES
+    from pointseg_torch.data.synthetic import make_room
+
+    rng = np.random.default_rng(6)
+    chunks = f"{path}_chunked"
+    os.makedirs(chunks)
+    for area in range(1, 7):
+        sizes = EVAL_ROOM_POINTS if area == 6 else (2000,)
+        save_room_archive(f"{chunks}/s3dis{area}_chunk1.npz",
+                          [make_room(rng, n, rgb_u8=True) for n in sizes], S3DIS_CLASSES)
+    preprocess_dataset(chunks, path, verbose=False)
+
+
+def near_tie_check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> None:
+    """`got` and `want` (N, C) logits: within `atol` (and rtol), argmax equal
+    wherever `want`'s top two lie more than NEAR_TIE apart."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    torch.testing.assert_close(got, want, rtol=atol, atol=atol)
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    flip = got.argmax(-1) != want.argmax(-1)
+    if (flip & ~tie).any():
+        raise AssertionError(f"{label}: {int((flip & ~tie).sum())} predictions differ outside "
+                             f"near-ties")
+    print(f"{label}: max |diff| {float((got - want).abs().max()):.3g}; predictions differ at "
+          f"{int(flip.sum())} of {flip.numel()} points, near-ties (top two within {NEAR_TIE}) "
+          f"{int(tie.sum())}")
+
+
+def bucketed_eval(device, workdir: str, smi: str, pp_dir: str, dg_dir: str) -> dict:
+    """`evaluate` of PointNet++ and DeepGraphCnn on blocks that fill the
+    16384 and 65536 buckets; returns launches per block batch by model."""
+    from pointseg_torch import cli
+    from pointseg_torch.data.datasets import create_block_dataloaders
+
+    data = f"{workdir}/eval_blocks"
+    t0 = time.time()
+    eval_block_dataset(data)
+    _, loader = create_block_dataloaders(data_dir=data, test_areas={6}, test_batch_size=2,
+                                         train_sampling=4096, test_sampling=None,
+                                         test_buckets=cli.EVAL_BUCKETS)
+    blocks, batches, points, checked = {}, {}, 0, None
+    for x, _, lengths in loader:
+        n = x.shape[1]
+        blocks[n] = blocks.get(n, 0) + len(lengths)
+        batches[n] = batches.get(n, 0) + 1
+        points += int(lengths.sum())
+        if n == EVAL_BUCKETS_REACHED[0] and checked is None:
+            checked = torch.from_numpy(np.asarray(x))
+    print(f"eval blocks: area 6 rooms of {EVAL_ROOM_POINTS} points (3 m x 3 m), made in "
+          f"{time.time() - t0:.1f} s; blocks per bucket {blocks}, batches of 2 per bucket "
+          f"{batches}, {points} points")
+    if not set(EVAL_BUCKETS_REACHED) <= set(blocks):
+        raise AssertionError(f"the eval blocks missed the buckets {EVAL_BUCKETS_REACHED}: "
+                             f"{blocks}")
+    per_batch = {}
+    n_batches = sum(batches.values())
+    for name, ckpt, needed in (("PointNet++", pp_dir, ("fps", "ball_query", "three_nn",
+                                                       "gather_rows")),
+                               ("DeepGraphCnn", dg_dir, ("knn", "gather_rows"))):
+        args = cli.build_parser().parse_args(
+            ["evaluate", "--model-path", ckpt, "--data-path", data, "--device", str(device),
+             "--save-results", f"{workdir}/{name}_blocks.json"])
+        results, ms, peak, launches = timed_call(lambda: cli.evaluate_from_args(args))
+        missing = [k for k in needed if launches[k] == 0]
+        if missing or not math.isfinite(results["loss"]):
+            raise AssertionError(f"evaluate {name}: loss {results['loss']}, kernels never "
+                                 f"launched {missing}: {launches}")
+        per_batch[name] = {k: v / n_batches for k, v in launches.items() if v}
+        print(f"evaluate {name}, blocks ({smi}): {ms:.1f} ms for {n_batches} batches, "
+              f"{points / (ms / 1e3):.0f} points/s, {ms / n_batches:.2f} ms a block batch, peak "
+              f"allocated {peak / 2**20:.1f} MiB; launches {launches} ({per_batch[name]} a "
+              f"batch); accuracy {results['accuracy']:.4f}, mean class accuracy "
+              f"{results['mean_class_accuracy']:.4f}, mIoU {results['mean_iou']:.4f}, loss "
+              f"{results['loss']:.4f}")
+    # one batch of the first bucket: the card against the CPU, same checkpoint
+    from pointseg_torch.io.checkpoint import restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    card = restore_train_state(pp_dir, create_train_state(create_model("PointNet++"),
+                                                          device=device)).model.eval()
+    host = restore_train_state(pp_dir, create_train_state(create_model("PointNet++"),
+                                                          device="cpu")).model.eval()
+    with torch.no_grad(), no_plain_version_on_the_card():
+        got = card(checked.to(device))
+    with torch.no_grad():
+        want = host(checked)
+    near_tie_check(f"PointNet++ eval logits of one {tuple(checked.shape)} batch, card vs CPU",
+                   got.reshape(-1, 14), want.reshape(-1, 14), 1e-4)
+    return per_batch
+
+
+def whole_room_eval(device, workdir: str, smi: str, pp_dir: str) -> dict:
+    """`evaluate --whole-rooms` with both streams over rooms of a real
+    size; the streams' predictions point by point; one room of 20,000
+    points on the card against the CPU. Returns launches per window
+    group of the device stream."""
+    from pointseg_torch import cli
+    from pointseg_torch.data import synthetic
+    from pointseg_torch.data.datasets import ChunkedRoomDataset
+    from pointseg_torch.io.checkpoint import restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+    from pointseg_torch.utils import sliding_window as sw
+
+    data = f"{workdir}/rooms"
+    t0 = time.time()
+    synthetic.make_chunked_dataset(data, areas=(6,), rooms_per_area=WHOLE_ROOMS,
+                                   points_per_room=WHOLE_ROOM_POINTS, seed=1, with_index=False)
+    window, overlap = 4096, 512
+    step = window - overlap
+    num_win = (WHOLE_ROOM_POINTS - window + 2 * step - 1) // step
+    groups = WHOLE_ROOMS * -(-num_win // 8)
+    points = WHOLE_ROOMS * WHOLE_ROOM_POINTS
+    print(f"whole rooms: {WHOLE_ROOMS} rooms of {WHOLE_ROOM_POINTS} points made in "
+          f"{time.time() - t0:.1f} s; window {window}, overlap {overlap}: {num_win} windows a "
+          f"room, {groups} groups of 8 in all")
+    per_group = None
+    for stream in ("device", "host"):
+        args = cli.build_parser().parse_args(
+            ["evaluate", "--model-path", pp_dir, "--data-path", data, "--device", str(device),
+             "--whole-rooms", "--stream", stream, "--save-results",
+             f"{workdir}/rooms_{stream}.json"])
+        results, ms, peak, launches = timed_call(lambda: cli.evaluate_from_args(args))
+        if results["total_points"] != points or not math.isfinite(results["mean_iou"]):
+            raise AssertionError(f"whole rooms, {stream} stream: {results}")
+        forwards = groups if stream == "device" else WHOLE_ROOMS * num_win
+        if launches["fps"] != 4 * forwards or launches["three_nn"] != 4 * forwards:
+            raise AssertionError(f"whole rooms, {stream} stream: {forwards} forwards need 4 fps "
+                                 f"and 4 three_nn launches each, got {launches}")
+        if stream == "device":
+            per_group = {k: v / groups for k, v in launches.items() if v}
+        print(f"evaluate --whole-rooms --stream {stream} ({smi}): {ms:.1f} ms, "
+              f"{points / (ms / 1e3):.0f} points/s, {ms / WHOLE_ROOMS:.1f} ms a room, peak "
+              f"allocated {peak / 2**20:.1f} MiB; launches {launches}; overall accuracy "
+              f"{results['overall_accuracy']:.4f}, mean class accuracy "
+              f"{results['mean_class_accuracy']:.4f}, mIoU {results['mean_iou']:.4f}")
+
+    card = restore_train_state(pp_dir, create_train_state(create_model("PointNet++"),
+                                                          device=device)).model.eval()
+    forward = cli.whole_room_forward(card)
+    rooms = ChunkedRoomDataset(data, [6], require_index_file=False)
+    flips = ties = 0
+    with no_plain_version_on_the_card():
+        for i in range(len(rooms)):
+            room = rooms[i]["x"]
+            n = room.shape[0]
+            buf = np.zeros((sw._room_pad(n, window, step), room.shape[1]), np.float32)
+            buf[:n] = room
+            on_device = sw.scene_logits_device(forward, torch.from_numpy(buf).to(device), n,
+                                               window, step, 14)[:n].cpu()
+            on_host = torch.from_numpy(sw.scene_logits_host(forward, room, window, overlap,
+                                                            device))
+            top2 = on_host.topk(2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
+            flip = on_device.argmax(-1) != on_host.argmax(-1)
+            if (flip & ~tie).any():
+                raise AssertionError(f"room {i}: the streams' predictions differ at "
+                                     f"{int((flip & ~tie).sum())} points outside near-ties")
+            flips, ties = flips + int(flip.sum()), ties + int(tie.sum())
+    print(f"whole rooms, device against host stream: predictions differ at {flips} of "
+          f"{points} points, all where the top two averaged logits lie within {NEAR_TIE} "
+          f"({ties} such points)")
+
+    # one room of 20,000 points on the card against the CPU, same checkpoint
+    room = synthetic.make_room(np.random.default_rng(2), 20_000)["points"]
+    buf = np.zeros((sw._room_pad(20_000, window, step), 6), np.float32)
+    buf[:20_000] = room
+    host = restore_train_state(pp_dir, create_train_state(create_model("PointNet++"),
+                                                          device="cpu")).model.eval()
+    with no_plain_version_on_the_card():
+        got = sw.scene_logits_device(forward, torch.from_numpy(buf).to(device), 20_000, window,
+                                     step, 14)[:20_000]
+    want = sw.scene_logits_device(cli.whole_room_forward(host), torch.from_numpy(buf), 20_000,
+                                  window, step, 14)[:20_000]
+    near_tie_check("PointNet++ averaged logits of a 20,000-point room, card vs CPU", got, want,
+                   1e-4)
+    return per_group
+
+
+def checkpoint_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
+    """Phase 6; returns launches per block batch and per window group."""
+    from pointseg_torch.io.checkpoint import save_checkpoint
+
+    run_dir, resumed, steps = train_and_resume(device, workdir)
+    restore_bit_for_bit(device, run_dir, resumed, steps, batch[0][:2])
+    dg_dir = f"{workdir}/ckpt_dgcnn"
+    save_checkpoint(dg_dir, states["DeepGraphCnn"][0],
+                    config={"model": "DeepGraphCnn", "static_graph": False})
+    per_batch = bucketed_eval(device, workdir, smi, run_dir, dg_dir)
+    per_group = whole_room_eval(device, workdir, smi, run_dir)
+    return {"block batch": per_batch, "window group": per_group}
+
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--kernel-times"] and len(args) == 3:
@@ -2594,6 +2946,8 @@ def main() -> int:
         states, launches, batch = trainer_phase(device, workdir)
         phase("5. output against the CPU")
         output_phase(states, batch)
+        phase("6. checkpoint, resume and evaluate")
+        eval_launches = checkpoint_phase(device, workdir, smi, states, batch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2618,6 +2972,8 @@ def main() -> int:
           f"launches a step, its ms the 36-byte and the 1-byte gather of a batch from "
           f"{SYNTHETIC_ROWS} rows); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")
+    print(f"summary: {smi}; phase 6 launches a block batch (2 blocks, buckets 16384 and 65536) "
+          f"and a whole-room window group (8 windows of 4096 points): {eval_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,26 @@
-"""Command-line interface of the port (the `train` subcommand of
-`pointseg/cli.py`).
+"""Command-line interface of the port (the `train` and `evaluate`
+subcommands of `pointseg/cli.py`).
 
     python -m pointseg_torch train PointNet++ [--synthetic] [--data-dir D]
-        [--epochs E] [--device cuda] ...
+        [--epochs E] [--device cuda] [--model-dir saved_models] ...
+    python -m pointseg_torch train <model> --resume CKPT_DIR_OR_FILE
+        [--lr-schedule constant|cosine|warmup_cosine] [--warmup-steps W]
+        [--grad-clip C]
     python -m pointseg_torch train PointNeXt|PointNeXt-B|PointNeXt-L|PointNet++MSG ...
     python -m pointseg_torch train DeepGraphCnn [--static-graph] ...
     python -m pointseg_torch train <model> --device-data
         [--device-store auto|flat|compact|host] [--pack-cache DIR] [--scan-steps K]
     python -m pointseg_torch train <model> --accum-steps K
+    python -m pointseg_torch evaluate --model-path CKPT --data-path D
+        [--whole-rooms [--stream device|host]] [--bn-stats running|batch] ...
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
-8 (test 2), 4096 points, test area 6, 14 classes. Flags of the JAX
-trainer that the port does not carry yet are accepted by the parser only
-to be refused with a pointer to ROADMAP.md. `--device cuda` without a
+8 (test 2), 4096 points, test area 6, 14 classes. `train` writes a
+checkpoint and its `config.json` sidecar after every epoch into
+`<model-dir>/<model>/<timestamp>`; `evaluate` reads the model name and
+`--static-graph` from that sidecar. Flags of the JAX package that the
+port does not carry yet are accepted by the parser only to be refused
+with a pointer to ROADMAP.md. `--device cuda` without a
 CUDA device raises; the port never moves work to the CPU by itself.
 The JAX package's environment switches POINTSEG_SELECT2L and
 POINTSEG_BQ_FILLER select the two-level kernels and the ball-query
@@ -22,12 +30,13 @@ filler here too (`kernel_switches`).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from datetime import datetime
 
 import torch
 
-from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES
+from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, S3DIS_CLASSES
 
 # the JAX package's model names; pointseg_torch.models says which are ported
 MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
@@ -37,14 +46,11 @@ DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 # JAX trainer flags not carried yet: (flag, argparse kwargs)
 _NOT_PORTED = (
     ("--bf16", dict(action="store_true")),
-    ("--resume", dict(default=None)),
-    ("--model-dir", dict(default=None)),
     ("--data-parallel", dict(action="store_true")),
-    ("--warmup-steps", dict(type=int, default=0)),
-    ("--grad-clip", dict(type=float, default=None)),
     ("--profile", dict(default=None)),
     ("--save-confusion", dict(action="store_true")),
 )
+EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -55,8 +61,13 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "unless it exists (no S3DIS needed).")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--learning-rate", type=float, default=1e-3)
-    p.add_argument("--lr-schedule", default="constant",
-                   help="Only 'constant' (the reference's fixed-rate Adam) is ported.")
+    p.add_argument("--lr-schedule", choices=["constant", "cosine", "warmup_cosine"],
+                   default="constant",
+                   help="constant reproduces the reference's fixed-rate Adam; the others "
+                        "decay over epochs x steps an epoch.")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="Global-norm gradient clipping.")
     p.add_argument("--train-batch-size", type=int, default=8)
     p.add_argument("--test-batch-size", type=int, default=2)
     p.add_argument("--train-sampling", type=int, default=4096)
@@ -96,6 +107,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "mutually exclusive with --scan-steps.")
     p.add_argument("--log-interval", type=int, default=20)
     p.add_argument("--log-dir", default="saved_runs")
+    p.add_argument("--model-dir", default="saved_models",
+                   help="Checkpoints go to <model-dir>/<model>/<timestamp>.")
+    p.add_argument("--resume", default=None, help="Checkpoint dir or file to resume from.")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--static-graph", action="store_true",
                    help="DGCNN models: compute the kNN graph once on xyz and "
@@ -111,8 +125,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     given = [flag for flag, kwargs in _NOT_PORTED
              if getattr(args, flag[2:].replace("-", "_")) != kwargs.get("default",
                                                                        False)]
-    if args.lr_schedule != "constant":
-        given.append(f"--lr-schedule {args.lr_schedule}")
     if given:
         raise SystemExit(f"not yet ported to pointseg_torch: {', '.join(given)}; "
                          "see ROADMAP.md for the order of the port")
@@ -182,6 +194,7 @@ def train_from_args(args: argparse.Namespace):
     """Runs the `train` subcommand; returns (TrainState, records)."""
     from pointseg_torch.data import synthetic
     from pointseg_torch.data.datasets import create_block_dataloaders
+    from pointseg_torch.io.checkpoint import restore_train_state
     from pointseg_torch.models import create_model
     from pointseg_torch.train.logging import MetricsLogger, save_records
     from pointseg_torch.train.loop import train_model
@@ -194,16 +207,15 @@ def train_from_args(args: argparse.Namespace):
         raise SystemExit("--accum-steps requires a host loader; drop "
                          "--device-data or --accum-steps")
     device = resolve_device(args.device)
-    model_kwargs = kernel_switches(args.model)
+    switches = kernel_switches(args.model)
+    model_kwargs = dict(switches)
     if args.static_graph:
         if args.model not in DGCNN_NAMES:
             raise SystemExit("--static-graph only applies to DGCNN models")
         model_kwargs["static_graph"] = True
     torch.manual_seed(args.seed)  # weight init and dropout
     model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, **model_kwargs)
-    # TF32 would round the distances that selections compare
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
 
     if args.synthetic and not os.path.exists(args.data_dir):
         print(f"Generating synthetic block dataset at {args.data_dir} ...")
@@ -212,6 +224,7 @@ def train_from_args(args: argparse.Namespace):
 
     run_name = os.path.join(args.model, datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
     log_path = os.path.join(args.log_dir, run_name)
+    ckpt_dir = os.path.join(args.model_dir, run_name)
     print(f"Starting training of model {args.model} on {device}.")
     train_loader, test_loader = create_block_dataloaders(
         data_dir=args.data_dir,
@@ -221,8 +234,7 @@ def train_from_args(args: argparse.Namespace):
         train_sampling=args.train_sampling,
         test_sampling=args.test_sampling,
         test_pad_to=args.test_pad_to,
-        test_buckets=None if args.test_pad_to else
-        (1024, 2048, 4096, 8192, 16384, 32768, 65536),
+        test_buckets=None if args.test_pad_to else EVAL_BUCKETS,
         seed=args.seed,
         num_workers=args.num_workers,
         test_pad_mode=args.test_pad_mode,
@@ -234,33 +246,184 @@ def train_from_args(args: argparse.Namespace):
           f"and test dataloader with areas {set(args.test_areas)}.")
     print("-" * 15)
 
-    state = create_train_state(model, device=device, learning_rate=args.learning_rate,
-                               seed=args.seed)
+    state = create_train_state(
+        model, device=device, learning_rate=args.learning_rate, seed=args.seed,
+        schedule=args.lr_schedule, total_steps=args.epochs * max(len(train_loader), 1),
+        warmup_steps=args.warmup_steps, grad_clip=args.grad_clip)
+    if args.resume:
+        restore_train_state(args.resume, state)
+        print(f"Resumed from step {state.step}.")
     config = {k: v for k, v in vars(args).items() if not callable(v) and k != "func"}
     config["data_mode"] = data_mode  # "device", "compact", "host" or "host loader"
+    config["kernel_switches"] = switches
     logger = MetricsLogger(log_path)
     try:
         state, records = train_model(
             state, train_loader, test_loader, num_epochs=args.epochs,
             log_interval=args.log_interval, logger=logger,
-            num_classes=NUM_S3DIS_CLASSES, config=config,
+            num_classes=NUM_S3DIS_CLASSES, ckpt_dir=ckpt_dir, config=config,
             scan_steps=args.scan_steps, accum_steps=args.accum_steps)
     finally:
         logger.close()
     save_records(log_path, "records", records)
     print(f"View logs under: {log_path} (metrics.csv / metrics.jsonl)")
+    print(f"Model checkpoints saved to: {ckpt_dir}.")
     return state, records
+
+
+def _no_tf32() -> None:
+    """TF32 would round the distances that selections compare."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _add_evaluate_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model-path", required=True, help="Checkpoint dir or file.")
+    p.add_argument("--data-path", required=True)
+    p.add_argument("--model", default=None, choices=MODEL_CHOICES + [None],
+                   help="Default: the model of the checkpoint's config sidecar.")
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--sampling", type=int, default=None)
+    p.add_argument("--test-areas", type=int, nargs="+", default=[6])
+    p.add_argument("--save-results", default=None)
+    p.add_argument("--num-classes", type=int, default=14, choices=[13, 14],
+                   help="13 for legacy-stack checkpoints.")
+    p.add_argument("--pad-mode", choices=["repeat", "zero"], default="repeat",
+                   help="Eval-batch padding filler (see train --test-pad-mode).")
+    p.add_argument("--whole-rooms", action="store_true",
+                   help="Whole-room sliding-window eval over chunked data.")
+    p.add_argument("--window-size", type=int, default=4096)
+    p.add_argument("--overlap", type=int, default=512)
+    p.add_argument("--stream", choices=["device", "host"], default="device",
+                   help="whole-room windows: 'device' keeps each room on the device and "
+                        "runs its windows 8 at a time there (one copy each way a room); "
+                        "'host' is the reference-shaped per-window loop.")
+    p.add_argument("--bn-stats", choices=["running", "batch"], default="running",
+                   help="BatchNorm statistics at eval time: 'running' (the checkpoint's "
+                        "averages, reference parity) or 'batch' (the eval batch's own, "
+                        "test-time adaptation; train/state.py::bn_adapted_model).")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; the kernels' path) or 'cpu' (plain PyTorch "
+                        "versions).")
+    p.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
+
+
+def whole_room_forward(model: torch.nn.Module, bn_stats: str = "running"):
+    """(points (G, W, 6), lengths (G,)) -> logits: the rooms' xyz + rgb
+    windows get the blocks' three relative coordinates (x - min_x - 0.5,
+    y - min_y - 0.5, z - mid_z) from the min and max of each window's
+    valid points (padding kept out by +-1e30), then the model runs in
+    eval mode with running or batch BatchNorm statistics."""
+    from pointseg_torch.train.loss import length_mask
+    from pointseg_torch.train.state import bn_adapted_model
+
+    model.eval()
+    run = bn_adapted_model(model) if bn_stats == "batch" else model
+
+    @torch.no_grad()
+    def forward9(points: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        m = length_mask(lengths, points.shape[1])[..., None]
+        xyz = points[..., :3]
+        vmin = torch.where(m, xyz, 1e30).amin(dim=1, keepdim=True)
+        vmax = torch.where(m, xyz, -1e30).amax(dim=1, keepdim=True)
+        center = torch.cat([vmin[..., 0:1] + 0.5, vmin[..., 1:2] + 0.5,
+                            (vmin[..., 2:3] + vmax[..., 2:3]) / 2], dim=-1)
+        return run(torch.cat([points, xyz - center], dim=-1))
+
+    return forward9
+
+
+def evaluate_from_args(args: argparse.Namespace) -> dict:
+    """Runs the `evaluate` subcommand; returns its results."""
+    from pointseg_torch.data.datasets import (
+        ChunkedRoomDataset,
+        ListLoader,
+        create_block_dataloaders,
+    )
+    from pointseg_torch.io.checkpoint import load_config, restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.loop import evaluate
+    from pointseg_torch.train.state import create_train_state, make_eval_step
+    from pointseg_torch.utils.evaluation import evaluate_rooms
+
+    ckpt_dir = (args.model_path if os.path.isdir(args.model_path)
+                else os.path.dirname(args.model_path))
+    config = load_config(ckpt_dir) or {}
+    if args.bf16 or config.get("bf16"):
+        raise SystemExit("not yet ported to pointseg_torch: --bf16; see ROADMAP.md (M5) for "
+                         "the order of the port")
+    device = resolve_device(args.device)
+    model_name = args.model or config.get("model", "PointNet++")
+    num_classes = args.num_classes
+    class_names = S3DIS_CLASSES[:num_classes]
+    model_kwargs = kernel_switches(model_name)
+    if config.get("static_graph") and model_name in DGCNN_NAMES:
+        model_kwargs["static_graph"] = True  # the graph mode the model was trained in
+    model = create_model(model_name, num_classes=num_classes, **model_kwargs)
+    _no_tf32()
+    state = restore_train_state(args.model_path, create_train_state(model, device=device))
+    print(f"Loaded {model_name} from {args.model_path} (step {state.step}).")
+
+    if args.whole_rooms:
+        ds = ChunkedRoomDataset(args.data_path, args.test_areas, require_index_file=False)
+        results = evaluate_rooms(whole_room_forward(state.model, args.bn_stats),
+                                 ListLoader(ds, batch_size=1), class_names,
+                                 window_size=args.window_size, overlap=args.overlap,
+                                 stream=args.stream, device=device)
+        if args.save_results:
+            with open(args.save_results, "w") as f:
+                json.dump(results, f, indent=2)
+            print(f"Results saved to {args.save_results}")
+        return results
+
+    _, test_loader = create_block_dataloaders(
+        data_dir=args.data_path,
+        test_areas=set(args.test_areas),
+        test_batch_size=args.batch_size,
+        train_sampling=args.sampling or 4096,
+        test_sampling=args.sampling,
+        test_buckets=EVAL_BUCKETS,
+        test_pad_mode=args.pad_mode,
+    )
+    step_fn = make_eval_step(state.model, "batch") if args.bn_stats == "batch" else None
+    results = evaluate(state, test_loader, num_classes=num_classes, step_fn=step_fn)
+
+    print("\n=== Evaluation results ===")
+    print(f"Overall accuracy:    {100.0 * results['accuracy']:.2f}%")
+    print(f"Mean class accuracy: {100.0 * results['mean_class_accuracy']:.2f}%")
+    print(f"Mean IoU:            {100.0 * results['mean_iou']:.2f}%")
+    print("Per-class accuracy / IoU:")
+    for name, acc, iou in zip(class_names, results["class_accuracies"], results["ious"]):
+        print(f"  {name:<10s} {100.0 * float(acc):6.2f}%  {100.0 * float(iou):6.2f}%")
+
+    if args.save_results:
+        out = {
+            "accuracy": results["accuracy"],
+            "mean_class_accuracy": results["mean_class_accuracy"],
+            "class_accuracies": {n: float(v)
+                                 for n, v in zip(class_names, results["class_accuracies"])},
+            "mean_iou": results["mean_iou"],
+            "ious": {n: float(v) for n, v in zip(class_names, results["ious"])},
+            "confusion": results["confusion"].tolist(),
+        }
+        with open(args.save_results, "w") as f:
+            json.dump(out, f, indent=2)
+        print(f"Results saved to {args.save_results}")
+    return results
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
-        description="pointseg's PyTorch / CUDA port: trains PointNet++ (SSG and MSG), "
-                    "PointNeXt (-B, -L) and the DGCNNs.")
+        description="pointseg's PyTorch / CUDA port: trains and evaluates PointNet++ "
+                    "(SSG and MSG), PointNeXt (-B, -L) and the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")
     _add_train_args(train)
     train.set_defaults(func=train_from_args)
+    evaluate = sub.add_parser("evaluate", help="Evaluate a checkpoint.")
+    _add_evaluate_args(evaluate)
+    evaluate.set_defaults(func=evaluate_from_args)
     return parser
 
 

@@ -1,0 +1,136 @@
+"""Checkpoints with a config sidecar, periodic save and resume (port of
+`pointseg/io/checkpoint.py`).
+
+A checkpoint is `checkpoint_{step}.pt`, written by `torch.save` (to a
+`.tmp` file, then renamed) and holding plain containers of tensors and
+numbers only, so `torch.load(..., weights_only=True)` reads it and no
+class is pickled: the model's `state_dict()` (the reference key layout,
+BatchNorm running statistics included), the optimizer's `state_dict()`
+(Adam's moments and counts), the step and the FPS generator's state
+with its device type. `config.json` beside it records the run's
+settings; the newest `keep` checkpoints survive a save. A CUDA
+generator's state does not fit a CPU generator (nor the reverse): a
+checkpoint restored on the other kind of device keeps the state's own
+generator, with a warning.
+
+The JAX package's checkpoints (`checkpoint_{step}.msgpack`, flax
+serialisation) are refused: importing them is a later item of the port
+(ROADMAP.md, M8).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import warnings
+from typing import Any
+
+import torch
+
+_CKPT_RE = re.compile(r"checkpoint_(\d+)\.pt$")
+_JAX_CKPT_RE = re.compile(r"checkpoint_(\d+)\.msgpack$")
+
+
+def _numbered(ckpt_dir: str, pattern: re.Pattern) -> list[tuple[int, str]]:
+    return sorted((int(m.group(1)), fn) for fn in os.listdir(ckpt_dir)
+                  if (m := pattern.match(fn)))
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int | None = None,
+                    config: dict[str, Any] | None = None, keep: int = 5) -> str:
+    """Writes `checkpoint_{step}.pt` (and `config.json` when `config` is
+    given) into `ckpt_dir`, prunes all but the newest `keep`, and returns
+    the checkpoint's path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    step = state.step if step is None else int(step)
+    payload = {
+        "step": step,
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "generator": None if state.generator is None else state.generator.get_state(),
+        "generator_device": None if state.generator is None else state.generator.device.type,
+    }
+    path = os.path.join(ckpt_dir, f"checkpoint_{step}.pt")
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+    if config is not None:
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
+
+    for _, fn in _numbered(ckpt_dir, _CKPT_RE)[:-keep] if keep > 0 else []:
+        os.remove(os.path.join(ckpt_dir, fn))
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    ckpts = _numbered(ckpt_dir, _CKPT_RE)
+    return os.path.join(ckpt_dir, ckpts[-1][1]) if ckpts else None
+
+
+def load_checkpoint(path: str) -> dict[str, Any]:
+    """The checkpoint's contents, every tensor on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_config(ckpt_dir: str) -> dict[str, Any] | None:
+    p = os.path.join(ckpt_dir, "config.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def _refuse_jax_checkpoint(ckpt_dir_or_path: str) -> None:
+    jax_ckpt = ckpt_dir_or_path.endswith(".msgpack") or (
+        os.path.isdir(ckpt_dir_or_path) and _numbered(ckpt_dir_or_path, _JAX_CKPT_RE))
+    if jax_ckpt:
+        raise ValueError(f"{ckpt_dir_or_path} holds a JAX checkpoint (.msgpack); "
+                         "pointseg_torch reads its own checkpoint_{step}.pt files. "
+                         "Importing JAX checkpoints is not yet ported (ROADMAP.md, M8).")
+
+
+def restore_train_state(ckpt_dir_or_path: str, state):
+    """Resumes a TrainState in place from a directory (its latest
+    checkpoint) or a checkpoint file, and returns it: weights, BatchNorm
+    statistics, optimizer state, step and FPS generator state.
+
+    Every entry's shape is checked against the model before anything is
+    loaded, so a checkpoint of another architecture fails here with the
+    keys named, not later inside a matmul."""
+    if os.path.isdir(ckpt_dir_or_path):
+        path = latest_checkpoint(ckpt_dir_or_path)
+        if path is None:
+            _refuse_jax_checkpoint(ckpt_dir_or_path)
+    else:
+        _refuse_jax_checkpoint(ckpt_dir_or_path)
+        path = ckpt_dir_or_path if os.path.exists(ckpt_dir_or_path) else None
+    if path is None:
+        raise FileNotFoundError(f"No checkpoint found in {ckpt_dir_or_path}")
+    restored = load_checkpoint(path)
+
+    want = state.model.state_dict()
+    got = restored["model"]
+    mismatches = [f"{k}: missing from the checkpoint" for k in want if k not in got]
+    mismatches += [f"{k}: not in the model" for k in got if k not in want]
+    mismatches += [f"{k}: {tuple(got[k].shape)} vs model {tuple(w.shape)}"
+                   for k, w in want.items() if k in got and got[k].shape != w.shape]
+    if mismatches:
+        raise ValueError(f"Checkpoint {path} does not match the model architecture:\n  "
+                         + "\n  ".join(mismatches[:10]))
+
+    state.model.load_state_dict(got)
+    state.optimizer.load_state_dict(restored["optimizer"])
+    state.step = int(restored["step"])
+    if state.generator is not None and restored["generator"] is not None:
+        if restored["generator_device"] == state.generator.device.type:
+            state.generator.set_state(restored["generator"])
+        else:
+            warnings.warn(f"{path}: the FPS generator's state was saved from a "
+                          f"{restored['generator_device']} generator and does not fit this "
+                          f"{state.generator.device.type} one; it keeps its own seed")
+    return state

@@ -245,7 +245,7 @@ class EdgeConv(torch.nn.Module):
     def _gather_reduce(self, p: torch.Tensor, idx: torch.Tensor):
         gp = ops.gather_neighbors(p, idx)  # (B, N, k, out)
         out = (gp.amax(dim=2), gp.amin(dim=2))
-        if self.training:
+        if self.bn.training:
             out += (gp.sum(dim=2), (gp * gp).sum(dim=2))
         return out
 
@@ -265,7 +265,7 @@ class EdgeConv(torch.nn.Module):
             reduced = self._gather_reduce(p, idx)
         g_max, g_min = reduced[0], reduced[1]
         mean = var = None
-        if self.training:
+        if self.bn.training:  # batch statistics follow the BatchNorm's mode
             s, q = reduced[2], reduced[3]
             count = p.shape[0] * p.shape[1] * self.k
             mean = (s + self.k * d).sum(dim=(0, 1)) / count

@@ -30,20 +30,31 @@ class BatchNorm(nn.BatchNorm1d):
     running_mean, running_var, num_batches_tracked).
     """
 
+    # Set by `train/state.py::bn_adapted_model` for the length of its
+    # forward: batch statistics at evaluation, where no gradient is taken.
+    adapting = False
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.reshape(-1, x.shape[-1])
         if self.training:
-            y = F.batch_norm(rows, None, None, self.weight, self.bias,
-                             training=True, eps=self.eps)
             with torch.no_grad():
                 var, mean = torch.var_mean(rows, dim=0, correction=0)
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
                 self.num_batches_tracked.add_(1)
+            if self.adapting:
+                # normalise with the statistics just taken, which var_mean
+                # gets nearer to float64 than the CPU's training-mode
+                # batch_norm does (tests/test_torch_eval.py, ROADMAP.md F6)
+                y = F.batch_norm(rows, mean, var, self.weight, self.bias,
+                                 training=False, eps=self.eps)
+            else:
+                y = F.batch_norm(rows, None, None, self.weight, self.bias,
+                                 training=True, eps=self.eps)
         else:
             y = F.batch_norm(rows, self.running_mean, self.running_var,
                              self.weight, self.bias, training=False, eps=self.eps)

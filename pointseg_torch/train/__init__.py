@@ -7,8 +7,11 @@ from pointseg_torch.train.loss import (  # noqa: F401
 )
 from pointseg_torch.train.state import (  # noqa: F401
     TrainState,
+    bn_adapted_model,
+    bn_batch_apply,
     create_train_state,
     eval_step,
+    make_eval_step,
     make_optimizer,
     train_step,
 )

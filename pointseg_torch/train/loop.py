@@ -1,7 +1,7 @@
 """The training loop (port of `pointseg/train/loop.py`): per-epoch
 training with interval logging, a streaming evaluation pass over the
-test set after every epoch, and epoch summaries. Checkpoints are not
-ported yet (ROADMAP.md).
+test set after every epoch, epoch summaries, and a checkpoint every
+`ckpt_every_epochs` epochs (`pointseg_torch.io.checkpoint`).
 
 Batches come from the numpy loaders of `pointseg_torch.data`, each copied
 to the device once, or from the device-resident store
@@ -19,6 +19,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from pointseg_torch.io.checkpoint import save_checkpoint
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.logging import MetricsLogger
 from pointseg_torch.train.state import TrainState, eval_step, train_step, train_step_accum
@@ -136,9 +137,16 @@ def _train_epoch_accum(
     return state, total_loss, global_step
 
 
-def evaluate(state: TrainState, test_loader: Iterable, num_classes: int = 14) -> dict:
+def evaluate(state: TrainState, test_loader: Iterable, num_classes: int = 14,
+             step_fn=None) -> dict:
     """Streaming evaluation over the test set: loss, overall and
-    mean-class accuracy, per-class IoU and mIoU, confusion matrix."""
+    mean-class accuracy, per-class IoU and mIoU, confusion matrix.
+
+    `step_fn` defaults to `eval_step` (running BatchNorm statistics); pass
+    `make_eval_step(model, "batch")` for test-time BatchNorm adaptation
+    (`pointseg_torch/train/state.py`)."""
+    if step_fn is None:
+        step_fn = eval_step
     device = state.device
     losses = []
     correct = torch.zeros((), dtype=torch.int64, device=device)
@@ -147,7 +155,7 @@ def evaluate(state: TrainState, test_loader: Iterable, num_classes: int = 14) ->
     union = torch.zeros((num_classes,), device=device)
     confusion = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     for batch in test_loader:
-        out = eval_step(state, *to_device(batch, device))
+        out = step_fn(state, *to_device(batch, device))
         losses.append(out["loss"])
         correct += out["correct"]
         total += out["total"]
@@ -179,13 +187,17 @@ def train_model(
     log_interval: int = 20,
     logger: MetricsLogger | None = None,
     num_classes: int = 14,
+    ckpt_dir: str | None = None,
+    ckpt_every_epochs: int = 1,
     config: dict | None = None,
     verbose: bool = True,
     scan_steps: int = 1,
     accum_steps: int = 1,
 ) -> tuple[TrainState, dict]:
-    """Full training run. Returns the final state and the records
-    {train_loss, val_loss, val_acc, val_miou, epoch_times, total_time}."""
+    """Full training run, with a checkpoint (and `config` as its sidecar)
+    in `ckpt_dir` every `ckpt_every_epochs` epochs. Returns the final
+    state and the records {train_loss, val_loss, val_acc, val_miou,
+    epoch_times, total_time}."""
     global_step = state.step
     records = {"train_loss": [], "val_loss": [], "val_acc": [], "val_miou": [],
                "epoch_times": []}
@@ -218,6 +230,9 @@ def train_model(
         records["val_acc"].append(ev["accuracy"])
         records["val_miou"].append(ev["mean_iou"])
         records["epoch_times"].append(dt)
+
+        if ckpt_dir is not None and (epoch + 1) % ckpt_every_epochs == 0:
+            save_checkpoint(ckpt_dir, state, config=config)
 
     records["total_time"] = time.time() - t_start
     if config is not None:

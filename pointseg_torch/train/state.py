@@ -10,6 +10,12 @@ length-masked. `train_step_accum`: one optimizer update from K
 micro-batches (gradient accumulation). None synchronises with the
 device: every returned value is a tensor on the model's device.
 
+`make_optimizer` is Adam with optax's cosine and warmup-cosine rate
+schedules and global-norm clipping; every update takes its rate from
+`TrainState.step`. `make_eval_step(model, "batch")` evaluates with
+batch BatchNorm statistics (`bn_adapted_model`), leaving the running
+ones untouched.
+
 Dropout draws from torch's default generator (seed it with
 `torch.manual_seed`); FPS draws from `TrainState.generator`.
 """
@@ -19,21 +25,98 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterable
 
+import numpy as np
 import torch
 from torch import nn
 
+from pointseg_torch.nn.mlp import BatchNorm
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
 
 
+class ScheduledAdam(torch.optim.Adam):
+    """`optax.adam` under a learning-rate schedule, behind an optional
+    `optax.clip_by_global_norm` (the chain of `pointseg/train/state.py::
+    make_optimizer`), with optax.adam's defaults (b1 0.9, b2 0.999, eps
+    1e-8), which are torch's.
+
+    The rate of update t is the schedule at t, the count BEFORE the update
+    (optax's count). `set_rate_and_clip(t)` sets it on every parameter
+    group and clips the gradients; the train steps call it with
+    `TrainState.step` just before `step()`, so a resumed run needs no
+    scheduler state of its own: the step count carries it.
+    """
+
+    def __init__(self, params: Iterable[nn.Parameter], learning_rate: float = 1e-3,
+                 schedule: str = "constant", total_steps: int | None = None,
+                 warmup_steps: int = 0, grad_clip: float | None = None):
+        if schedule not in ("constant", "cosine", "warmup_cosine"):
+            raise ValueError(f"unknown schedule '{schedule}'")
+        warmup = warmup_steps if schedule == "warmup_cosine" else 0
+        if schedule != "constant" and (total_steps or 0) <= warmup:
+            raise ValueError(f"the {schedule} schedule needs total_steps > {warmup}, "
+                             f"got {total_steps}")
+        self.learning_rate = learning_rate
+        self.schedule = schedule
+        self.total_steps = total_steps
+        self.warmup_steps = warmup_steps
+        self.grad_clip = grad_clip
+        super().__init__(params, lr=self.rate(0))
+
+    def rate(self, count: int) -> float:
+        """The schedule at update `count`, in float32 as optax computes it:
+        `cosine_decay_schedule(lr, total_steps)` or
+        `warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps)`."""
+        f32 = np.float32
+        lr = self.learning_rate
+        if self.schedule == "constant":
+            return lr
+        if self.schedule == "warmup_cosine" and count < self.warmup_steps:
+            # linear_schedule(0, lr, warmup): (0 - lr) * (1 - t / warmup) + lr
+            frac = f32(1.0) - f32(count) / f32(self.warmup_steps)
+            return float(f32(0.0 - lr) * frac + f32(lr))
+        decay = self.total_steps
+        if self.schedule == "warmup_cosine":
+            count, decay = count - self.warmup_steps, decay - self.warmup_steps
+        t = np.minimum(f32(count), f32(decay))
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * t / f32(decay)))
+        return float(f32(lr) * cosine)
+
+    @torch.no_grad()
+    def set_rate_and_clip(self, count: int) -> None:
+        """Sets the rate of update `count` and, with `grad_clip`, clips the
+        gradients by optax's rule: kept while their global norm is below
+        the limit, else g / norm * limit (no host read)."""
+        rate = self.rate(count)
+        for group in self.param_groups:
+            group["lr"] = rate
+        if self.grad_clip:
+            grads = [p.grad for group in self.param_groups for p in group["params"]
+                     if p.grad is not None]
+            clip_by_global_norm_(grads, self.grad_clip)
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+    """`optax.clip_by_global_norm` in place: every tensor kept where the
+    global norm sqrt(sum |g|^2) is below `max_norm`, else g / norm *
+    max_norm. (`torch.nn.utils.clip_grad_norm_` multiplies by max_norm /
+    (norm + 1e-6) and clips at equality, so it rounds otherwise.)"""
+    if not grads:
+        return
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
 def make_optimizer(params: Iterable[nn.Parameter], learning_rate: float = 1e-3,
-                   schedule: str = "constant") -> torch.optim.Optimizer:
-    """Constant-rate Adam with optax.adam's defaults (b1 0.9, b2 0.999,
-    eps 1e-8), which are torch's. Other schedules are not ported yet."""
-    if schedule != "constant":
-        raise NotImplementedError(
-            f"LR schedule {schedule!r} is not yet ported to pointseg_torch, see ROADMAP.md")
-    return torch.optim.Adam(params, lr=learning_rate)
+                   schedule: str = "constant", total_steps: int | None = None,
+                   warmup_steps: int = 0, grad_clip: float | None = None) -> ScheduledAdam:
+    """Adam with an optional rate schedule ('constant', 'cosine' or
+    'warmup_cosine', which need `total_steps`) and global-norm gradient
+    clipping, as `pointseg/train/state.py::make_optimizer` builds them.
+    'constant' with no clip is the reference's fixed-rate Adam."""
+    return ScheduledAdam(params, learning_rate, schedule, total_steps, warmup_steps, grad_clip)
 
 
 @dataclass
@@ -49,14 +132,28 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, *, device: torch.device | str,
-                       learning_rate: float = 1e-3, seed: int = 0) -> TrainState:
-    """Moves `model` to `device` and pairs it with Adam and a seeded FPS
-    generator on the same device."""
+                       learning_rate: float = 1e-3, seed: int = 0, schedule: str = "constant",
+                       total_steps: int | None = None, warmup_steps: int = 0,
+                       grad_clip: float | None = None) -> TrainState:
+    """Moves `model` to `device` and pairs it with Adam (`make_optimizer`'s
+    schedule and clip) and a seeded FPS generator on the same device."""
     device = torch.device(device)
     model.to(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    return TrainState(model, make_optimizer(model.parameters(), learning_rate), generator)
+    optimizer = make_optimizer(model.parameters(), learning_rate, schedule, total_steps,
+                               warmup_steps, grad_clip)
+    return TrainState(model, optimizer, generator)
+
+
+def _apply_update(state: TrainState) -> None:
+    """Optimizer update number `state.step` from the gradients in place:
+    the schedule's rate and the clip first where the optimizer is
+    `make_optimizer`'s."""
+    if isinstance(state.optimizer, ScheduledAdam):
+        state.optimizer.set_rate_and_clip(state.step)
+    state.optimizer.step()
+    state.step += 1
 
 
 def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
@@ -67,8 +164,7 @@ def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
     loss = masked_onehot_cross_entropy(logits, labels, lengths)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    state.optimizer.step()
-    state.step += 1
+    _apply_update(state)
     with torch.no_grad():
         accuracy = M.overall_accuracy(logits, labels, lengths)
         miou, _ = M.intersection_over_union(logits, labels, lengths)
@@ -111,18 +207,12 @@ def train_step_accum(state: TrainState, points: torch.Tensor, labels: torch.Tens
             miou, _ = M.intersection_over_union(logits, labels[i], lengths[i])
             micro = torch.stack([loss.detach(), accuracy, miou])
         sums = micro if sums is None else sums + micro
-    state.optimizer.step()
-    state.step += 1
+    _apply_update(state)  # the clip, if any, sees the mean gradient
     loss, accuracy, miou = (sums / k).unbind(0)
     return {"loss": loss, "accuracy": accuracy, "miou": miou}
 
 
-@torch.no_grad()
-def eval_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
-              lengths: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Loss + streaming metric contributions for one eval batch."""
-    state.model.eval()
-    logits = state.model(points)
+def _eval_outputs(logits, labels, lengths) -> dict[str, torch.Tensor]:
     correct, total = M.update_accuracy(logits, labels, lengths)
     inter, union = M.update_intersection_over_union(logits, labels, lengths)
     return {
@@ -133,3 +223,77 @@ def eval_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
         "unions": union,
         "confusion": M.confusion_matrix(logits, labels, lengths),
     }
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
+              lengths: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Loss + streaming metric contributions for one eval batch."""
+    state.model.eval()
+    return _eval_outputs(state.model(points), labels, lengths)
+
+
+class bn_adapted_model:  # noqa: N801  (the JAX package's name)
+    """`model` for test-time BatchNorm adaptation: calling it runs the
+    forward pass with every BatchNorm normalising with the statistics of
+    the batch at hand (training mode; `BatchNorm.adapting` takes them by
+    `var_mean`), every other module in eval mode (dropout off; an
+    EdgeConv follows its BatchNorm), no FPS generator (every start at 0)
+    and no gradient, and then puts back each module's mode and every
+    BatchNorm's running statistics and `num_batches_tracked` exactly as
+    they were. The JAX
+    package runs `train=True` with dropout 0 and throws the mutated
+    `batch_stats` away; the port's BatchNorm folds batch statistics into
+    its buffers in place whenever it is in training mode, so they are
+    copied before the forward and written back after it.
+
+    Running-average BatchNorm is where a model trained on sampled blocks
+    is sensitive to the point density of whole blocks at evaluation; the
+    batch statistics are robust to it (`pointseg/train/state.py::
+    bn_adapted_model`). An opt-in mode, not the parity default."""
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(self, points: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        modes = [(m, m.training) for m in self.model.modules()]
+        norms = [m for m in self.model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+        saved = [[b.clone() for b in m.buffers(recurse=False)] for m in norms]
+        self.model.eval()
+        for m in norms:
+            m.train()
+            m.adapting = isinstance(m, BatchNorm)
+        try:
+            return self.model(points, mask=mask)
+        finally:
+            for m, buffers in zip(norms, saved):
+                m.adapting = False
+                for b, old in zip(m.buffers(recurse=False), buffers):
+                    b.copy_(old)
+            for m, training in modes:
+                m.training = training
+
+
+def bn_batch_apply(model: nn.Module, points: torch.Tensor) -> torch.Tensor:
+    """Forward with batch-statistics BatchNorm; the running statistics stay
+    as they were (`bn_adapted_model`)."""
+    return bn_adapted_model(model)(points)
+
+
+def make_eval_step(model: nn.Module, bn_stats: str = "running"):
+    """eval_step variant factory: 'running' (the parity default,
+    `eval_step`) or 'batch' (test-time BatchNorm adaptation through
+    `bn_adapted_model(model)`; `model` is the state's)."""
+    if bn_stats == "running":
+        return eval_step
+    if bn_stats != "batch":
+        raise ValueError("bn_stats must be 'running' or 'batch'")
+    adapted = bn_adapted_model(model)
+
+    def step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
+             lengths: torch.Tensor) -> dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return _eval_outputs(adapted(points), labels, lengths)
+
+    return step

@@ -44,7 +44,7 @@ def _build(model, tiny_blocks, tmp_path, monkeypatch, env):
     args = cli.build_parser().parse_args(
         ["train", model, "--data-dir", tiny_blocks, "--device", "cpu", "--epochs", "0",
          "--train-sampling", "1024", "--test-sampling", "1024", "--num-workers", "0",
-         "--log-dir", str(tmp_path / "logs")])
+         "--log-dir", str(tmp_path / "logs"), "--model-dir", str(tmp_path / "models")])
     state, _ = cli.train_from_args(args)
     return state.model
 

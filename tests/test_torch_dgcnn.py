@@ -23,12 +23,16 @@ from pointseg.models import create_model as jax_create_model
 from pointseg.nn import EdgeConv as JaxEdgeConv
 from pointseg.ops.dispatch import set_use_pallas
 from pointseg.train.loss import masked_onehot_cross_entropy as jax_ce
+from pointseg.train.state import TrainState as JaxTrainState
+from pointseg.train.state import bn_batch_apply as jax_bn_batch_apply
+from pointseg.train.state import make_eval_step as jax_make_eval_step
 from pointseg_torch import ops as tops
 from pointseg_torch.io import from_jax_variables
 from pointseg_torch.models import DGCNN, DGCNNWithColor, create_model, get_model
 from pointseg_torch.models.dgcnn import get_loss
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
-from pointseg_torch.train.state import TrainState, make_optimizer, train_step
+from pointseg_torch.train.state import (TrainState, bn_batch_apply, make_eval_step,
+                                        make_optimizer, train_step)
 
 torch.set_num_threads(2)
 
@@ -260,6 +264,42 @@ def test_dgcnn_train_step_matches_jax(name, static_graph, batch, jax_variables):
     flat_t = flatten_dict(stats_t["batch_stats"], sep="/")
     for k, want in flatten_dict(jax.tree.map(np.asarray, stats_j), sep="/").items():
         np.testing.assert_allclose(flat_t[k], want, rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_dgcnn_make_eval_step_batch_matches_jax(name, batch, jax_variables):
+    """`make_eval_step(model, "batch")` against JAX's: every EdgeConv and
+    BatchNorm on the statistics of the batch at hand (JAX's `train=True`
+    forward), dropout off; the running statistics, their counts and every
+    module's mode stay as they were."""
+    x, y, lengths = batch
+    v = jax_variables[name]
+    model = _port_model(name, v)
+    _assert_same_graphs(name, v, model, x, train=True)
+    model.eval()
+    jm = _jax_model(name)
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
+                           batch_stats=v["batch_stats"], opt_state=None, apply_fn=jm.apply,
+                           tx=None)
+    want = jax_make_eval_step(jm, "batch")(jstate, *(jnp.asarray(a) for a in batch))
+    want_logits = jax_bn_batch_apply(jm, v, jnp.asarray(x))
+
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    state = TrainState(model, make_optimizer(model.parameters()), generator=None)
+    got = make_eval_step(model, "batch")(state, *(torch.from_numpy(a) for a in batch))
+    logits = bn_batch_apply(model, torch.from_numpy(x))
+    for k, b in model.named_buffers():
+        assert torch.equal(b, buffers[k]), k
+    assert not any(m.training for m in model.modules())
+
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    for key in ("correct", "total", "confusion"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    # batch statistics, not the running ones
+    with torch.no_grad():
+        running = model(torch.from_numpy(x))
+    assert float((running - logits).abs().max()) > 1e-2
 
 
 def test_dgcnn_static_graph_and_knn_select_share_parameters(batch, jax_variables):

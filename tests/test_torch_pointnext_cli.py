@@ -29,7 +29,8 @@ def test_cli_trains_on_cpu(tiny_blocks, tmp_path, model, capsys):
     cli.main(["train", model, "--synthetic", "--data-dir", tiny_blocks, "--device", "cpu",
               "--epochs", "1", "--train-batch-size", "16", "--train-sampling", "1024",
               "--test-sampling", "1024", "--test-batch-size", "4", "--num-workers", "0",
-              "--log-dir", str(tmp_path / "logs"), "--log-interval", "1"])
+              "--log-dir", str(tmp_path / "logs"), "--model-dir", str(tmp_path / "models"),
+              "--log-interval", "1"])
     assert "Epoch 1 completed" in capsys.readouterr().out
     (records,) = list((tmp_path / "logs").rglob("records.json"))
     rec = json.loads(records.read_text())
