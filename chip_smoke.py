@@ -147,7 +147,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    synthetic S3DIS-shaped block dataset, one epoch (12 steps) and its
    evaluation pass each, with the launch counters set to 0 just before
    and read just after: `train PointNet++` must launch fps, ball_query
-   and three_nn 4 times each per forward pass; `train DeepGraphCnn` must launch knn (4 per step) and
+   and three_nn 4 times each per forward pass; `train PointNet` none of
+   the port's kernels (its step time is printed beside the float32 work
+   of its Linear layers, counted by hooks, and that work's least time at
+   67 TFLOP/s); `train DeepGraphCnn` must launch knn (4 per step) and
    gather_rows; `train PointNeXt` must launch fps 4, ball_query 9 and
    three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
    4 times. For both of these, three steps with
@@ -192,7 +195,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    turns within this one run.
 5. Output: each trained model's eval logits on the card against the same
    weights on the CPU (plain versions), rtol/atol 1e-4 (PointNet++,
-   PointNeXt, PointNet++MSG). For DGCNN that
+   PointNet, PointNeXt, PointNet++MSG). For DGCNN that
    holds under `static_graph=True` and, with the dynamic graph, when the
    CPU model is given the four graphs the card built. Left to build its
    own, the CPU can flip a neighbour in conv2-4, which select on
@@ -211,9 +214,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    give bit-equal eval logits. `evaluate` on blocks: a synthetic area 6
    of 3 m x 3 m rooms of 140,000 and 500,000 points, whose 1 m blocks
    fill the 16384 and 65536 buckets (blocks and batches per bucket
-   printed), for that PointNet++ checkpoint and for phase 4's DeepGraphCnn
-   saved as one: fps, ball_query, three_nn and gather_rows must launch
-   for PointNet++, knn for DeepGraphCnn; one batch of the 16384 bucket on
+   printed), for that PointNet++ checkpoint, for phase 4's DeepGraphCnn
+   saved as one and for phase 4's PointNet with running and with batch
+   statistics (`--bn-stats batch`): fps, ball_query, three_nn and
+   gather_rows must launch for PointNet++, knn for DeepGraphCnn, none of
+   the port's kernels for PointNet; one batch of the 16384 bucket on
    the card against the CPU. `evaluate --whole-rooms` with `--stream
    device` and `--stream host` over a synthetic area 6 of four rooms of
    1,000,000 points (fps and three_nn four times a forward: one a group
@@ -224,6 +229,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    near-ties. Each `evaluate` prints points/s and ms a block batch or a
    room under CUDA events over the whole call, peak allocated memory,
    the launches of each kernel and the metrics.
+7. Measurement commands: `benchmark` through `cli.main` for every
+   registry model in train and inference mode at B=8, N=4096, 20 runs
+   after 3 warm-up calls (the subcommand's own input: N(0, 1) points,
+   random one-hot labels), each JSON line printed with the launches of
+   each kernel a call (the model's path kernels the same count every
+   call, no other); `python -m pointseg_torch benchmark` with its
+   defaults and `python -m pointseg_torch doctor` (exit 0, the card
+   named, the kernels built and loaded) as a user starts them; `train
+   PointNet++ --profile DIR` one epoch, whose Chrome trace must name the
+   port's FPS, ball-query, 3-NN and gather kernels. The script's whole
+   time is printed before the two JSON lines.
 
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
@@ -232,7 +248,9 @@ The next-to-last line of output is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import contextlib
+import gc
 import glob
+import io
 import json
 import math
 import os
@@ -241,6 +259,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2099,6 +2118,35 @@ def steady_state(state, batch, label: str) -> dict:
             "points_per_s": points / (step_ms / 1e3), "peak_bytes": peak}
 
 
+def matmul_floor(model, batch, perf: dict, label: str) -> None:
+    """Prints the float32 work of the Linear layers in a train step of
+    `model` on `batch` (counted by hooks in one forward pass: rows x in x
+    out multiply-adds; a step is the forward and the backward's two
+    products, 6 FLOP a multiply-add) and the least time it could take at
+    the card's peak float32 rate, beside the measured step."""
+    macs = 0
+
+    def count(module, args, out):
+        nonlocal macs
+        macs += args[0].numel() // module.in_features * module.in_features * module.out_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Linear)]
+    try:
+        with torch.no_grad():
+            model.eval()(batch[0])
+    finally:
+        for hook in hooks:
+            hook.remove()
+        model.train()
+    points = batch[0].shape[0] * batch[0].shape[1]
+    floor_ms = 6 * macs / PEAK_F32_FLOPS * 1e3
+    print(f"{label}: Linear work {macs / points:,.0f} multiply-adds a point forward, "
+          f"{6 * macs / 1e9:.1f} GFLOP a train step; floor {floor_ms:.3f} ms at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s float32; measured step {perf['step_ms']:.3f} ms "
+          f"({100 * floor_ms / perf['step_ms']:.1f}% of the floor's rate)")
+
+
 def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
                       flags: tuple[str, ...] = (), mode: str = "host loader",
                       env: dict | None = None):
@@ -2249,6 +2297,12 @@ def trainer_phase(device, workdir: str):
     batch = to_device(next(iter(train_loader)), device)
     pp_perf = steady_state(pp_state, batch, "PointNet++")
 
+    pn_state, pn_launches, _ = train_through_cli("PointNet", workdir, ())
+    if any(pn_launches.values()):
+        raise AssertionError(f"PointNet runs none of the port's kernels, got {pn_launches}")
+    pn_perf = steady_state(pn_state, batch, "PointNet")
+    matmul_floor(pn_state.model, batch, pn_perf, "PointNet")
+
     dg_state, dg_launches, _ = train_through_cli("DeepGraphCnn", workdir,
                                                  ("knn", "gather_rows"))
     steps = dg_state.step
@@ -2261,7 +2315,8 @@ def trainer_phase(device, workdir: str):
                            device)
     dg_perf = steady_state(dg_state, batch, "DeepGraphCnn")
     remat_cost(dg_state, batch, device)
-    states = {"PointNet++": (pp_state, pp_perf), "DeepGraphCnn": (dg_state, dg_perf)}
+    states = {"PointNet++": (pp_state, pp_perf), "PointNet": (pn_state, pn_perf),
+              "DeepGraphCnn": (dg_state, dg_perf)}
 
     # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
     for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
@@ -2531,7 +2586,7 @@ def check_logits(label: str, got, want) -> None:
 def output_phase(states: dict, batch) -> None:
     x = batch[0][:2]
     with torch.no_grad():
-        for name in ("PointNet++", "PointNeXt", "PointNet++MSG"):
+        for name in ("PointNet++", "PointNet", "PointNeXt", "PointNet++MSG"):
             model = states[name][0].model.eval()
             check_logits(name, model(x).cpu(), cpu_copy(name, model)(x.cpu()))
 
@@ -2720,9 +2775,11 @@ def near_tie_check(label: str, got: torch.Tensor, want: torch.Tensor, atol: floa
           f"{int(tie.sum())}")
 
 
-def bucketed_eval(device, workdir: str, smi: str, pp_dir: str, dg_dir: str) -> dict:
-    """`evaluate` of PointNet++ and DeepGraphCnn on blocks that fill the
-    16384 and 65536 buckets; returns launches per block batch by model."""
+def bucketed_eval(device, workdir: str, smi: str, pp_dir: str, dg_dir: str,
+                  pn_dir: str) -> dict:
+    """`evaluate` of PointNet++, DeepGraphCnn and PointNet (with running
+    and with batch statistics) on blocks that fill the 16384 and 65536
+    buckets; returns launches per block batch by run."""
     from pointseg_torch import cli
     from pointseg_torch.data.datasets import create_block_dataloaders
 
@@ -2748,17 +2805,22 @@ def bucketed_eval(device, workdir: str, smi: str, pp_dir: str, dg_dir: str) -> d
                              f"{blocks}")
     per_batch = {}
     n_batches = sum(batches.values())
-    for name, ckpt, needed in (("PointNet++", pp_dir, ("fps", "ball_query", "three_nn",
-                                                       "gather_rows")),
-                               ("DeepGraphCnn", dg_dir, ("knn", "gather_rows"))):
+    for name, ckpt, needed, stats in (
+            ("PointNet++", pp_dir, ("fps", "ball_query", "three_nn", "gather_rows"), "running"),
+            ("DeepGraphCnn", dg_dir, ("knn", "gather_rows"), "running"),
+            ("PointNet", pn_dir, (), "running"), ("PointNet", pn_dir, (), "batch")):
         args = cli.build_parser().parse_args(
             ["evaluate", "--model-path", ckpt, "--data-path", data, "--device", str(device),
-             "--save-results", f"{workdir}/{name}_blocks.json"])
+             "--bn-stats", stats, "--save-results", f"{workdir}/{name}_{stats}_blocks.json"])
         results, ms, peak, launches = timed_call(lambda: cli.evaluate_from_args(args))
         missing = [k for k in needed if launches[k] == 0]
         if missing or not math.isfinite(results["loss"]):
             raise AssertionError(f"evaluate {name}: loss {results['loss']}, kernels never "
                                  f"launched {missing}: {launches}")
+        if not needed and any(launches.values()):
+            raise AssertionError(f"evaluate {name} runs none of the port's kernels: {launches}")
+        if stats != "running":
+            name = f"{name} --bn-stats {stats}"
         per_batch[name] = {k: v / n_batches for k, v in launches.items() if v}
         print(f"evaluate {name}, blocks ({smi}): {ms:.1f} ms for {n_batches} batches, "
               f"{points / (ms / 1e3):.0f} points/s, {ms / n_batches:.2f} ms a block batch, peak "
@@ -2878,13 +2940,146 @@ def checkpoint_phase(device, workdir: str, smi: str, states: dict, batch) -> dic
 
     run_dir, resumed, steps = train_and_resume(device, workdir)
     restore_bit_for_bit(device, run_dir, resumed, steps, batch[0][:2])
-    dg_dir = f"{workdir}/ckpt_dgcnn"
+    dg_dir, pn_dir = f"{workdir}/ckpt_dgcnn", f"{workdir}/ckpt_pointnet"
     save_checkpoint(dg_dir, states["DeepGraphCnn"][0],
                     config={"model": "DeepGraphCnn", "static_graph": False})
-    per_batch = bucketed_eval(device, workdir, smi, run_dir, dg_dir)
+    save_checkpoint(pn_dir, states["PointNet"][0], config={"model": "PointNet"})
+    per_batch = bucketed_eval(device, workdir, smi, run_dir, dg_dir, pn_dir)
     per_group = whole_room_eval(device, workdir, smi, run_dir)
     return {"block batch": per_batch, "window group": per_group}
 
+
+# Phase 7: `benchmark` as the JAX package's measures it (B=8, N=4096),
+# every registry model in both modes, fewer runs than its default
+BENCH_B, BENCH_N, BENCH_RUNS, BENCH_WARMUP = 8, 4096, 20, 3
+BENCH_ARGS = ("--batch-size", str(BENCH_B), "--num-points", str(BENCH_N),
+              "--runs", str(BENCH_RUNS), "--warmup", str(BENCH_WARMUP))
+BENCH_KEYS = ["model", "mode", "B", "N", "mean_s", "std_s", "min_s", "max_s", "fps",
+              "num_runs", "points_per_sec"]
+
+
+def path_kernels(model_name: str) -> tuple[str, ...]:
+    """The port's kernels a forward pass of `model_name` launches on the
+    flat kernels (the default)."""
+    from pointseg_torch import cli
+
+    if model_name == "PointNet":
+        return ()
+    if model_name in cli.DGCNN_NAMES:
+        return ("knn", "gather_rows")
+    return ("fps", "ball_query", "three_nn", "gather_rows")
+
+
+def benchmark_in_process(model_name: str, mode: str, smi: str) -> dict:
+    """`benchmark` through `cli.main`, its line printed and checked, the
+    launches of each kernel counted over its calls."""
+    from pointseg_torch import cli
+
+    out = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["benchmark", "--model", model_name, "--mode", mode, *BENCH_ARGS])
+    launches = read_launches()
+    (line,) = out.getvalue().strip().splitlines()
+    print(line)
+    result = json.loads(line)
+    needed = path_kernels(model_name)
+    calls = BENCH_RUNS + BENCH_WARMUP
+    per_call = {k: v / calls for k, v in launches.items() if v}
+    print(f"benchmark {model_name} {mode} ({smi}): {1e3 * result['mean_s']:.3f} ms a call, "
+          f"{result['points_per_sec']:.0f} points/s; launches a call {per_call}")
+    if code != 0 or list(result) != BENCH_KEYS or (result["B"], result["N"]) != (BENCH_B, BENCH_N) \
+            or not all(math.isfinite(result[k]) for k in BENCH_KEYS[4:]):
+        raise AssertionError(f"benchmark {model_name} {mode}: exit {code}, {result}")
+    wrong = {k: v for k, v in launches.items()
+             if (k in needed) != (v > 0) or v % calls}
+    if wrong:
+        raise AssertionError(f"benchmark {model_name} {mode} must launch {needed} the same "
+                             f"number of times each call and no other kernel: {launches}")
+    return {**result, "launches_a_call": per_call}
+
+
+def host_state() -> None:
+    """Prints what of this process could slow a host-bound loop: its
+    Python and native threads, the objects the garbage collector tracks,
+    and the host's load."""
+    with open("/proc/self/status") as f:
+        native = next(line.split()[1] for line in f if line.startswith("Threads:"))
+    print(f"host: {threading.active_count()} Python threads "
+          f"({sorted(t.name for t in threading.enumerate())}), {native} native threads, "
+          f"{len(gc.get_objects())} objects tracked by the garbage collector (counts "
+          f"{gc.get_count()}), load average {os.getloadavg()}")
+
+
+def run_module(*argv: str) -> str:
+    """`python -m pointseg_torch *argv` from the checkout's root, as a
+    user starts it; its output printed, its standard output returned.
+    Raises unless it exits with 0."""
+    done = subprocess.run([sys.executable, "-m", "pointseg_torch", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    print(f"python -m pointseg_torch {' '.join(argv)}: exit {done.returncode}\n"
+          f"{done.stdout.strip()}")
+    if done.returncode != 0:
+        raise AssertionError(f"python -m pointseg_torch {argv}: exit {done.returncode}\n"
+                             f"{done.stderr[-3000:]}")
+    return done.stdout
+
+
+def measurement_phase(device, workdir: str, smi: str) -> dict:
+    """Phase 7: `benchmark` of every registry model in both modes, the
+    subcommand once more as a user starts it, `doctor`, and `train
+    PointNet++ --profile`, whose trace must name the port's kernels.
+    Returns the benchmark readings by (model, mode)."""
+    from pointseg_torch import cli
+
+    t0 = time.time()
+    host_state()
+    readings = {}
+    for model_name in cli.MODEL_CHOICES:
+        for mode in ("train", "inference"):
+            readings[model_name, mode] = benchmark_in_process(model_name, mode, smi)
+        torch.cuda.empty_cache()
+    # the host-bound models' in-process readings against this process's
+    # state: PointNet++ train again, with the cyclic garbage collector on
+    # and off (printed, no claim)
+    for collector in ("on", "off"):
+        if collector == "off":
+            gc.collect()
+            gc.disable()
+        try:
+            again = benchmark_in_process("PointNet++", "train", smi)
+        finally:
+            gc.enable()
+        print(f"benchmark PointNet++ train in process again, garbage collector {collector}: "
+              f"{1e3 * again['mean_s']:.3f} ms a call (min {1e3 * again['min_s']:.3f})")
+    host_state()
+
+    result = json.loads(run_module("benchmark").strip().splitlines()[-1])
+    if list(result) != BENCH_KEYS or [result[k] for k in ("model", "mode", "B", "N", "num_runs")] \
+            != ["PointNet++", "train", 8, 4096, 30]:
+        raise AssertionError(f"benchmark with its defaults: {result}")
+    doctor = run_module("doctor")
+    if (torch.cuda.get_device_name(0) not in doctor
+            or "CUDA kernels: built and loaded" not in doctor):
+        raise AssertionError("doctor must name the card and load the kernels")
+
+    trace_dir = f"{workdir}/trace"
+    train_through_cli("PointNet++", workdir, path_kernels("PointNet++"),
+                      flags=("--profile", trace_dir))
+    with open(f"{trace_dir}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(bool(re.search(rf"\b{name}[<(]", k)) for k in kernels)
+             for name in own_kernel_names()}
+    found = {k: n for k, n in found.items() if n}
+    print(f"train PointNet++ --profile: {len(events)} trace events, {len(kernels)} kernel "
+          f"launches; the port's kernels named in the trace (launches): {found}")
+    if not {"ball_query_kernel", "three_nn_kernel", "gather_rows_kernel"} <= set(found) or \
+            not any(k.startswith("fps_") for k in found):
+        raise AssertionError(f"the profile names too few of the port's kernels: {found}")
+    print(f"phase 7: {time.time() - t0:.1f} s")
+    return readings
 
 
 def main() -> int:
@@ -2895,6 +3090,7 @@ def main() -> int:
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     parent = args[1] if args else None
+    started = time.time()
     phase("1. device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required",
@@ -2948,6 +3144,8 @@ def main() -> int:
         output_phase(states, batch)
         phase("6. checkpoint, resume and evaluate")
         eval_launches = checkpoint_phase(device, workdir, smi, states, batch)
+        phase("7. measurement commands")
+        readings = measurement_phase(device, workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2974,6 +3172,12 @@ def main() -> int:
           f"{({k: r['flips'] for k, r in record.rows.items()})}")
     print(f"summary: {smi}; phase 6 launches a block batch (2 blocks, buckets 16384 and 65536) "
           f"and a whole-room window group (8 windows of 4096 points): {eval_launches}")
+    for (model_name, mode), r in readings.items():
+        print(f"summary: {smi}; benchmark {model_name} {mode} (B=8, N=4096, N(0, 1) points): "
+              f"mean {1e3 * r['mean_s']:.3f} ms (min {1e3 * r['min_s']:.3f}, max "
+              f"{1e3 * r['max_s']:.3f}), {r['points_per_sec']:.0f} points/s, launches a call "
+              f"{r['launches_a_call']}")
+    print(f"summary: whole script {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

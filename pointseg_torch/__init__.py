@@ -11,10 +11,11 @@ imports nothing of `pointseg`: `data/` is its own copy of the numpy
 data layer.
 
 Ported so far: training (checkpoints, resume, rate schedules, gradient
-clipping) and evaluation (blocks and whole rooms: the `train` and
-`evaluate` subcommands) of PointNet++ (SSG and MSG), PointNeXt (and its
--B and -L depths) and DGCNN with and without the colour branch
-(ROADMAP.md lists the rest).
+clipping, `--profile`) and evaluation (blocks and whole rooms: the
+`train` and `evaluate` subcommands) of all eight registry models
+(PointNet, PointNet++ SSG and MSG, PointNeXt and its -B and -L depths,
+DGCNN with and without the colour branch), and the `benchmark` and
+`doctor` subcommands (ROADMAP.md lists the rest).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Command-line interface of the port (the `train` and `evaluate`
-subcommands of `pointseg/cli.py`).
+"""Command-line interface of the port (the `train`, `evaluate`,
+`benchmark` and `doctor` subcommands of `pointseg/cli.py`).
 
     python -m pointseg_torch train PointNet++ [--synthetic] [--data-dir D]
         [--epochs E] [--device cuda] [--model-dir saved_models] ...
@@ -11,8 +11,12 @@ subcommands of `pointseg/cli.py`).
     python -m pointseg_torch train <model> --device-data
         [--device-store auto|flat|compact|host] [--pack-cache DIR] [--scan-steps K]
     python -m pointseg_torch train <model> --accum-steps K
+    python -m pointseg_torch train <model> --profile DIR
     python -m pointseg_torch evaluate --model-path CKPT --data-path D
         [--whole-rooms [--stream device|host]] [--bn-stats running|batch] ...
+    python -m pointseg_torch benchmark [--model PointNet++] [--mode train|inference]
+        [--batch-size 8] [--num-points 4096] [--runs 30] [--warmup 5]
+    python -m pointseg_torch doctor
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 8 (test 2), 4096 points, test area 6, 14 classes. `train` writes a
@@ -20,8 +24,9 @@ checkpoint and its `config.json` sidecar after every epoch into
 `<model-dir>/<model>/<timestamp>`; `evaluate` reads the model name and
 `--static-graph` from that sidecar. Flags of the JAX package that the
 port does not carry yet are accepted by the parser only to be refused
-with a pointer to ROADMAP.md. `--device cuda` without a
-CUDA device raises; the port never moves work to the CPU by itself.
+with a pointer to ROADMAP.md. `--device cuda` (the default of
+`train`, `evaluate` and `benchmark`) without a CUDA device raises; the
+port never moves work to the CPU by itself.
 The JAX package's environment switches POINTSEG_SELECT2L and
 POINTSEG_BQ_FILLER select the two-level kernels and the ball-query
 filler here too (`kernel_switches`).
@@ -30,15 +35,17 @@ filler here too (`kernel_switches`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import subprocess
 from datetime import datetime
 
 import torch
 
 from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, S3DIS_CLASSES
 
-# the JAX package's model names; pointseg_torch.models says which are ported
+# the JAX package's model names (pointseg_torch.models.MODELS)
 MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
                  "PointNeXt-B", "PointNeXt-L", "DeepGraphCnn", "DGCNN"]
 DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
@@ -47,10 +54,11 @@ DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 _NOT_PORTED = (
     ("--bf16", dict(action="store_true")),
     ("--data-parallel", dict(action="store_true")),
-    ("--profile", dict(default=None)),
     ("--save-confusion", dict(action="store_true")),
 )
 EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
+BF16_NOT_PORTED = ("not yet ported to pointseg_torch: --bf16; see ROADMAP.md (M5) for the order "
+                   "of the port")
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -117,6 +125,10 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; the kernels' path) or 'cpu' "
                         "(plain PyTorch versions, for small runs and tests).")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="Trace the whole training run with torch.profiler (host, and the "
+                        "card's kernels on --device cuda) into DIR/trace.json, a Chrome "
+                        "trace.")
     for flag, kwargs in _NOT_PORTED:
         p.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
 
@@ -138,12 +150,15 @@ def kernel_switches(model: str) -> dict:
     POINTSEG_BQ_FILLER ("repeat", the default, or "index": what fills a
     sparse ball; `pointseg/ops/ballquery.py::filler_mode`). The DGCNNs
     take the first as `knn_select`, the ball-query models both as
-    `ball_select` and `filler`."""
+    `ball_select` and `filler`; PointNet, which selects nothing, takes
+    neither."""
     two_level = os.environ.get("POINTSEG_SELECT2L", "0") not in ("0", "false", "False")
     select = "two_level" if two_level else "flat"
     filler = os.environ.get("POINTSEG_BQ_FILLER", "repeat")
     if filler not in ("repeat", "index"):
         raise SystemExit(f"POINTSEG_BQ_FILLER must be 'repeat' or 'index', got {filler!r}")
+    if model == "PointNet":
+        return {}
     if model in DGCNN_NAMES:
         return {"knn_select": select}
     return {"ball_select": select, "filler": filler}
@@ -257,14 +272,25 @@ def train_from_args(args: argparse.Namespace):
     config["data_mode"] = data_mode  # "device", "compact", "host" or "host loader"
     config["kernel_switches"] = switches
     logger = MetricsLogger(log_path)
+    profiler = contextlib.nullcontext()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
     try:
-        state, records = train_model(
-            state, train_loader, test_loader, num_epochs=args.epochs,
-            log_interval=args.log_interval, logger=logger,
-            num_classes=NUM_S3DIS_CLASSES, ckpt_dir=ckpt_dir, config=config,
-            scan_steps=args.scan_steps, accum_steps=args.accum_steps)
+        with profiler:
+            state, records = train_model(
+                state, train_loader, test_loader, num_epochs=args.epochs,
+                log_interval=args.log_interval, logger=logger,
+                num_classes=NUM_S3DIS_CLASSES, ckpt_dir=ckpt_dir, config=config,
+                scan_steps=args.scan_steps, accum_steps=args.accum_steps)
     finally:
         logger.close()
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"Profiler trace written to {args.profile}")
     save_records(log_path, "records", records)
     print(f"View logs under: {log_path} (metrics.csv / metrics.jsonl)")
     print(f"Model checkpoints saved to: {ckpt_dir}.")
@@ -350,8 +376,7 @@ def evaluate_from_args(args: argparse.Namespace) -> dict:
                 else os.path.dirname(args.model_path))
     config = load_config(ckpt_dir) or {}
     if args.bf16 or config.get("bf16"):
-        raise SystemExit("not yet ported to pointseg_torch: --bf16; see ROADMAP.md (M5) for "
-                         "the order of the port")
+        raise SystemExit(BF16_NOT_PORTED)
     device = resolve_device(args.device)
     model_name = args.model or config.get("model", "PointNet++")
     num_classes = args.num_classes
@@ -412,11 +437,125 @@ def evaluate_from_args(args: argparse.Namespace) -> dict:
     return results
 
 
+def _add_benchmark_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", default="PointNet++", choices=MODEL_CHOICES)
+    p.add_argument("--mode", choices=["train", "inference"], default="train")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--num-points", type=int, default=4096)
+    p.add_argument("--runs", type=int, default=30)
+    p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; the kernels' path, timed with CUDA events) or "
+                        "'cpu' (plain PyTorch versions, host clock).")
+    p.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
+
+
+def benchmark_from_args(args: argparse.Namespace) -> dict:
+    """Runs the `benchmark` subcommand: `--runs` timed train steps (Adam
+    1e-3) or eval-mode forwards of a freshly initialised model on one
+    batch of N(0, 1) points with random one-hot labels, as the JAX
+    package's `benchmark` makes them (`np.random.default_rng(0)`); prints
+    and returns {model, mode, B, N, mean_s, std_s, min_s, max_s, fps,
+    num_runs, points_per_sec}."""
+    import numpy as np
+
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state, train_step
+    from pointseg_torch.utils.benchmark import benchmark_points_per_sec
+
+    if args.bf16:
+        raise SystemExit(BF16_NOT_PORTED)
+    device = resolve_device(args.device)
+    torch.manual_seed(0)  # weight init and dropout
+    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES,
+                         **kernel_switches(args.model))
+    _no_tf32()
+    B, N = args.batch_size, args.num_points
+    rng = np.random.default_rng(0)
+    points = torch.from_numpy(rng.normal(size=(B, N, 9)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(np.eye(NUM_S3DIS_CLASSES, dtype=np.uint8)[
+        rng.integers(0, NUM_S3DIS_CLASSES, size=(B, N))]).to(device)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=device)
+    state = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
+
+    if args.mode == "train":
+        def call():
+            train_step(state, points, labels, lengths)
+    else:
+        model.eval()
+
+        def call():
+            with torch.inference_mode():
+                model(points)
+
+    stats = benchmark_points_per_sec(call, points_per_call=B * N, num_runs=args.runs,
+                                     warmup=args.warmup, device=device)
+    result = {"model": args.model, "mode": args.mode, "B": B, "N": N, **stats}
+    print(json.dumps(result))
+    return result
+
+
+def doctor_from_args(args: argparse.Namespace) -> None:
+    """Runs the `doctor` subcommand: versions, the cards, nvcc, whether
+    the kernel library builds and loads, the two kernel switches and the
+    native ETL parser. Exits with 1 where a card is present and the
+    kernels fail to build or load."""
+    import pointseg_torch
+    from pointseg_torch.data.native import get_lib
+    from pointseg_torch.ops import _kernels
+
+    print(f"pointseg_torch {pointseg_torch.__version__}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda or 'none (a CPU build)'}")
+    card = torch.cuda.is_available()
+    if card:
+        try:
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=60).stdout.strip().splitlines()
+        except (OSError, subprocess.TimeoutExpired):
+            smi = []
+        for i in range(torch.cuda.device_count()):
+            shown = smi[i] if i < len(smi) else "nvidia-smi: not available"
+            print(f"cuda:{i}: {torch.cuda.get_device_name(i)} [{shown}]")
+    else:
+        print("cuda: unavailable (torch.cuda.is_available() is false; --device cpu runs the "
+              "plain PyTorch versions)")
+    try:
+        nvcc = _kernels._nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.strip().splitlines()
+        print(f"nvcc: {nvcc} ({version[-1] if version else 'no version printed'})")
+    except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
+        print(f"nvcc: not found ({e})")
+    failed = False
+    if card:
+        try:
+            _kernels.library()
+            print(f"CUDA kernels: built and loaded ({_kernels.build()})")
+        except Exception as e:  # any build or load failure is the report
+            print(f"CUDA kernels: FAILED to build or load: {e}")
+            failed = True
+    else:
+        print("CUDA kernels: not built (no card)")
+    select2l = os.environ.get("POINTSEG_SELECT2L", "<default>")
+    try:
+        switches = kernel_switches("PointNet++")
+        print(f"two-level selection: {'ON' if switches['ball_select'] == 'two_level' else 'off'}"
+              f"  [POINTSEG_SELECT2L={select2l}]")
+        print(f"ball-query filler mode: {switches['filler']}")
+    except SystemExit as e:
+        print(f"kernel switches refused by train and evaluate: {e}")
+    print(f"native ETL parser: "
+          f"{'available' if get_lib() is not None else 'unavailable (Python fallback)'}")
+    if failed:
+        raise SystemExit(1)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
-        description="pointseg's PyTorch / CUDA port: trains and evaluates PointNet++ "
-                    "(SSG and MSG), PointNeXt (-B, -L) and the DGCNNs.")
+        description="pointseg's PyTorch / CUDA port: trains, evaluates and benchmarks "
+                    "PointNet, PointNet++ (SSG and MSG), PointNeXt (-B, -L) and the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")
     _add_train_args(train)
@@ -424,6 +563,11 @@ def build_parser() -> argparse.ArgumentParser:
     evaluate = sub.add_parser("evaluate", help="Evaluate a checkpoint.")
     _add_evaluate_args(evaluate)
     evaluate.set_defaults(func=evaluate_from_args)
+    benchmark = sub.add_parser("benchmark", help="Micro-benchmark a model.")
+    _add_benchmark_args(benchmark)
+    benchmark.set_defaults(func=benchmark_from_args)
+    doctor = sub.add_parser("doctor", help="Environment and kernel diagnostics.")
+    doctor.set_defaults(func=doctor_from_args)
     return parser
 
 

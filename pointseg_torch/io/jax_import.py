@@ -8,8 +8,10 @@ model's `state_dict`. Each Dense kernel (in, out) becomes a Linear weight
 into the reference's single (out, 3 + D) weight, and an EdgeConv's
 `w_edge` / `w_center` kernels go to the port's two Linears of the same
 names. An InvResMLP's `neighbour_mlp` / `point_mlp` and an MSG stage's
-`scale_{s}_0` / `scale_{s}` take the port's names (`nn/blocks.py`). Every
-leaf must be used exactly once: an unmapped or left-over leaf raises.
+`scale_{s}_0` / `scale_{s}` take the port's names (`nn/blocks.py`). A
+TNet's `SharedMLP_0` / `SharedMLP_1` / `Dense_0` become the reference's
+`conv1..3` / `fc1..2` with `bn1..5`, and `fc3`. Every leaf must be used
+exactly once: an unmapped or left-over leaf raises.
 """
 
 from __future__ import annotations
@@ -104,6 +106,45 @@ def _decoder(r: _Reader) -> None:
     r.dense("conv", "conv")
 
 
+def _tnet(r: _Reader, fpath: str, tkey: str) -> None:
+    for i in range(3):
+        r.dense(f"{fpath}/SharedMLP_0/Dense_{i}", f"{tkey}.conv{i + 1}")
+        r.bn(f"{fpath}/SharedMLP_0/BatchNorm_{i}", f"{tkey}.bn{i + 1}")
+    for i in range(2):
+        r.dense(f"{fpath}/SharedMLP_1/Dense_{i}", f"{tkey}.fc{i + 1}")
+        r.bn(f"{fpath}/SharedMLP_1/BatchNorm_{i}", f"{tkey}.bn{i + 4}")
+    r.dense(f"{fpath}/Dense_0", f"{tkey}.fc3")
+
+
+def _pointnet_encoder(r: _Reader) -> None:
+    """The encoder, with the feature TNet where the variables hold one
+    (`feature_transform=True`)."""
+    _tnet(r, "feat/stn", "feat.stn")
+    if any(path.startswith("params/feat/fstn/") for path in r.leaves):
+        _tnet(r, "feat/fstn", "feat.fstn")
+    for i, name in ((1, "mlp1"), (2, "mlp2")):
+        r.dense(f"feat/{name}/Dense_0", f"feat.conv{i}")
+        r.bn(f"feat/{name}/BatchNorm_0", f"feat.bn{i}")
+    r.dense("feat/conv3", "feat.conv3")
+    r.bn("feat/bn3", "feat.bn3")
+
+
+def _pointnet(r: _Reader) -> None:
+    _pointnet_encoder(r)
+    for i in range(3):
+        r.dense(f"head/Dense_{i}", f"conv{i + 1}")
+        r.bn(f"head/BatchNorm_{i}", f"bn{i + 1}")
+    r.dense("conv4", "conv4")
+
+
+def _pointnet_cls(r: _Reader) -> None:
+    _pointnet_encoder(r)
+    for i in (1, 2):
+        r.dense(f"fc{i}", f"fc{i}")
+        r.bn(f"bn{i}", f"bn{i}")
+    r.dense("fc3", "fc3")
+
+
 def _pointnetpp(r: _Reader) -> None:
     for sa in SA_STAGES:
         r.set_abstraction(sa, 3)
@@ -134,6 +175,8 @@ def _dgcnn(r: _Reader, with_color: bool) -> None:
 
 
 _IMPORTERS = {
+    "PointNet": _pointnet,
+    "PointNetCls": _pointnet_cls,
     "PointNet++": _pointnetpp,
     "PointNet++MSG": _pointnetpp_msg,
     "PointNeXt": lambda r: _pointnext(r, (1, 2, 1, 1)),
@@ -148,18 +191,18 @@ def from_jax_variables(model_name: str, variables: Mapping) -> dict[str, torch.T
     """Converts JAX-package variables into the port model's state_dict.
 
     Args:
-        model_name: CLI model name, one that `pointseg_torch.models`
-            registers.
+        model_name: CLI model name (`pointseg_torch.models.MODELS`) or
+            "PointNetCls".
         variables: {"params": ..., "batch_stats": ...} nested mappings of
             arrays (numpy, or anything `np.asarray` takes).
 
     Returns:
-        A state_dict for `pointseg_torch.models.create_model(model_name)`.
+        A state_dict for `pointseg_torch.models.create_model(model_name)`
+        (PointNet's and PointNetCls's `feature_transform` as the
+        variables have it).
     """
     if model_name not in _IMPORTERS:
-        raise NotImplementedError(
-            f"no JAX import for {model_name!r} yet, see ROADMAP.md "
-            f"(ported: {sorted(_IMPORTERS)})")
+        raise ValueError(f"unknown model {model_name!r}; expected one of {sorted(_IMPORTERS)}")
     reader = _Reader(variables)
     _IMPORTERS[model_name](reader)
     if reader.leaves:

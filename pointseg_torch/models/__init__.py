@@ -1,6 +1,7 @@
-"""Model registry (port of `pointseg.models`). PointNet++ (SSG and MSG),
-the three PointNeXt depths and the two DGCNNs are ported so far;
-ROADMAP.md lists the order of the rest."""
+"""Model registry (port of `pointseg.models`): all eight of the JAX
+package's names. `PointNetCls` is exported and, as in the JAX package,
+not registered: the registry is the segmentation CLI's ((B, N, C)
+logits), and it emits per-cloud (B, C) logits."""
 
 from __future__ import annotations
 
@@ -9,11 +10,17 @@ from functools import partial
 from torch import nn
 
 from pointseg_torch.models.dgcnn import DGCNN, DGCNNWithColor, get_model  # noqa: F401
+from pointseg_torch.models.pointnet import (  # noqa: F401
+    PointNetCls,
+    PointNetEncoder,
+    PointNetSeg,
+)
 from pointseg_torch.models.pointnetpp import PointNetPP, PointNetPPMSG
 from pointseg_torch.models.pointnext import PointNeXt
 
 # CLI names as in the JAX package's registry
 MODELS = {
+    "PointNet": PointNetSeg,
     "PointNet++": PointNetPP,
     "PointNet++MSG": PointNetPPMSG,
     "PointNeXt": PointNeXt,
@@ -27,7 +34,5 @@ MODELS = {
 def create_model(name: str, num_classes: int = 14, **kwargs) -> nn.Module:
     """Builds a model by its CLI name."""
     if name not in MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not yet ported to pointseg_torch, see ROADMAP.md "
-            f"(ported: {sorted(MODELS)})")
+        raise ValueError(f"Unknown model '{name}'. Choices: {sorted(MODELS)}")
     return MODELS[name](num_classes=num_classes, **kwargs)

@@ -9,4 +9,5 @@ from pointseg_torch.nn.blocks import (  # noqa: F401
     InvResMLP,
     SetAbstraction,
     SetAbstractionMSG,
+    TNet,
 )

@@ -1,6 +1,6 @@
 """Network blocks (port of `GroupedFirstLayer`, `SetAbstraction`,
-`SetAbstractionMSG`, `FeaturePropagation`, `InvResMLP`, `_BNStats` and
-`EdgeConv` from `pointseg/nn/blocks.py`).
+`SetAbstractionMSG`, `FeaturePropagation`, `InvResMLP`, `_BNStats`,
+`EdgeConv` and `TNet` from `pointseg/nn/blocks.py`).
 
 FPS takes its start from the `generator` a caller passes (the training
 step passes one; evaluation passes none and starts at 0), where the JAX
@@ -275,3 +275,35 @@ class EdgeConv(torch.nn.Module):
         t = scale * torch.rsqrt(var + self.bn.eps)  # per-channel slope
         extreme = torch.where(t >= 0, g_max, g_min) + d  # where the affine map peaks
         return leaky_relu_02((extreme - mean) * t + bias)
+
+
+class TNet(torch.nn.Module):
+    """PointNet's spatial transformer: per-point MLP 64-128-1024 with
+    BatchNorm and ReLU, a max-pool over the points (masked with `mask`
+    (B, N)), FC 512-256 with BatchNorm and ReLU, then Linear(k*k) plus
+    the identity: (B, N, k) -> (B, k, k).
+
+    The JAX TNet holds two SharedMLPs and a Dense; this one holds named
+    layers (`conv1..3`, `fc1..3`, `bn1..5`), the reference torch key
+    layout that `pointseg/io/torch_import.py` reads. The FC layers'
+    BatchNorm normalises over the B rows of the pooled (B, C) feature.
+    """
+
+    def __init__(self, k: int = 9):
+        super().__init__()
+        self.k = k
+        Linear = torch.nn.Linear
+        self.conv1, self.conv2, self.conv3 = Linear(k, 64), Linear(64, 128), Linear(128, 1024)
+        self.fc1, self.fc2, self.fc3 = Linear(1024, 512), Linear(512, 256), Linear(256, k * k)
+        self.bn1, self.bn2, self.bn3 = BatchNorm(64), BatchNorm(128), BatchNorm(1024)
+        self.bn4, self.bn5 = BatchNorm(512), BatchNorm(256)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = torch.amax(x, dim=1) if mask is None else ops.masked_reduce(x, mask, "max", dim=1)
+        x = F.relu(self.bn4(self.fc1(x)))
+        x = F.relu(self.bn5(self.fc2(x)))
+        eye = torch.eye(self.k, dtype=x.dtype, device=x.device).reshape(1, self.k * self.k)
+        return (self.fc3(x) + eye).reshape(-1, self.k, self.k)

@@ -170,8 +170,8 @@ def test_dgcnn_import_refuses_leftover_and_missing_leaves(jax_variables):
         from_jax_variables("DGCNN", v)  # the colour branch has no home
     with pytest.raises(KeyError, match="color_conv"):
         from_jax_variables("DeepGraphCnn", jax_variables["DGCNN"])
-    with pytest.raises(NotImplementedError, match="PointNet"):
-        from_jax_variables("PointNet", v)
+    with pytest.raises(ValueError, match="unknown model 'PointNet3'"):
+        from_jax_variables("PointNet3", v)
 
 
 @pytest.mark.parametrize("static_graph", [False, True])

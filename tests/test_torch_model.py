@@ -121,8 +121,8 @@ def test_import_refuses_leftover_and_missing_leaves(jax_variables):
                                            if k != "conv"}}
     with pytest.raises(KeyError):
         from_jax_variables("PointNet++", missing)
-    with pytest.raises(NotImplementedError):
-        from_jax_variables("PointNet", jax_variables)
+    with pytest.raises(ValueError, match="unknown model"):  # every registry model imports
+        from_jax_variables("PointNet3", jax_variables)
 
 
 def test_eval_logits_match_jax(batch, jax_variables):

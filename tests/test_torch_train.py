@@ -240,7 +240,7 @@ def test_cli_refuses_accum_steps_with_device_data_before_the_store_is_built(
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16"], ["--data-parallel"], ["--profile", "trace"], ["--save-confusion"],
+    ["--bf16"], ["--data-parallel"], ["--save-confusion"],
 ])
 def test_cli_refuses_flags_not_yet_ported(flags, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
@@ -249,5 +249,13 @@ def test_cli_refuses_flags_not_yet_ported(flags, tmp_path):
 
 
 def test_cli_refuses_models_not_yet_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["train", "PointNet", "--device", "cpu", "--log-dir", str(tmp_path)])
+    """Every model of the JAX registry is ported; a name outside it is
+    refused, by the parser and by `create_model`, as the JAX package
+    refuses it."""
+    from pointseg_torch.models import MODELS, create_model
+
+    assert sorted(MODELS) == sorted(cli.MODEL_CHOICES)
+    with pytest.raises(ValueError, match="Unknown model 'PointNet3'"):
+        create_model("PointNet3")
+    with pytest.raises(SystemExit):
+        cli.main(["train", "PointNet3", "--device", "cpu", "--log-dir", str(tmp_path)])
