@@ -238,8 +238,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    defaults and `python -m pointseg_torch doctor` (exit 0, the card
    named, the kernels built and loaded) as a user starts them; `train
    PointNet++ --profile DIR` one epoch, whose Chrome trace must name the
-   port's FPS, ball-query, 3-NN and gather kernels. The script's whole
-   time is printed before the two JSON lines.
+   port's FPS, ball-query, 3-NN and gather kernels.
+8. bf16 (`--bf16`): kernel 7 on bf16 rows at every SA grouping of
+   PointNet++, MSG and PointNeXt and DGCNN's two EdgeConv gathers, with
+   and without the float32 coordinate table: rows bit-equal to
+   `torch.gather`, the backward within one bf16 rounding of a float64
+   sum, kernel ms beside its bound (bytes / 3.35 TB/s) and
+   `torch.gather`'s; `train --bf16` one epoch through the CLI for
+   PointNet++, DeepGraphCnn, PointNeXt and PointNet (the sidecar says
+   bf16, parameters float32, the launches equal the float32 epoch's of
+   phase 4, one batch's loss from the trained weights within 2e-2 of
+   the float32 loss of the same weights and batch); step ms (CUDA
+   events, in turns), device ms a step (profiler) and peak memory of
+   PointNet, PointNet++, MSG, PointNeXt and DeepGraphCnn in float32 and
+   in bf16 from the same weights and batch; `evaluate` of the bf16
+   PointNet++ checkpoint with no flag (bf16 from its sidecar) on the
+   phase 6 blocks and whole rooms, both streams; `benchmark --bf16` for
+   every registry model in both modes; bf16 eval logits of PointNet++,
+   PointNet and DeepGraphCnn (static graph) on the card against the CPU,
+   within 2e-2 of the largest logit; one PointNet train step at B = 1
+   (ROADMAP F8), and the training BatchNorm at PointNet's (32768, 1024)
+   rows with a mean 300 times the spread against float64 beside
+   `F.batch_norm(training=True)`'s (F6). The script's whole time is
+   printed before the two JSON lines.
 
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
@@ -1063,7 +1084,7 @@ def two_level_times(device, levels) -> dict:
 
 def model_step_times(device) -> dict:
     """Device ms a train step (profiler, 3 steps) and step ms (CUDA
-    events, 10 steps) of the three PointNet++-family models and
+    events, 10 steps) of PointNet, the three PointNet++-family models and
     DeepGraphCnn at the reference batch, random data from a seed, and of
     PointNeXt and DeepGraphCnn on the two-level kernels."""
     from torch.autograd import DeviceType
@@ -1078,7 +1099,8 @@ def model_step_times(device) -> dict:
     lengths = torch.full((8,), 4096, dtype=torch.int32, device=device)
     out = {}
     # the last two: the model arguments POINTSEG_SELECT2L=1 sets through the CLI
-    for label, name, kwargs in (("PointNet++", "PointNet++", {}), ("PointNeXt", "PointNeXt", {}),
+    for label, name, kwargs in (("PointNet", "PointNet", {}),
+                                ("PointNet++", "PointNet++", {}), ("PointNeXt", "PointNeXt", {}),
                                 ("PointNet++MSG", "PointNet++MSG", {}),
                                 ("DeepGraphCnn", "DeepGraphCnn", {}),
                                 ("PointNeXt, POINTSEG_SELECT2L=1", "PointNeXt",
@@ -2295,12 +2317,12 @@ def trainer_phase(device, workdir: str):
                              f"three_nn 4 times each, got {pp_launches}")
     train_loader, _ = create_block_dataloaders(f"{workdir}/data", {6}, 8, 2, 4096, seed=1)
     batch = to_device(next(iter(train_loader)), device)
-    pp_perf = steady_state(pp_state, batch, "PointNet++")
+    pp_perf = {**steady_state(pp_state, batch, "PointNet++"), "cli_launches": pp_launches}
 
     pn_state, pn_launches, _ = train_through_cli("PointNet", workdir, ())
     if any(pn_launches.values()):
         raise AssertionError(f"PointNet runs none of the port's kernels, got {pn_launches}")
-    pn_perf = steady_state(pn_state, batch, "PointNet")
+    pn_perf = {**steady_state(pn_state, batch, "PointNet"), "cli_launches": pn_launches}
     matmul_floor(pn_state.model, batch, pn_perf, "PointNet")
 
     dg_state, dg_launches, _ = train_through_cli("DeepGraphCnn", workdir,
@@ -2313,7 +2335,7 @@ def trainer_phase(device, workdir: str):
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
     two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4, dg_state, batch,
                            device)
-    dg_perf = steady_state(dg_state, batch, "DeepGraphCnn")
+    dg_perf = {**steady_state(dg_state, batch, "DeepGraphCnn"), "cli_launches": dg_launches}
     remat_cost(dg_state, batch, device)
     states = {"PointNet++": (pp_state, pp_perf), "PointNet": (pn_state, pn_perf),
               "DeepGraphCnn": (dg_state, dg_perf)}
@@ -2332,7 +2354,7 @@ def trainer_phase(device, workdir: str):
         two_level_against_flat(
             name, "ball_select", "ball_query", "ball_query_2l", per_forward[1], state, batch,
             device)
-        states[name] = (state, steady_state(state, batch, name))
+        states[name] = (state, {**steady_state(state, batch, name), "cli_launches": got})
     few_steps("PointNeXt-L", batch, device)
     # the two-level kernels from a command a user can type: the JAX
     # package's switch, read by the port's CLI
@@ -2970,15 +2992,16 @@ def path_kernels(model_name: str) -> tuple[str, ...]:
     return ("fps", "ball_query", "three_nn", "gather_rows")
 
 
-def benchmark_in_process(model_name: str, mode: str, smi: str) -> dict:
-    """`benchmark` through `cli.main`, its line printed and checked, the
-    launches of each kernel counted over its calls."""
+def benchmark_in_process(model_name: str, mode: str, smi: str, flags: tuple = ()) -> dict:
+    """`benchmark` through `cli.main` with `flags` added, its line printed
+    and checked, the launches of each kernel counted over its calls."""
     from pointseg_torch import cli
 
     out = io.StringIO()
     zero_launches()
     with contextlib.redirect_stdout(out):
-        code = cli.main(["benchmark", "--model", model_name, "--mode", mode, *BENCH_ARGS])
+        code = cli.main(["benchmark", "--model", model_name, "--mode", mode, *BENCH_ARGS,
+                         *flags])
     launches = read_launches()
     (line,) = out.getvalue().strip().splitlines()
     print(line)
@@ -2986,7 +3009,8 @@ def benchmark_in_process(model_name: str, mode: str, smi: str) -> dict:
     needed = path_kernels(model_name)
     calls = BENCH_RUNS + BENCH_WARMUP
     per_call = {k: v / calls for k, v in launches.items() if v}
-    print(f"benchmark {model_name} {mode} ({smi}): {1e3 * result['mean_s']:.3f} ms a call, "
+    print(f"benchmark {model_name} {mode} {' '.join(flags)} ({smi}): "
+          f"{1e3 * result['mean_s']:.3f} ms a call, "
           f"{result['points_per_sec']:.0f} points/s; launches a call {per_call}")
     if code != 0 or list(result) != BENCH_KEYS or (result["B"], result["N"]) != (BENCH_B, BENCH_N) \
             or not all(math.isfinite(result[k]) for k in BENCH_KEYS[4:]):
@@ -3082,6 +3106,293 @@ def measurement_phase(device, workdir: str, smi: str) -> dict:
     return readings
 
 
+# Phase 8: bf16 compute (`--bf16`). Kernel 7 at bf16 rows: the SA
+# groupings of the three PointNet++-family models (SA_GROUPINGS) and
+# DGCNN's EdgeConv gathers, (B, N, h, idx shape).
+BF16_GATHERS = [(8, N, h, (C, K)) for model in SA_GROUPINGS
+                for N, h, C, K in SA_GROUPINGS[model]]
+BF16_GATHERS += [(8, 4096, 64, (4096, K_NEIGHBOURS)), (8, 4096, 128, (4096, K_NEIGHBOURS))]
+BF16_MODELS = ("PointNet++", "DeepGraphCnn", "PointNeXt", "PointNet")  # trained through the CLI
+BF16_TIMED = ("PointNet", "PointNet++", "PointNet++MSG", "PointNeXt", "DeepGraphCnn")
+BF16_LOSS_REL = 2e-2  # bf16 loss against float32, as the JAX package's tests hold it
+# card against CPU in bf16, max |Δlogit| over max |logit|: the two round
+# bf16 products and sums differently (cuBLAS against the CPU's kernels);
+# measured 3.9e-3 to 1.09e-2 on an H100 (PointNet++, PointNet, DeepGraphCnn)
+BF16_CARD_CPU_REL = 2e-2
+
+
+def ulp_bf16(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def bf16_gathers(device) -> dict:
+    """Kernel 7 on bf16 rows, with and without the float32 coordinate
+    table: rows bit-equal to `gather_rows_plain`; the backward (float32
+    `index_add_`, cast once) within one bf16 rounding of a float64 sum
+    (plus the float32 sum's own rounding); kernel, bound and `torch.gather`
+    ms. Returns the summed row of each set of shapes."""
+    from pointseg_torch.ops.gather import (
+        gather_rows,
+        gather_rows_plain,
+        gather_rows_with_coords,
+    )
+
+    rng = np.random.default_rng(8)
+    sums = {}
+    for B, N, h, shape in BF16_GATHERS:
+        table = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(
+            device, torch.bfloat16)
+        coords = torch.rand((B, N, 3), device=device, generator=torch.Generator(device).manual_seed(5))
+        idx = torch.from_numpy(rng.integers(0, N, (B, *shape)).astype(np.int32)).to(device)
+        rows, crow = gather_rows_with_coords(table, coords, idx)
+        if not (torch.equal(rows, gather_rows_plain(table, idx)) and
+                torch.equal(crow, gather_rows_plain(coords, idx)) and
+                torch.equal(gather_rows(table, idx), rows)):
+            raise AssertionError(f"bf16 gather {(B, N, h, shape)} differs from torch.gather")
+        ct = torch.randn((B, *shape, h), device=device, dtype=torch.float32,
+                         generator=torch.Generator(device).manual_seed(6)).to(torch.bfloat16)
+        t = table.clone().requires_grad_(True)
+        gather_rows_with_coords(t, coords, idx)[0].backward(ct)
+        flat = (idx.reshape(B, -1).long()
+                + torch.arange(B, device=device)[:, None] * N).reshape(-1)
+        want = torch.zeros((B * N, h), dtype=torch.float64, device=device)
+        want.index_add_(0, flat, ct.reshape(-1, h).double())
+        mass = torch.zeros_like(want).index_add_(0, flat, ct.reshape(-1, h).double().abs())
+        err = (t.grad.reshape(B * N, h).double() - want).abs()
+        allowed = ulp_bf16(want) + mass * 2.0 ** -24 * math.prod(shape)
+        if t.grad.dtype != torch.bfloat16 or bool((err > allowed).any()):
+            raise AssertionError(f"bf16 gather backward {(B, N, h, shape)}: "
+                                 f"{int((err > allowed).sum())} sums off by more than one "
+                                 f"bf16 rounding")
+        M = math.prod(shape)
+        for with_coords in (False, True):
+            if with_coords:
+                def kernel():
+                    return gather_rows_with_coords(table, coords, idx)
+
+                def library():
+                    return gather_rows_plain(table, idx), gather_rows_plain(coords, idx)
+            else:
+                def kernel():
+                    return gather_rows(table, idx)
+
+                def library():
+                    return gather_rows_plain(table, idx)
+            ms, lib_ms = timed_pair(kernel, library, 20)
+            nbytes = 2 * B * N * h + 4 * B * M + 2 * B * M * h
+            if with_coords:
+                nbytes += 12 * B * N + 12 * B * M
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            key = "bf16 rows and coordinates" if with_coords else "bf16 rows"
+            s = sums.setdefault(key, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0})
+            s["ms"] += ms
+            s["bound_ms"] += bound
+            s["library_ms"] += lib_ms
+            print(f"gather_rows {key:26s} {str((B, N, h, shape)):26s} kernel {ms:8.4f} ms  "
+                  f"torch.gather {lib_ms:8.4f} ms  bound {bound:8.5f} ms (bytes)  backward max "
+                  f"|err| {float(err.max()):.3g}", flush=True)
+    for key, s in sums.items():
+        print(f"gather_rows {key}, all {len(BF16_GATHERS)} shapes summed: kernel "
+              f"{s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+              f"({100 * s['bound_ms'] / s['ms']:.0f}% of it), torch.gather "
+              f"{s['library_ms']:.4f} ms")
+    return sums
+
+
+def bf16_step_times(device, batch) -> dict:
+    """Step ms (CUDA events), device ms a step (profiler) and peak memory
+    of the five measured models in float32 and bf16, from the same seeded
+    weights and batch, in turns (f32, bf16, bf16, f32 for the times)."""
+    from torch.autograd import DeviceType
+
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state, train_step
+
+    out = {}
+    for name in BF16_TIMED:
+        runs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.manual_seed(0)
+            runs[dtype] = create_train_state(create_model(name, dtype=dtype), device=device,
+                                             learning_rate=1e-3, seed=0)
+            for _ in range(3):
+                train_step(runs[dtype], *batch)
+        res = {dtype: {"step_ms": [], "device_ms": None, "peak_mib": None} for dtype in runs}
+        for dtype in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+            res[dtype]["step_ms"].append(cuda_ms(lambda: train_step(runs[dtype], *batch), 10))
+        for dtype, run in runs.items():
+            rows = [e for e in profiled(lambda: train_step(run, *batch), 3)
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+            res[dtype]["device_ms"] = sum(device_time_us(e) for e in rows) / 3 / 1e3
+            top = sorted(rows, key=device_time_us, reverse=True)[:6]
+            print(f"{name} {str(dtype)[6:]}: device ms a step by kernel, largest first: "
+                  + "; ".join(f"{e.key[:48]} {device_time_us(e) / 3e3:.3f}" for e in top))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train_step(run, *batch)
+            torch.cuda.synchronize()
+            res[dtype]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        f32, bf = res[torch.float32], res[torch.bfloat16]
+        print(f"{name} train step, float32 against bf16 (same weights and batch): step ms "
+              f"{[round(v, 3) for v in f32['step_ms']]} against "
+              f"{[round(v, 3) for v in bf['step_ms']]} (CUDA events, 10 steps each, in turns), "
+              f"device ms a step {f32['device_ms']:.3f} against {bf['device_ms']:.3f} "
+              f"({f32['device_ms'] / bf['device_ms']:.2f}x), peak allocated "
+              f"{f32['peak_mib']:.1f} against {bf['peak_mib']:.1f} MiB", flush=True)
+        out[name] = res
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_train_through_cli(device, workdir: str, f32_launches: dict, batch) -> dict:
+    """`train <model> --bf16` one epoch through the CLI for the four
+    models: the sidecar says bf16, the parameters stay float32, the
+    launches equal the float32 epoch's of phase 4, and the loss of one
+    batch from the trained weights in bf16 lies within BF16_LOSS_REL of
+    the float32 loss of the same weights, batch and dropout masks.
+    Returns each run's checkpoint directory."""
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.loss import masked_onehot_cross_entropy
+
+    dirs = {}
+    for name in BF16_MODELS:
+        model_dir = f"{workdir}/models_bf16"
+        state, launches, records = train_through_cli(
+            name, workdir, path_kernels(name), flags=("--bf16", "--model-dir", model_dir))
+        if records["config"].get("bf16") is not True:
+            raise AssertionError(f"train {name} --bf16: config {records['config']}")
+        if {p.dtype for p in state.model.parameters()} != {torch.float32}:
+            raise AssertionError(f"train {name} --bf16: parameters not float32")
+        if launches != f32_launches[name]:
+            raise AssertionError(f"train {name} --bf16 launched {launches}, the float32 epoch "
+                                 f"{f32_launches[name]}")
+        losses = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = create_model(name, dtype=dtype).to(device)
+            model.load_state_dict(state.model.state_dict())
+            torch.manual_seed(7)  # the same dropout masks in both
+            with torch.no_grad():
+                logits = model.train()(batch[0])
+            losses[dtype] = float(masked_onehot_cross_entropy(logits, batch[1], batch[2]))
+        rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(losses[torch.float32])
+        print(f"train {name} --bf16: launches equal the float32 epoch's; loss of one batch "
+              f"from its weights, bf16 {losses[torch.bfloat16]:.6f} against float32 "
+              f"{losses[torch.float32]:.6f} (relative {rel:.3g}, bound {BF16_LOSS_REL})")
+        if not all(math.isfinite(v) for v in losses.values()) or rel > BF16_LOSS_REL:
+            raise AssertionError(f"train {name} --bf16: losses {losses}")
+        (dirs[name],) = glob.glob(f"{model_dir}/{name}/*")
+        del state
+    return dirs
+
+
+def bf16_evaluate(device, workdir: str, smi: str, pp_dir: str) -> None:
+    """`evaluate` of the PointNet++ bf16 checkpoint with no flag: bf16 from
+    its sidecar, on the phase 6 blocks (buckets 16384 and 65536) and on
+    the whole rooms with both streams."""
+    from pointseg_torch import cli
+
+    runs = [("blocks", f"{workdir}/eval_blocks", ())]
+    runs += [(f"whole rooms, {stream} stream", f"{workdir}/rooms",
+              ("--whole-rooms", "--stream", stream)) for stream in ("device", "host")]
+    for label, data, flags in runs:
+        args = cli.build_parser().parse_args(
+            ["evaluate", "--model-path", pp_dir, "--data-path", data, "--device", str(device),
+             *flags])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results, ms, peak, launches = timed_call(lambda: cli.evaluate_from_args(args))
+        said = out.getvalue()
+        score = results["mean_iou"]
+        if "computing in bfloat16" not in said or not math.isfinite(score) or \
+                any(launches[k] == 0 for k in path_kernels("PointNet++")):
+            raise AssertionError(f"evaluate PointNet++ (bf16 sidecar), {label}: mIoU {score}, "
+                                 f"launches {launches}\n{said[-2000:]}")
+        print(f"evaluate PointNet++ --bf16 from its sidecar, {label} ({smi}): {ms:.1f} ms, "
+              f"peak allocated {peak / 2**20:.1f} MiB, mIoU {score:.4f}, launches {launches}")
+
+
+def bf16_card_against_cpu(device, states: dict, batch) -> None:
+    """The same weights and batch in bf16 on the card and on the CPU:
+    logits within BF16_CARD_CPU_REL of the largest (eval mode; DeepGraphCnn
+    on the static graph, the kNN of the bf16-rounded xyz)."""
+    x = batch[0][:2]
+    for name, kwargs in (("PointNet++", {}), ("PointNet", {}),
+                         ("DeepGraphCnn", {"static_graph": True})):
+        card = cpu_copy(name, states[name][0].model, dtype=torch.bfloat16, **kwargs).to(device)
+        host = cpu_copy(name, states[name][0].model, dtype=torch.bfloat16, **kwargs)
+        with torch.no_grad():
+            got = card.eval()(x).cpu()
+            want = host.eval()(x.cpu())
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"{name} bf16 eval logits, card against CPU: max |diff| {err:.4g} of max |logit| "
+              f"{scale:.4g} ({err / scale:.3g}; bound {BF16_CARD_CPU_REL}), float32 logits "
+              f"{got.dtype == torch.float32}")
+        if got.dtype != torch.float32 or not torch.isfinite(got).all() or \
+                err > BF16_CARD_CPU_REL * scale:
+            raise AssertionError(f"{name} bf16 logits, card against CPU: {err} of {scale}")
+
+
+def batch_norm_faults(device, states: dict, batch) -> None:
+    """F8: one PointNet train step at B = 1 on the card (finite loss; the
+    TNet's FC BatchNorm gives its bias). F6: training-mode BatchNorm at
+    PointNet's (32768, 1024) rows with a mean 300 times the spread, max
+    |Δ| against float64 of `F.batch_norm(training=True)` (the old training
+    path) beside the port's BatchNorm with a gradient."""
+    import torch.nn.functional as F
+
+    from pointseg_torch.nn.mlp import BatchNorm
+    from pointseg_torch.train.state import create_train_state, train_step
+
+    one = tuple(t[:1] for t in batch)
+    run = create_train_state(cpu_copy("PointNet", states["PointNet"][0].model), device=device)
+    loss = float(train_step(run, *one)["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"PointNet train step at B = 1: loss {loss}")
+    print(f"F8: PointNet train step at B = 1 on the card: loss {loss:.6f}")
+
+    gen = torch.Generator(device).manual_seed(11)
+    x = 3.0 + 0.01 * torch.randn((32768, 1024), device=device, generator=gen)
+    want = F.batch_norm(x.double(), None, None, training=True, eps=1e-5)
+    old = F.batch_norm(x, None, None, training=True, eps=1e-5)
+    bn = BatchNorm(1024).to(device).train()
+    bn.running_var.zero_()  # so the update is 0.1 x the batch's statistics
+    new = bn(x.clone().requires_grad_(True))
+    var, mean = torch.var_mean(x.double(), dim=0, correction=0)
+    stats_err = max(float(((bn.running_mean.double() / 0.1 - mean) / mean).abs().max()),
+                    float(((bn.running_var.double() / 0.1 - var) / var).abs().max()))
+    err_old = float((old.double() - want).abs().max())
+    err_new = float((new.detach().double() - want).abs().max())
+    print(f"F6 on the card, (32768, 1024) rows at a mean 300x the spread, max |diff| of the "
+          f"normalised output against float64: F.batch_norm(training=True) {err_old:.3g}, the "
+          f"port's BatchNorm (var_mean statistics, with a gradient) {err_new:.3g}; its "
+          f"statistics (relative) {stats_err:.3g}")
+    if not err_new < 1e-4:
+        raise AssertionError(f"F6: the training BatchNorm lies {err_new} from float64")
+
+
+def bf16_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
+    """Phase 8; returns the bf16 readings for the summary."""
+    t0 = time.time()
+    gathers = bf16_gathers(device)
+    f32_launches = {name: states[name][1]["cli_launches"] for name in BF16_MODELS}
+    dirs = bf16_train_through_cli(device, workdir, f32_launches, batch)
+    steps = bf16_step_times(device, batch)
+    bf16_evaluate(device, workdir, smi, dirs["PointNet++"])
+    readings = {}
+    from pointseg_torch import cli
+
+    for model_name in cli.MODEL_CHOICES:
+        for mode in ("train", "inference"):
+            readings[model_name, mode] = benchmark_in_process(model_name, mode, smi, ("--bf16",))
+        torch.cuda.empty_cache()
+    bf16_card_against_cpu(device, states, batch)
+    batch_norm_faults(device, states, batch)
+    print(f"phase 8: {time.time() - t0:.1f} s")
+    return {"gathers": gathers, "steps": steps, "benchmark": readings}
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--kernel-times"] and len(args) == 3:
@@ -3146,6 +3457,8 @@ def main() -> int:
         eval_launches = checkpoint_phase(device, workdir, smi, states, batch)
         phase("7. measurement commands")
         readings = measurement_phase(device, workdir, smi)
+        phase("8. bf16")
+        bf16 = bf16_phase(device, workdir, smi, states, batch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3177,6 +3490,20 @@ def main() -> int:
               f"mean {1e3 * r['mean_s']:.3f} ms (min {1e3 * r['min_s']:.3f}, max "
               f"{1e3 * r['max_s']:.3f}), {r['points_per_sec']:.0f} points/s, launches a call "
               f"{r['launches_a_call']}")
+    for key, r in bf16["gathers"].items():
+        print(f"summary: {smi}; gather_rows on {key} at {len(BF16_GATHERS)} shapes (SA groupings "
+              f"of PointNet++, MSG and PointNeXt, DGCNN's two): kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, torch.gather {r['library_ms']:.4f} ms")
+    for name, r in bf16["steps"].items():
+        f32, bf = r[torch.float32], r[torch.bfloat16]
+        print(f"summary: {smi}; {name} train step float32 / bf16: step ms "
+              f"{min(f32['step_ms']):.3f} / {min(bf['step_ms']):.3f}, device ms "
+              f"{f32['device_ms']:.3f} / {bf['device_ms']:.3f}, peak {f32['peak_mib']:.1f} / "
+              f"{bf['peak_mib']:.1f} MiB")
+    for (model_name, mode), r in bf16["benchmark"].items():
+        print(f"summary: {smi}; benchmark --bf16 {model_name} {mode}: mean "
+              f"{1e3 * r['mean_s']:.3f} ms, {r['points_per_sec']:.0f} points/s, launches a "
+              f"call {r['launches_a_call']}")
     print(f"summary: whole script {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,17 +12,21 @@
         [--device-store auto|flat|compact|host] [--pack-cache DIR] [--scan-steps K]
     python -m pointseg_torch train <model> --accum-steps K
     python -m pointseg_torch train <model> --profile DIR
+    python -m pointseg_torch train <model> --bf16
     python -m pointseg_torch evaluate --model-path CKPT --data-path D
-        [--whole-rooms [--stream device|host]] [--bn-stats running|batch] ...
+        [--whole-rooms [--stream device|host]] [--bn-stats running|batch] [--bf16] ...
     python -m pointseg_torch benchmark [--model PointNet++] [--mode train|inference]
-        [--batch-size 8] [--num-points 4096] [--runs 30] [--warmup 5]
+        [--batch-size 8] [--num-points 4096] [--runs 30] [--warmup 5] [--bf16]
     python -m pointseg_torch doctor
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 8 (test 2), 4096 points, test area 6, 14 classes. `train` writes a
 checkpoint and its `config.json` sidecar after every epoch into
-`<model-dir>/<model>/<timestamp>`; `evaluate` reads the model name and
-`--static-graph` from that sidecar. Flags of the JAX package that the
+`<model-dir>/<model>/<timestamp>`; `evaluate` reads the model name,
+`--static-graph` and `--bf16` from that sidecar. `--bf16` computes
+activations in bfloat16 with float32 parameters, gradients, Adam state
+and logits (`create_model(name, dtype=torch.bfloat16)`), as the JAX
+package's `--bf16` does; TF32 stays off. Flags of the JAX package that the
 port does not carry yet are accepted by the parser only to be refused
 with a pointer to ROADMAP.md. `--device cuda` (the default of
 `train`, `evaluate` and `benchmark`) without a CUDA device raises; the
@@ -52,13 +56,11 @@ DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 
 # JAX trainer flags not carried yet: (flag, argparse kwargs)
 _NOT_PORTED = (
-    ("--bf16", dict(action="store_true")),
     ("--data-parallel", dict(action="store_true")),
     ("--save-confusion", dict(action="store_true")),
 )
 EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
-BF16_NOT_PORTED = ("not yet ported to pointseg_torch: --bf16; see ROADMAP.md (M5) for the order "
-                   "of the port")
+BF16_HELP = "Compute in bfloat16 (parameters, gradients and Adam state stay float32)."
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -119,6 +121,7 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="Checkpoints go to <model-dir>/<model>/<timestamp>.")
     p.add_argument("--resume", default=None, help="Checkpoint dir or file to resume from.")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
     p.add_argument("--static-graph", action="store_true",
                    help="DGCNN models: compute the kNN graph once on xyz and "
                         "reuse it in every EdgeConv.")
@@ -229,7 +232,8 @@ def train_from_args(args: argparse.Namespace):
             raise SystemExit("--static-graph only applies to DGCNN models")
         model_kwargs["static_graph"] = True
     torch.manual_seed(args.seed)  # weight init and dropout
-    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, **model_kwargs)
+    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, dtype=_dtype(args.bf16),
+                         **model_kwargs)
     _no_tf32()
 
     if args.synthetic and not os.path.exists(args.data_dir):
@@ -303,6 +307,11 @@ def _no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _dtype(bf16: bool) -> torch.dtype:
+    """The models' compute dtype for `--bf16`."""
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 def _add_evaluate_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-path", required=True, help="Checkpoint dir or file.")
     p.add_argument("--data-path", required=True)
@@ -331,7 +340,9 @@ def _add_evaluate_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; the kernels' path) or 'cpu' (plain PyTorch "
                         "versions).")
-    p.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--bf16", action="store_true",
+                   help=BF16_HELP + " Default: the training run's setting in the config "
+                        "sidecar; a checkpoint loads either way.")
 
 
 def whole_room_forward(model: torch.nn.Module, bn_stats: str = "running"):
@@ -375,8 +386,7 @@ def evaluate_from_args(args: argparse.Namespace) -> dict:
     ckpt_dir = (args.model_path if os.path.isdir(args.model_path)
                 else os.path.dirname(args.model_path))
     config = load_config(ckpt_dir) or {}
-    if args.bf16 or config.get("bf16"):
-        raise SystemExit(BF16_NOT_PORTED)
+    use_bf16 = args.bf16 or bool(config.get("bf16"))  # the training run's, unless given
     device = resolve_device(args.device)
     model_name = args.model or config.get("model", "PointNet++")
     num_classes = args.num_classes
@@ -384,10 +394,12 @@ def evaluate_from_args(args: argparse.Namespace) -> dict:
     model_kwargs = kernel_switches(model_name)
     if config.get("static_graph") and model_name in DGCNN_NAMES:
         model_kwargs["static_graph"] = True  # the graph mode the model was trained in
-    model = create_model(model_name, num_classes=num_classes, **model_kwargs)
+    model = create_model(model_name, num_classes=num_classes, dtype=_dtype(use_bf16),
+                         **model_kwargs)
     _no_tf32()
     state = restore_train_state(args.model_path, create_train_state(model, device=device))
-    print(f"Loaded {model_name} from {args.model_path} (step {state.step}).")
+    print(f"Loaded {model_name} from {args.model_path} (step {state.step})"
+          f"{', computing in bfloat16' if use_bf16 else ''}.")
 
     if args.whole_rooms:
         ds = ChunkedRoomDataset(args.data_path, args.test_areas, require_index_file=False)
@@ -447,7 +459,7 @@ def _add_benchmark_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; the kernels' path, timed with CUDA events) or "
                         "'cpu' (plain PyTorch versions, host clock).")
-    p.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--bf16", action="store_true", help=BF16_HELP)
 
 
 def benchmark_from_args(args: argparse.Namespace) -> dict:
@@ -463,11 +475,9 @@ def benchmark_from_args(args: argparse.Namespace) -> dict:
     from pointseg_torch.train.state import create_train_state, train_step
     from pointseg_torch.utils.benchmark import benchmark_points_per_sec
 
-    if args.bf16:
-        raise SystemExit(BF16_NOT_PORTED)
     device = resolve_device(args.device)
     torch.manual_seed(0)  # weight init and dropout
-    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES,
+    model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, dtype=_dtype(args.bf16),
                          **kernel_switches(args.model))
     _no_tf32()
     B, N = args.batch_size, args.num_points

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from functools import partial
 
+import torch
 from torch import nn
 
 from pointseg_torch.models.dgcnn import DGCNN, DGCNNWithColor, get_model  # noqa: F401
@@ -31,8 +32,12 @@ MODELS = {
 }
 
 
-def create_model(name: str, num_classes: int = 14, **kwargs) -> nn.Module:
-    """Builds a model by its CLI name."""
+def create_model(name: str, num_classes: int = 14, dtype: torch.dtype = torch.float32,
+                 **kwargs) -> nn.Module:
+    """Builds a model by its CLI name. `dtype` is the compute dtype
+    (`nn/mlp.py`): torch.bfloat16 computes activations in bfloat16 with
+    float32 parameters and logits, the JAX package's
+    `create_model(name, dtype=jnp.bfloat16)`."""
     if name not in MODELS:
         raise ValueError(f"Unknown model '{name}'. Choices: {sorted(MODELS)}")
-    return MODELS[name](num_classes=num_classes, **kwargs)
+    return MODELS[name](num_classes=num_classes, dtype=dtype, **kwargs)

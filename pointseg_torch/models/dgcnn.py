@@ -18,7 +18,9 @@ every EdgeConv; parameters and checkpoints are the same in both modes.
 (`pointseg_torch/ops/knn.py`); both select the same neighbours.
 
 The models take `generator=` like `PointNetPP`, so one train step serves
-all, and ignore it: nothing here samples.
+all, and ignore it: nothing here samples. `dtype` is the compute dtype
+(`nn/mlp.py`); under bfloat16 the static graph is built on the
+bfloat16-rounded coordinates, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ import torch
 from torch import nn
 
 from pointseg_torch import ops
-from pointseg_torch.nn import EdgeConv, SharedMLP, leaky_relu_02
+from pointseg_torch.nn import EdgeConv, Linear, SharedMLP, cast, leaky_relu_02
 
 
-def _conv(in_features: int, width: int) -> SharedMLP:
-    return SharedMLP(in_features, [width], act=leaky_relu_02, use_bias=False)
+def _conv(in_features: int, width: int, dtype: torch.dtype) -> SharedMLP:
+    return SharedMLP(in_features, [width], act=leaky_relu_02, use_bias=False, dtype=dtype)
 
 
 class DGCNN(nn.Module):
@@ -41,23 +43,25 @@ class DGCNN(nn.Module):
 
     def __init__(self, num_classes: int = 14, k: int = 20, emb_dims: int = 1024,
                  dropout: float = 0.5, static_graph: bool = False,
-                 knn_select: str = "flat"):
+                 knn_select: str = "flat", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k = k
         self.static_graph = static_graph
         self.knn_select = knn_select
-        self.conv1 = EdgeConv(3, 64, k, knn_select=knn_select)
-        self.conv2 = EdgeConv(64, 64, k, knn_select=knn_select)
-        self.conv3 = EdgeConv(64, 64, k, knn_select=knn_select)
-        self.conv4 = EdgeConv(64, 128, k, knn_select=knn_select)
+        self.dtype = dtype
+        edge = dict(knn_select=knn_select, dtype=dtype)
+        self.conv1 = EdgeConv(3, 64, k, **edge)
+        self.conv2 = EdgeConv(64, 64, k, **edge)
+        self.conv3 = EdgeConv(64, 64, k, **edge)
+        self.conv4 = EdgeConv(64, 128, k, **edge)
         if self.color_width:
-            self.color_conv = _conv(3, self.color_width)
+            self.color_conv = _conv(3, self.color_width, dtype)
         cat = 64 + 64 + 64 + 128 + self.color_width
-        self.conv5 = _conv(cat, emb_dims)
-        self.conv6 = _conv(cat + emb_dims, 512)
-        self.conv7 = _conv(512, 256)
+        self.conv5 = _conv(cat, emb_dims, dtype)
+        self.conv6 = _conv(cat + emb_dims, 512, dtype)
+        self.conv7 = _conv(512, 256, dtype)
         self.dropout = nn.Dropout(dropout)
-        self.conv8 = nn.Linear(256, num_classes)
+        self.conv8 = Linear(256, num_classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, return_features: bool = False):
@@ -68,7 +72,8 @@ class DGCNN(nn.Module):
         xyz = x[..., :3]
         idx = None
         if self.static_graph:
-            idx = ops.knn_indices(xyz, self.k, mask=mask, select=self.knn_select)
+            idx = ops.knn_indices(cast(xyz, self.dtype), self.k, mask=mask,
+                                  select=self.knn_select)
         x1 = self.conv1(xyz, mask=mask, idx=idx)
         x2 = self.conv2(x1, mask=mask, idx=idx)
         x3 = self.conv3(x2, mask=mask, idx=idx)

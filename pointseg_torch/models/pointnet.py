@@ -16,6 +16,8 @@ reference torch model's (`feat.stn.*`, `feat.fstn.*`, `feat.conv1..3`,
 `feat.bn1..3`, then `conv1..4` / `bn1..3` for segmentation, `fc1..3` /
 `bn1..2` for classification), so `pointseg/io/torch_import.py` loads
 them into the JAX models and `pointseg_torch/io/jax_import.py` goes back.
+`dtype` is the compute dtype (`nn/mlp.py`): under bfloat16 the input
+transform's product runs in bfloat16, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointseg_torch import ops
-from pointseg_torch.nn import BatchNorm, TNet
+from pointseg_torch.nn import BatchNorm, Linear, TNet
 
 
 class PointNetEncoder(nn.Module):
@@ -34,17 +36,18 @@ class PointNetEncoder(nn.Module):
     pooled (B, 1024) feature of the classification model."""
 
     def __init__(self, in_dim: int = 9, feature_transform: bool = False,
-                 global_feat: bool = False):
+                 global_feat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.global_feat = global_feat
-        self.stn = TNet(in_dim)
-        self.conv1, self.bn1 = nn.Linear(in_dim, 64), BatchNorm(64)
-        self.fstn = TNet(64) if feature_transform else None
-        self.conv2, self.bn2 = nn.Linear(64, 128), BatchNorm(128)
-        self.conv3, self.bn3 = nn.Linear(128, 1024), BatchNorm(1024)
+        self.stn = TNet(in_dim, dtype=dtype)
+        self.conv1, self.bn1 = Linear(in_dim, 64, dtype=dtype), BatchNorm(64, dtype=dtype)
+        self.fstn = TNet(64, dtype=dtype) if feature_transform else None
+        self.conv2, self.bn2 = Linear(64, 128, dtype=dtype), BatchNorm(128, dtype=dtype)
+        self.conv3, self.bn3 = Linear(128, 1024, dtype=dtype), BatchNorm(1024, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = torch.bmm(x, self.stn(x, mask))
+        trans = self.stn(x, mask)
+        x = torch.bmm(x.to(trans.dtype), trans)
         x = F.relu(self.bn1(self.conv1(x)))
         if self.fstn is not None:
             x = torch.bmm(x, self.fstn(x, mask))
@@ -64,13 +67,13 @@ class PointNetSeg(nn.Module):
     BatchNorm, ReLU) and `conv4` to per-point logits (B, N, classes)."""
 
     def __init__(self, num_classes: int = 14, in_dim: int = 9,
-                 feature_transform: bool = False):
+                 feature_transform: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.feat = PointNetEncoder(in_dim, feature_transform)
-        self.conv1, self.bn1 = nn.Linear(1088, 512), BatchNorm(512)
-        self.conv2, self.bn2 = nn.Linear(512, 256), BatchNorm(256)
-        self.conv3, self.bn3 = nn.Linear(256, 128), BatchNorm(128)
-        self.conv4 = nn.Linear(128, num_classes)
+        self.feat = PointNetEncoder(in_dim, feature_transform, dtype=dtype)
+        self.conv1, self.bn1 = Linear(1088, 512, dtype=dtype), BatchNorm(512, dtype=dtype)
+        self.conv2, self.bn2 = Linear(512, 256, dtype=dtype), BatchNorm(256, dtype=dtype)
+        self.conv3, self.bn3 = Linear(256, 128, dtype=dtype), BatchNorm(128, dtype=dtype)
+        self.conv4 = Linear(128, num_classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -88,13 +91,13 @@ class PointNetCls(nn.Module):
     the JAX package: the registry is the segmentation CLI's."""
 
     def __init__(self, num_classes: int = 40, in_dim: int = 9,
-                 feature_transform: bool = False):
+                 feature_transform: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.feat = PointNetEncoder(in_dim, feature_transform, global_feat=True)
-        self.fc1, self.bn1 = nn.Linear(1024, 512), BatchNorm(512)
-        self.fc2, self.bn2 = nn.Linear(512, 256), BatchNorm(256)
+        self.feat = PointNetEncoder(in_dim, feature_transform, global_feat=True, dtype=dtype)
+        self.fc1, self.bn1 = Linear(1024, 512, dtype=dtype), BatchNorm(512, dtype=dtype)
+        self.fc2, self.bn2 = Linear(512, 256, dtype=dtype), BatchNorm(256, dtype=dtype)
         self.dropout = nn.Dropout(0.3)
-        self.fc3 = nn.Linear(256, num_classes)
+        self.fc3 = Linear(256, num_classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -16,7 +16,8 @@ with an MLP each and concatenates them; the decoder is the same.
 
 `ball_select` ('flat' or 'two_level') names the CUDA ball-query kernel
 and `filler` ('repeat' or 'index') what fills a sparse ball
-(`pointseg_torch/ops/ballquery.py`).
+(`pointseg_torch/ops/ballquery.py`). `dtype` is the compute dtype
+(`nn/mlp.py`): torch.bfloat16 for the JAX package's `--bf16`.
 """
 
 from __future__ import annotations
@@ -24,29 +25,31 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointseg_torch.nn import FeaturePropagation, SetAbstraction, SetAbstractionMSG
+from pointseg_torch.nn import FeaturePropagation, Linear, SetAbstraction, SetAbstractionMSG
 
 
 class PointNetPP(nn.Module):
     """Single-scale-grouping PointNet++."""
 
     def __init__(self, num_classes: int = 14, dropout: float = 0.5, in_features: int = 6,
-                 ball_select: str = "flat", filler: str = "repeat"):
+                 ball_select: str = "flat", filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        w1, w2, w3, w4 = self._build_encoder(in_features, ball_select=ball_select, filler=filler)
-        self.fp4 = FeaturePropagation(w3 + w4, [256, 256])
-        self.fp3 = FeaturePropagation(w2 + 256, [256, 256])
-        self.fp2 = FeaturePropagation(w1 + 256, [256, 128])
-        self.fp1 = FeaturePropagation(128, [128, 128, 128, 128])
+        w1, w2, w3, w4 = self._build_encoder(in_features, ball_select=ball_select, filler=filler,
+                                             dtype=dtype)
+        self.fp4 = FeaturePropagation(w3 + w4, [256, 256], dtype=dtype)
+        self.fp3 = FeaturePropagation(w2 + 256, [256, 256], dtype=dtype)
+        self.fp2 = FeaturePropagation(w1 + 256, [256, 128], dtype=dtype)
+        self.fp1 = FeaturePropagation(128, [128, 128, 128, 128], dtype=dtype)
         self.dropout = nn.Dropout(dropout)
-        self.conv = nn.Linear(128, num_classes)
+        self.conv = Linear(128, num_classes, dtype=dtype)
 
-    def _build_encoder(self, in_features: int, **ball) -> tuple[int, int, int, int]:
+    def _build_encoder(self, in_features: int, **kw) -> tuple[int, int, int, int]:
         """Creates sa1..sa4; returns their output widths."""
-        self.sa1 = SetAbstraction(1024, 0.1, in_features, [32, 32, 64], **ball)
-        self.sa2 = SetAbstraction(256, 0.2, 64, [64, 64, 128], **ball)
-        self.sa3 = SetAbstraction(64, 0.4, 128, [128, 128, 256], **ball)
-        self.sa4 = SetAbstraction(16, 0.8, 256, [256, 256, 512], **ball)
+        self.sa1 = SetAbstraction(1024, 0.1, in_features, [32, 32, 64], **kw)
+        self.sa2 = SetAbstraction(256, 0.2, 64, [64, 64, 128], **kw)
+        self.sa3 = SetAbstraction(64, 0.4, 128, [128, 128, 256], **kw)
+        self.sa4 = SetAbstraction(16, 0.8, 256, [256, 256, 512], **kw)
         return 64, 128, 256, 512
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
@@ -69,13 +72,13 @@ class PointNetPP(nn.Module):
 class PointNetPPMSG(PointNetPP):
     """Multi-scale-grouping PointNet++ (radius-nested ball queries)."""
 
-    def _build_encoder(self, in_features: int, **ball) -> tuple[int, int, int, int]:
+    def _build_encoder(self, in_features: int, **kw) -> tuple[int, int, int, int]:
         self.sa1 = SetAbstractionMSG(1024, (0.05, 0.1), (16, 32), in_features,
-                                     ([16, 16, 32], [32, 32, 64]), **ball)
+                                     ([16, 16, 32], [32, 32, 64]), **kw)
         self.sa2 = SetAbstractionMSG(256, (0.1, 0.2), (16, 32), 96,
-                                     ([64, 64, 128], [64, 96, 128]), **ball)
+                                     ([64, 64, 128], [64, 96, 128]), **kw)
         self.sa3 = SetAbstractionMSG(64, (0.2, 0.4), (16, 32), 256,
-                                     ([128, 196, 256], [128, 196, 256]), **ball)
+                                     ([128, 196, 256], [128, 196, 256]), **kw)
         self.sa4 = SetAbstractionMSG(16, (0.4, 0.8), (16, 32), 512,
-                                     ([256, 256, 512], [256, 384, 512]), **ball)
+                                     ([256, 256, 512], [256, 384, 512]), **kw)
         return 96, 256, 512, 1024

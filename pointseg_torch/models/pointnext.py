@@ -19,7 +19,8 @@ state_dict loads into the JAX model through
 
 `ball_select` ('flat' or 'two_level') names the CUDA ball-query kernel
 and `filler` ('repeat' or 'index') what fills a sparse ball
-(`pointseg_torch/ops/ballquery.py`).
+(`pointseg_torch/ops/ballquery.py`). `dtype` is the compute dtype
+(`nn/mlp.py`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointseg_torch.nn import FeaturePropagation, InvResMLP, SetAbstraction, SharedMLP
+from pointseg_torch.nn import FeaturePropagation, InvResMLP, Linear, SetAbstraction, SharedMLP
 
 STAGE_RADII = ((0.1,), (0.1, 0.2), (0.4,), (0.8,))  # the InvResMLP radii per stage
 STAGE_K = (32, 32, 32, 16)
@@ -41,12 +42,13 @@ def irmlp_name(stage: int, j: int) -> str:
 class PointNeXt(nn.Module):
     def __init__(self, num_classes: int = 14, width: int = 32,
                  blocks: tuple[int, int, int, int] = (1, 2, 1, 1), dropout: float = 0.5,
-                 ball_select: str = "flat", filler: str = "repeat"):
+                 ball_select: str = "flat", filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w = width
         self.blocks = tuple(blocks)
-        ball = dict(ball_select=ball_select, filler=filler)
-        self.mlp = SharedMLP(9, [w])
+        ball = dict(ball_select=ball_select, filler=filler, dtype=dtype)
+        self.mlp = SharedMLP(9, [w], dtype=dtype)
         self.sa1 = SetAbstraction(1024, 0.1, w, [w, w, 2 * w], grouping_norm=True, **ball)
         self.sa2 = SetAbstraction(256, 0.2, 2 * w, [2 * w, 2 * w, 4 * w],
                                   grouping_norm=True, **ball)
@@ -58,12 +60,12 @@ class PointNeXt(nn.Module):
             for j in range(n_blocks):
                 self.add_module(irmlp_name(stage, j), InvResMLP(
                     radii[min(j, len(radii) - 1)], (2 ** stage) * w, k, **ball))
-        self.fp4 = FeaturePropagation(8 * w + 16 * w, [256, 256])
-        self.fp3 = FeaturePropagation(4 * w + 256, [256, 256])
-        self.fp2 = FeaturePropagation(2 * w + 256, [256, 128])
-        self.fp1 = FeaturePropagation(w + 128, [128, 128, 128, 128])
+        self.fp4 = FeaturePropagation(8 * w + 16 * w, [256, 256], dtype=dtype)
+        self.fp3 = FeaturePropagation(4 * w + 256, [256, 256], dtype=dtype)
+        self.fp2 = FeaturePropagation(2 * w + 256, [256, 128], dtype=dtype)
+        self.fp1 = FeaturePropagation(w + 128, [128, 128, 128, 128], dtype=dtype)
         self.dropout = nn.Dropout(dropout)
-        self.conv = nn.Linear(128, num_classes)
+        self.conv = Linear(128, num_classes, dtype=dtype)
 
     def _irmlp_stack(self, stage: int, coords, feats):
         for j in range(self.blocks[stage - 1]):

@@ -8,6 +8,11 @@ package reads the flax 'fps' stream. The blocks that group by ball query
 take `ball_select` ('flat' or 'two_level', the CUDA kernel) and `filler`
 ('repeat' or 'index', what fills a sparse ball) and hand them to
 `ops.ball_query`; the JAX package sets both process-wide.
+
+Every block takes `dtype`, the compute dtype of `nn/mlp.py`. Under
+bfloat16 features flow in bfloat16 and coordinates stay float32: FPS,
+ball query and 3-NN see only coordinates, and relative coordinates are
+cast after the division by the radius, as in the JAX blocks.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pointseg_torch import ops
-from pointseg_torch.nn.mlp import BatchNorm, SharedMLP, leaky_relu_02
+from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu_02
 
 
 class GroupedFirstLayer(SharedMLP):
@@ -46,8 +51,8 @@ class GroupedFirstLayer(SharedMLP):
 
     def __init__(self, in_features: int, widths: Sequence[int], radius: float,
                  K: int, normalize: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat"):
-        super().__init__(3 + in_features, widths)
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
+        super().__init__(3 + in_features, widths, dtype=dtype)
         self.radius = radius
         self.K = K
         self.normalize = normalize
@@ -57,14 +62,17 @@ class GroupedFirstLayer(SharedMLP):
     def forward(self, centroids, coords, features, mask=None):
         idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask,
                                 filler=self.filler, select=self.ball_select)
-        first = self.conv[0]
-        w_rel, w_feat = first.weight[:, :3], first.weight[:, 3:]
-        hfeat = F.linear(features, w_feat)  # (B, N, h): per point, before the gather
+        first, dtype = self.conv[0], self.dtype
+        weight = cast(first.weight, dtype)
+        w_rel, w_feat = weight[:, :3], weight[:, 3:]
+        # (B, N, h): per point, before the gather
+        hfeat = F.linear(cast(features, dtype), w_feat)
         gfeat, gcoords = ops.gather_rows_with_coords(hfeat, coords, idx)
         rel = gcoords - centroids[:, :, None, :]
         if self.normalize:
             rel = rel / self.radius
-        x = F.relu(self.batch[0](gfeat + F.linear(rel, w_rel, first.bias)))
+        rel = cast(rel, dtype)  # float32 up to here, as in the JAX block
+        x = F.relu(self.batch[0](gfeat + F.linear(rel, w_rel, cast(first.bias, dtype))))
         for conv, bn in zip(self.conv[1:], self.batch[1:]):
             x = F.relu(bn(conv(x)))
         return x
@@ -80,13 +88,13 @@ class SetAbstraction(torch.nn.Module):
     def __init__(self, num_centroids: int, radius: float, in_features: int,
                  mlps: Sequence[int], K: int = 32, pooling: str = "max",
                  grouping_norm: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat"):
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_centroids = num_centroids
         self.pooling = pooling
         self.point_net = GroupedFirstLayer(in_features, mlps, radius, K,
-                                           normalize=grouping_norm,
-                                           ball_select=ball_select, filler=filler)
+                                           normalize=grouping_norm, ball_select=ball_select,
+                                           filler=filler, dtype=dtype)
 
     def forward(self, coords, features, mask=None, generator=None):
         idx = ops.farthest_point_sampling(
@@ -107,7 +115,8 @@ class SetAbstractionMSG(torch.nn.Module):
 
     def __init__(self, num_centroids: int, radii: Sequence[float], Ks: Sequence[int],
                  in_features: int, mlps: Sequence[Sequence[int]], pooling: str = "max",
-                 ball_select: str = "flat", filler: str = "repeat"):
+                 ball_select: str = "flat", filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not len(radii) == len(Ks) == len(mlps):
             raise ValueError("radii, Ks and mlps need one entry per scale, got "
@@ -115,7 +124,8 @@ class SetAbstractionMSG(torch.nn.Module):
         self.num_centroids = num_centroids
         self.pooling = pooling
         self.scales = torch.nn.ModuleList(
-            GroupedFirstLayer(in_features, widths, r, k, ball_select=ball_select, filler=filler)
+            GroupedFirstLayer(in_features, widths, r, k, ball_select=ball_select, filler=filler,
+                              dtype=dtype)
             for r, k, widths in zip(radii, Ks, mlps))
 
     def forward(self, coords, features, mask=None, generator=None):
@@ -134,9 +144,10 @@ class FeaturePropagation(torch.nn.Module):
     block's argument order.
     """
 
-    def __init__(self, in_features: int, mlps: Sequence[int]):
+    def __init__(self, in_features: int, mlps: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.point_net = SharedMLP(in_features, mlps)
+        self.point_net = SharedMLP(in_features, mlps, dtype=dtype)
 
     def forward(self, coords_tgt, coords_src, skip, features):
         upsampled = ops.interpolate(features, coords_tgt, coords_src)
@@ -156,13 +167,14 @@ class InvResMLP(torch.nn.Module):
     """
 
     def __init__(self, radius: float, mlp_size: int, K: int, pooling: str = "max",
-                 ball_select: str = "flat", filler: str = "repeat"):
+                 ball_select: str = "flat", filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooling = pooling
         self.neighbour_features_mlp = GroupedFirstLayer(
             mlp_size, [mlp_size], radius, K, normalize=True,
-            ball_select=ball_select, filler=filler)
-        self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size])
+            ball_select=ball_select, filler=filler, dtype=dtype)
+        self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size], dtype=dtype)
 
     def forward(self, coords, features, mask=None):
         h = self.neighbour_features_mlp(coords, coords, features, mask=mask)  # (B, N, K, m)
@@ -181,7 +193,8 @@ class BNStats(BatchNorm):
     0.9); in eval mode, or with no batch statistics, the running ones.
     Called on a tensor it is the ordinary `BatchNorm`, so one module and
     one set of state_dict keys (`nn.BatchNorm1d`'s) serve both forms of
-    `EdgeConv`.
+    `EdgeConv`. The batch statistics it is given are float32, whatever
+    the block's compute dtype.
     """
 
     def stats(self, batch_mean: torch.Tensor | None, batch_var: torch.Tensor | None):
@@ -222,6 +235,13 @@ class EdgeConv(torch.nn.Module):
     gathers, adds, normalises and reduces the edge tensor itself. Both
     give the same output and running statistics up to reassociation.
 
+    Under bfloat16 (`dtype`) `x` is cast first, so the kNN of layers 2-4
+    ranks bfloat16-rounded features (in float32), p, d and the gathered
+    rows are bfloat16, and the output is bfloat16. The sums s and q are
+    taken in float32, as flax's BatchNorm takes every other layer's
+    statistics: the JAX block sums them into bfloat16, where
+    E[e²] - E[e]² cancels.
+
     `remat=True` re-gathers in the backward pass
     (`torch.utils.checkpoint`) instead of keeping the gathered
     (B, N, k, out) rows.
@@ -232,24 +252,28 @@ class EdgeConv(torch.nn.Module):
     """
 
     def __init__(self, in_features: int, out_channels: int, k: int = 20,
-                 fused: bool = True, remat: bool = False, knn_select: str = "flat"):
+                 fused: bool = True, remat: bool = False, knn_select: str = "flat",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k = k
         self.fused = fused
         self.remat = remat
         self.knn_select = knn_select
-        self.w_edge = torch.nn.Linear(in_features, out_channels, bias=False)
-        self.w_center = torch.nn.Linear(in_features, out_channels, bias=False)
-        self.bn = BNStats(out_channels)
+        self.dtype = dtype
+        self.w_edge = Linear(in_features, out_channels, bias=False, dtype=dtype)
+        self.w_center = Linear(in_features, out_channels, bias=False, dtype=dtype)
+        self.bn = BNStats(out_channels, dtype=dtype)
 
     def _gather_reduce(self, p: torch.Tensor, idx: torch.Tensor):
         gp = ops.gather_neighbors(p, idx)  # (B, N, k, out)
         out = (gp.amax(dim=2), gp.amin(dim=2))
-        if self.bn.training:
-            out += (gp.sum(dim=2), (gp * gp).sum(dim=2))
+        if self.bn.training:  # the sums in float32 (or wider)
+            g = gp.to(torch.promote_types(gp.dtype, torch.float32))
+            out += (g.sum(dim=2), (g * g).sum(dim=2))
         return out
 
     def forward(self, x, knn_on=None, mask=None, idx=None):
+        x = cast(x, self.dtype)
         if idx is None:
             idx = ops.knn_indices(x if knn_on is None else knn_on, self.k, mask=mask,
                                   select=self.knn_select)
@@ -268,13 +292,15 @@ class EdgeConv(torch.nn.Module):
         if self.bn.training:  # batch statistics follow the BatchNorm's mode
             s, q = reduced[2], reduced[3]
             count = p.shape[0] * p.shape[1] * self.k
-            mean = (s + self.k * d).sum(dim=(0, 1)) / count
-            ex2 = (q + 2.0 * d * s + self.k * d * d).sum(dim=(0, 1)) / count
+            df = d.to(s.dtype)
+            mean = (s + self.k * df).sum(dim=(0, 1)) / count
+            ex2 = (q + 2.0 * df * s + self.k * df * df).sum(dim=(0, 1)) / count
             var = torch.clamp_min(ex2 - mean * mean, 0.0)
         scale, bias, mean, var = self.bn.stats(mean, var)
         t = scale * torch.rsqrt(var + self.bn.eps)  # per-channel slope
         extreme = torch.where(t >= 0, g_max, g_min) + d  # where the affine map peaks
-        return leaky_relu_02((extreme - mean) * t + bias)
+        # float32 statistics promote the tail; the output is in the compute dtype
+        return cast(leaky_relu_02((extreme - mean) * t + bias), self.dtype)
 
 
 class TNet(torch.nn.Module):
@@ -289,17 +315,24 @@ class TNet(torch.nn.Module):
     BatchNorm normalises over the B rows of the pooled (B, C) feature.
     """
 
-    def __init__(self, k: int = 9):
+    def __init__(self, k: int = 9, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k = k
-        Linear = torch.nn.Linear
-        self.conv1, self.conv2, self.conv3 = Linear(k, 64), Linear(64, 128), Linear(128, 1024)
-        self.fc1, self.fc2, self.fc3 = Linear(1024, 512), Linear(512, 256), Linear(256, k * k)
-        self.bn1, self.bn2, self.bn3 = BatchNorm(64), BatchNorm(128), BatchNorm(1024)
-        self.bn4, self.bn5 = BatchNorm(512), BatchNorm(256)
+        self.dtype = dtype
+
+        def linear(i, o):
+            return Linear(i, o, dtype=dtype)
+
+        def norm(c):
+            return BatchNorm(c, dtype=dtype)
+
+        self.conv1, self.conv2, self.conv3 = linear(k, 64), linear(64, 128), linear(128, 1024)
+        self.fc1, self.fc2, self.fc3 = linear(1024, 512), linear(512, 256), linear(256, k * k)
+        self.bn1, self.bn2, self.bn3 = norm(64), norm(128), norm(1024)
+        self.bn4, self.bn5 = norm(512), norm(256)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(cast(x, self.dtype))))
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
         x = torch.amax(x, dim=1) if mask is None else ops.masked_reduce(x, mask, "max", dim=1)

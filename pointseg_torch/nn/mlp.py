@@ -3,6 +3,14 @@
 Channels-last: each "1x1 conv" is an `nn.Linear` over the last axis, and
 BatchNorm normalises over every other axis, for (B, N, F) per-point and
 (B, C, K, F) per-neighbour input alike.
+
+Compute dtype. Every block takes `dtype`, flax's `dtype` attribute: the
+dtype its activations are computed in, while its parameters stay float32.
+`torch.bfloat16` casts each block's input, and each Linear's weight and
+bias, to bfloat16 (flax `Dense`'s `promote_dtype`); BatchNorm takes its
+statistics and normalises in float32 and returns bfloat16 (flax's
+`BatchNorm(dtype=bfloat16)`). `torch.float32`, the default, casts
+nothing, so a model moved to float64 with `.double()` computes in float64.
 """
 
 from __future__ import annotations
@@ -14,50 +22,99 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`x` in a block's compute dtype: unchanged under float32 (the
+    tensor's own dtype is kept), cast under bfloat16."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` that computes in `dtype`: input, weight and bias are
+    cast to it, as flax's `Dense(dtype=...)` casts them; the parameters,
+    and so their gradients, stay float32. Same state_dict keys."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else cast(self.bias, self.dtype)
+        return F.linear(cast(x, self.dtype), cast(self.weight, self.dtype), bias)
+
+
+class _TrainNorm(torch.autograd.Function):
+    """Training-mode BatchNorm of (rows, C) from the batch's own float32
+    (or wider) statistics, `torch.var_mean` with no correction:
+    y = (x - mean) * weight * rsqrt(var + eps) + bias, by `F.batch_norm`'s
+    one elementwise pass given these statistics (float32 arithmetic for
+    bfloat16 rows), returned in `out_dtype`. The gradient flows through the
+    statistics: the backward is the closed form of a training-mode
+    `F.batch_norm`'s (with x^ = (x - mean) * rstd,
+    dx = weight * rstd * (dy - mean(dy) - x^ * mean(dy * x^)),
+    dweight = sum(dy * x^), dbias = sum(dy)), by aten's fused batch-norm
+    backward given these statistics. Saves the input rows and three
+    vectors, as `F.batch_norm` does. The statistics come back too,
+    detached, for the running averages."""
+
+    @staticmethod
+    def forward(ctx, rows, weight, bias, eps: float, out_dtype: torch.dtype):
+        acc = torch.promote_types(rows.dtype, torch.float32)
+        var, mean = torch.var_mean(rows.to(acc), dim=0, correction=0)
+        y = F.batch_norm(rows, mean, var, weight, bias, training=False, eps=eps)
+        ctx.eps = eps
+        ctx.save_for_backward(rows, weight, mean, torch.rsqrt(var + eps))
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        rows, weight, mean, rstd = ctx.saved_tensors
+        dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
+            dy.to(rows.dtype), rows, weight, None, None, mean, rstd, True, ctx.eps,
+            list(ctx.needs_input_grad[:3]))
+        return dx, dweight, dbias, None, None
+
+
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over all axes but the last, updating its running
-    statistics as flax.linen.BatchNorm does.
+    """BatchNorm over all axes but the last, with flax.linen.BatchNorm's
+    statistics and running-average rule.
 
     Momentum 0.1 and eps 1e-5 are flax's momentum 0.9 and eps 1e-5
-    (`pointseg/nn/mlp.py`). The one deliberate difference from
-    `nn.BatchNorm1d`: torch folds the UNBIASED batch variance
-    (factor n/(n-1)) into `running_var`, flax the biased one. This
-    module folds the biased one, so a training step leaves the same
-    running statistics as the JAX package's. The forward pass itself
-    normalises with the biased variance in both.
+    (`pointseg/nn/mlp.py`). In training mode the module normalises with
+    the batch's biased variance and mean from `torch.var_mean` in float32
+    (or wider), the gradient flowing through them (`_TrainNorm`), and
+    folds the same two, detached, into `running_mean` / `running_var`:
+    the biased variance, as flax does, where `nn.BatchNorm1d` folds the
+    unbiased one. One row normalises to `bias`, as flax's does (exactly on
+    the card, whose elementwise pass centres first; within rounding on the
+    CPU, whose pass folds the mean into the shift), where a training-mode
+    `F.batch_norm` refuses a batch of one row. In eval mode it
+    normalises with the running statistics. The output is in `dtype`
+    (module docstring); the arithmetic is float32 either way.
 
     The state_dict keys are `nn.BatchNorm1d`'s (weight, bias,
     running_mean, running_var, num_batches_tracked).
     """
 
-    # Set by `train/state.py::bn_adapted_model` for the length of its
-    # forward: batch statistics at evaluation, where no gradient is taken.
-    adapting = False
-
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.reshape(-1, x.shape[-1])
+        acc = torch.promote_types(x.dtype, torch.float32)
+        out_dtype = acc if self.dtype == torch.float32 else self.dtype
         if self.training:
+            y, mean, var = _TrainNorm.apply(rows, self.weight, self.bias, self.eps, out_dtype)
             with torch.no_grad():
-                var, mean = torch.var_mean(rows, dim=0, correction=0)
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
                 self.num_batches_tracked.add_(1)
-            if self.adapting:
-                # normalise with the statistics just taken, which var_mean
-                # gets nearer to float64 than the CPU's training-mode
-                # batch_norm does (tests/test_torch_eval.py, ROADMAP.md F6)
-                y = F.batch_norm(rows, mean, var, self.weight, self.bias,
-                                 training=False, eps=self.eps)
-            else:
-                y = F.batch_norm(rows, None, None, self.weight, self.bias,
-                                 training=True, eps=self.eps)
         else:
-            y = F.batch_norm(rows, self.running_mean, self.running_var,
-                             self.weight, self.bias, training=False, eps=self.eps)
+            y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
+                             self.bias, training=False, eps=self.eps).to(out_dtype)
         return y.reshape(x.shape)
 
 
@@ -67,7 +124,8 @@ def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
 
 
 class SharedMLP(nn.Module):
-    """Stack of [Linear -> BatchNorm -> activation] applied per point.
+    """Stack of [Linear -> BatchNorm -> activation] applied per point,
+    its input cast to `dtype` first (flax's SharedMLP).
 
     `act` defaults to ReLU and `use_bias` to True, as in the reference's
     PointNet++ MLPs; its DGCNN convolutions are bias-free with
@@ -78,17 +136,19 @@ class SharedMLP(nn.Module):
 
     def __init__(self, in_features: int, widths: Sequence[int],
                  act: Callable[[torch.Tensor], torch.Tensor] = F.relu,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = act
+        self.dtype = dtype
         self.conv = nn.ModuleList()
         self.batch = nn.ModuleList()
         for width in widths:
-            self.conv.append(nn.Linear(in_features, width, bias=use_bias))
-            self.batch.append(BatchNorm(width))
+            self.conv.append(Linear(in_features, width, bias=use_bias, dtype=dtype))
+            self.batch.append(BatchNorm(width, dtype=dtype))
             in_features = width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = cast(x, self.dtype)
         for conv, bn in zip(self.conv, self.batch):
             x = self.act(bn(conv(x)))
         return x

@@ -12,7 +12,10 @@ where the JAX package gathers from the concatenation of the two tables
 (a TPU measure: a separate 12-byte-row gather was slow there, and on this
 card the concatenation costs a copy of the table a call). The backward
 is a scatter-add (`index_add_` into a zero table) on both devices, as the
-JAX package's is a product outside any kernel; coordinates get none. On
+JAX package's is a product outside any kernel; coordinates get none. It
+adds in float32 (or wider) and casts the sum to the table's dtype once,
+so a bfloat16 table's gradient rounds once, not once a neighbour, as the
+JAX package's TPU backward accumulates bfloat16 cotangents. On
 the card `index_add_` adds with atomics, so gradients there are not
 bit-reproducible from run to run. A table that needs no gradient, or a
 call under `torch.no_grad()`, goes to the launch without an autograd
@@ -111,7 +114,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, coords):
         ctx.save_for_backward(idx)
-        ctx.table_shape = table.shape
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
         out = _gather(table, idx, coords)
         if coords is not None:
             ctx.mark_non_differentiable(out[1])
@@ -123,9 +126,10 @@ class _GatherRows(torch.autograd.Function):
         B, N, C = ctx.table_shape
         offsets = torch.arange(B, device=idx.device, dtype=torch.long) * N
         rows = (idx.reshape(B, -1).long() + offsets[:, None]).reshape(-1)
-        out = torch.zeros((B * N, C), dtype=grad.dtype, device=grad.device)
-        out.index_add_(0, rows, grad.reshape(-1, C))
-        return out.reshape(B, N, C), None, None
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        out = torch.zeros((B * N, C), dtype=acc, device=grad.device)
+        out.index_add_(0, rows, grad.reshape(-1, C).to(acc))
+        return out.reshape(B, N, C).to(ctx.table_dtype), None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from pointseg_torch.nn.mlp import BatchNorm
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
 
@@ -236,8 +235,8 @@ def eval_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
 class bn_adapted_model:  # noqa: N801  (the JAX package's name)
     """`model` for test-time BatchNorm adaptation: calling it runs the
     forward pass with every BatchNorm normalising with the statistics of
-    the batch at hand (training mode; `BatchNorm.adapting` takes them by
-    `var_mean`), every other module in eval mode (dropout off; an
+    the batch at hand (training mode, the `var_mean` statistics of a
+    training forward), every other module in eval mode (dropout off; an
     EdgeConv follows its BatchNorm), no FPS generator (every start at 0)
     and no gradient, and then puts back each module's mode and every
     BatchNorm's running statistics and `num_batches_tracked` exactly as
@@ -263,12 +262,10 @@ class bn_adapted_model:  # noqa: N801  (the JAX package's name)
         self.model.eval()
         for m in norms:
             m.train()
-            m.adapting = isinstance(m, BatchNorm)
         try:
             return self.model(points, mask=mask)
         finally:
             for m, buffers in zip(norms, saved):
-                m.adapting = False
                 for b, old in zip(m.buffers(recurse=False), buffers):
                     b.copy_(old)
             for m, training in modes:

@@ -86,9 +86,28 @@ def test_benchmark_subcommand_prints_one_json_line(model, n, mode, capsys, monke
         assert not moved and not net.training
 
 
-def test_benchmark_refuses_bf16_and_defaults_to_the_card(monkeypatch):
-    with pytest.raises(SystemExit, match="M5"):
-        cli.main(["benchmark", "--device", "cpu", "--bf16"])
+def test_benchmark_refuses_bf16_and_defaults_to_the_card(monkeypatch, capsys):
+    """`benchmark --bf16`, refused until bf16 was ported, now runs: one
+    JSON line of the same keys, from a model that computes in bfloat16.
+    The defaults are the JAX package's, and `--device cuda` without a
+    card raises."""
+    import pointseg_torch.models as models
+
+    real, dtypes = models.create_model, []
+
+    def create_model(*args, **kwargs):
+        dtypes.append(kwargs["dtype"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(models, "create_model", create_model)
+    assert cli.main(["benchmark", "--device", "cpu", "--bf16", "--model", "PointNet",
+                     "--batch-size", "2", "--num-points", "64", "--runs", "2",
+                     "--warmup", "1"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    result = json.loads(line)
+    assert list(result) == KEYS and dtypes == [torch.bfloat16]
+    assert math.isfinite(result["points_per_sec"]) and result["points_per_sec"] > 0
+    monkeypatch.undo()
     args = cli.build_parser().parse_args(["benchmark"])
     assert (args.model, args.mode, args.batch_size, args.num_points, args.runs,
             args.warmup, args.device) == ("PointNet++", "train", 8, 4096, 30, 5, "cuda")

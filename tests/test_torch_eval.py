@@ -241,11 +241,12 @@ def test_device_stream_batch_statistics_see_padding_windows(forwards):
 def test_batch_norm_without_gradient_uses_accurate_statistics():
     """ROADMAP.md F6: under `bn_adapted_model` (batch statistics at
     evaluation, no gradient) the port's BatchNorm normalises with
-    `torch.var_mean`'s statistics, within 1e-4 of float64; a training
-    forward calls `F.batch_norm`, whose CPU statistics sum in one float32
-    pass (its error is printed, not held). Both leave the same running
-    statistics, and the adapted forward puts them back. 65,536 rows at a
-    mean 300 times their spread."""
+    `torch.var_mean`'s statistics, within 1e-4 of float64, and so does a
+    training forward with no gradient, which is the same arithmetic (it
+    called `F.batch_norm`, whose CPU statistics sum in one float32 pass,
+    until the training forward took `var_mean`'s too). Both leave the same
+    running statistics, and the adapted forward puts them back. 65,536
+    rows at a mean 300 times their spread."""
     from pointseg_torch.nn.mlp import BatchNorm
     from pointseg_torch.train.state import bn_adapted_model
 
@@ -263,21 +264,55 @@ def test_batch_norm_without_gradient_uses_accurate_statistics():
 
     net = Net().eval()
     adapted = bn_adapted_model(net)(x)
-    assert not net.training and not net.bn.training and not net.bn.adapting
+    assert not net.training and not net.bn.training
     assert float(net.bn.running_mean.abs().max()) == 0.0 and int(net.bn.num_batches_tracked) == 0
     error = float((adapted.double() - want).abs().max())
     assert error < 1e-4, error
 
-    net.bn.adapting = True  # the adapted arithmetic, its running statistics kept
     with torch.no_grad():
-        net.train()(x)
+        trained = net.train()(x)
+    assert torch.equal(trained, adapted)  # the adapted arithmetic is the training forward's
     kept = (net.bn.running_mean.clone(), net.bn.running_var.clone())
-    trained = Net().train()
     with torch.no_grad():
-        plain_error = float((trained(x).double() - want).abs().max())
-    print(f"max |error| against float64: adapted {error}, training forward {plain_error}")
-    for a, b in zip(kept, (trained.bn.running_mean, trained.bn.running_var)):
-        assert torch.equal(a, b)  # the same running statistics either way
+        var, mean = torch.var_mean(x, dim=0, correction=0)
+    print(f"max |error| against float64: adapted and training forward {error}")
+    for a, b in zip(kept, (0.1 * mean, 0.9 + 0.1 * var)):  # flax's rule, biased variance
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=0)
+
+
+def test_batch_norm_with_gradient_takes_accurate_statistics():
+    """ROADMAP.md F6: a training forward with a gradient normalises with
+    float32 `var_mean` statistics, within 1e-5 (relative) of float64's at
+    65,536 rows whose mean is 300 times their spread, and folds the same
+    ones into the running averages; `F.batch_norm(training=True)`'s output
+    lay 6.9e-4 from float64's there on the CPU, the forward's lies within
+    1e-4 (the mean's own float32 rounding, times the slope of about 150,
+    is 1e-5). Its gradients, through the statistics, within 1e-4 of
+    float64's relative to the largest (float32 sums of 65,536 terms)."""
+    from pointseg_torch.nn.mlp import BatchNorm
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((3.0 + 0.01 * rng.normal(size=(65536, 8))).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(65536, 8)).astype(np.float32))
+    bn, bn64 = BatchNorm(8).train(), BatchNorm(8).double().train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, 8)))
+        bn.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, 8)))
+        bn.running_var.zero_()  # so the update is 0.1 x the batch's statistics
+        bn64.load_state_dict(bn.state_dict())
+    xs = x.clone().requires_grad_(True)
+    x64 = x.double().requires_grad_(True)
+    y, y64 = bn(xs), bn64(x64)
+    assert y.dtype == torch.float32 and y.requires_grad
+    var64, mean64 = torch.var_mean(x.double(), dim=0, correction=0)
+    for got, want in ((bn.running_mean / 0.1, mean64), (bn.running_var / 0.1, var64)):
+        assert float(((got.double() - want) / want).abs().max()) < 1e-5
+    assert float((y.detach().double() - y64.detach()).abs().max()) < 1e-4
+    (y * dy).sum().backward()
+    (y64 * dy.double()).sum().backward()
+    for got, want in ((xs.grad, x64.grad), (bn.weight.grad, bn64.weight.grad),
+                      (bn.bias.grad, bn64.bias.grad)):
+        assert float((got.double() - want).abs().max()) < 1e-4 * float(want.abs().max())
 
 
 def test_make_eval_step_batch_matches_jax(forwards, batch, jax_variables):  # noqa: F811
@@ -408,10 +443,33 @@ def test_cli_evaluate_whole_rooms_with_batch_statistics(port_batch_predictions, 
         assert got[key] == want[key], key
 
 
-def test_cli_evaluate_refusals(port_checkpoint, tmp_path):
-    with pytest.raises(SystemExit, match="M5"):
-        cli.main(["evaluate", "--model-path", port_checkpoint, "--data-path", str(tmp_path),
-                  "--device", "cpu", "--bf16"])
+def test_cli_evaluate_refusals(forwards, port_checkpoint, tiny_blocks, tmp_path, capsys,
+                               monkeypatch):
+    """`evaluate` computes in bfloat16 when the checkpoint's config sidecar
+    says the run trained with `--bf16`, as the JAX package's does, and the
+    same as with `--bf16` given on a float32 run's checkpoint (it was
+    refused until bf16 was ported). A directory with no checkpoint is
+    refused."""
+    import pointseg_torch.models as models
+
+    real, dtypes = models.create_model, []
+
+    def create_model(*args, **kwargs):
+        dtypes.append(kwargs["dtype"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(models, "create_model", create_model)
+    model = forwards[2]
+    bf16_run = tmp_path / "bf16_run"
+    save_checkpoint(str(bf16_run), TrainState(model, make_optimizer(model.parameters()),
+                                              generator=None, step=7),
+                    config={"model": "PointNet++", "static_graph": False, "bf16": True})
+    from_sidecar = _port_cli(str(bf16_run), tiny_blocks, tmp_path)
+    assert "computing in bfloat16" in capsys.readouterr().out
+    from_flag = _port_cli(port_checkpoint, tiny_blocks, tmp_path, "--bf16")
+    assert dtypes == [torch.bfloat16, torch.bfloat16]
+    assert from_sidecar == from_flag
+    monkeypatch.undo()
     with pytest.raises(FileNotFoundError):
         cli.main(["evaluate", "--model-path", str(tmp_path), "--data-path", str(tmp_path),
                   "--device", "cpu", "--model", "PointNet++"])

@@ -279,6 +279,54 @@ def test_pointnet_train_step_matches_jax(ft, batch, jax_variables, monkeypatch):
         assert np.all(step <= LR * (1 + 1e-5) + 2.5e-7 * np.abs(p0[k])), k
 
 
+def test_pointnet_train_step_at_batch_one_matches_jax(batch, jax_variables, monkeypatch):
+    """ROADMAP.md F8: a train step at B = 1, which `F.batch_norm` refused
+    (the TNets' FC BatchNorms see one pooled row). One row normalises to
+    the BatchNorm's bias, as flax's does, so the gradient of every layer
+    before them is 0 in exact arithmetic. The loss within rtol 1e-5 of the
+    JAX model's; each gradient leaf by the criterion of
+    `test_pointnet_train_step_matches_jax` against the JAX model's float64
+    step; the running statistics within rtol 1e-4 / atol 1e-5."""
+    one = tuple(a[:1] for a in batch)
+    x, y, lengths = one
+    v = jax_variables["PointNet", False]
+    loss_j, stats_j, grads_j = _jax_step(_jax_model("PointNet", False), v, one)
+    with jax.enable_x64():
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), v)
+        jm64 = JaxPointNetSeg(num_classes=14, dtype=jnp.float64)
+        _, _, grads_64 = _jax_step(jm64, v64, (x.astype(np.float64), y, lengths))
+
+    model = _port_model("PointNet", False, v)
+    state = TrainState(model, make_optimizer(model.parameters(), LR), generator=None)
+    grads_t = {}
+    state.optimizer.register_step_pre_hook(lambda *_: grads_t.update(
+        _grads_as_flax("PointNet", False, model, v, monkeypatch)))
+    metrics = train_step(state, *(torch.from_numpy(a) for a in one))
+    np.testing.assert_allclose(float(metrics["loss"]), loss_j, rtol=1e-5, atol=1e-6)
+    assert grads_t.keys() == grads_j.keys() == grads_64.keys()
+    for k, want in grads_j.items():
+        got, exact = grads_t[k], grads_64[k]
+        assert np.all(np.isfinite(got)), k
+        cross = np.linalg.norm(got - want)
+        noise = max(np.linalg.norm(got - exact), np.linalg.norm(want - exact))
+        floor = 2e-3 * (1.0 + np.linalg.norm(want))
+        assert cross <= max(8.0 * noise, floor), (k, cross, noise, floor)
+    stats_t = _to_jax("PointNet", False, model.state_dict(), v, monkeypatch)
+    flat_t = flatten_dict(stats_t["batch_stats"], sep="/")
+    for k, want in flatten_dict(jax.tree.map(np.asarray, stats_j), sep="/").items():
+        np.testing.assert_allclose(flat_t[k], want, rtol=1e-4, atol=1e-5, err_msg=k)
+    with torch.no_grad():  # the TNet's FC BatchNorm gave its bias
+        fc = model.feat.stn
+        pooled = torch.amax(torch.relu(fc.bn3(fc.conv3(torch.relu(fc.bn2(fc.conv2(torch.relu(
+            fc.bn1(fc.conv1(torch.from_numpy(x)))))))))), dim=1)
+        h = fc.fc1(pooled)
+        # exactly where the normalisation centres first (flax; the card's
+        # elementwise kernel); the CPU's `F.batch_norm` folds the mean into
+        # the shift, so there within two float32 ulps of h * weight / sqrt(eps)
+        ulps = 2 * torch.finfo(torch.float32).eps * (h * fc.bn4.weight).abs() / fc.bn4.eps ** 0.5
+        assert bool(((fc.bn4(h) - fc.bn4.bias[None, :]).abs() <= ulps).all())
+
+
 def test_pointnet_make_eval_step_batch_matches_jax(batch, jax_variables):
     """`make_eval_step(model, "batch")` against JAX's: every BatchNorm on
     the statistics of the batch at hand; the running statistics, their
