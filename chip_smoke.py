@@ -259,8 +259,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 2e-2 of the largest logit; one PointNet train step at B = 1
    (ROADMAP F8), and the training BatchNorm at PointNet's (32768, 1024)
    rows with a mean 300 times the spread against float64 beside
-   `F.batch_norm(training=True)`'s (F6). The script's whole time is
-   printed before the two JSON lines.
+   `F.batch_norm(training=True)`'s (F6).
+9. The remaining entry points: FPS with more centroids than points ((2,
+   1000) -> 1024, (8, 100) -> 128) and kernel 5 at the enhanced trainer's
+   k = 40 ((2, 8192, 3) and (2, 8192, 64); device us beside k = 20)
+   against their plain versions; `train-legacy PointNet++` at its
+   defaults (cut 1000, batch 2, 13 classes, SA1 at C = 1024 > N = 1000)
+   one epoch on synthetic chunked rooms of 20,000 points (kernels 1, 2, 3
+   and 7 launch; ms a step; card against CPU logits at rtol/atol 1e-4);
+   `create_dgcnn_trainer` at its reference defaults (k = 40, emb 1024,
+   cut 8192, sampling 0.5, batch 2) one epoch on the same rooms (kernel 5
+   and the gather launch, the flat kNN never; ms a step, peak MiB,
+   `format_memory_usage()`); `export` of PointNet++, DeepGraphCnn and
+   PointNet at (1, 4096, 9) through the CLI (the graph's operators, the
+   loaded artifact launching the kernels, its logits equal to the eager
+   model's for two checkpoints, its size and forward ms against eager);
+   `import-torch` of a reference-layout `.pt`, then `evaluate` of it;
+   `prepare --stage all` on a small raw tree; a real
+   `torch.cuda.OutOfMemoryError` through `is_oom_error`; host us a call
+   of the ball query and 3-NN with the operators registered. Each path
+   runs with the launch counts set to 0 before it and read after it. The
+   script's whole time is printed before the two JSON lines.
 
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
@@ -3393,6 +3412,332 @@ def bf16_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
     return {"gathers": gathers, "steps": steps, "benchmark": readings}
 
 
+# Phase 9: the remaining entry points (`train-legacy`, the enhanced DGCNN
+# trainer, `export`, `import-torch`, `prepare`) and the shapes only they
+# give the kernels: FPS with more centroids than points, kernel 5 at k = 40.
+FPS_PAST_N = [(2, 1000, 1024), (8, 100, 128)]  # (B, N, C): SA1 of train-legacy's cut 1000
+ENHANCED_K = 40  # create_dgcnn_trainer's k: past the flat kernel's 32
+LEGACY_ROOM_POINTS = 20_000
+EXPORT_SHAPE = (1, 4096, 9)
+EXPORT_MODELS = ("PointNet++", "DeepGraphCnn", "PointNet")
+# the artifact's logits against the eager model's on the card: the graph
+# holds the same aten ops and the same kernels, so they should be
+# bit-equal; 1e-6 would allow a library call that rounds in another order
+EXPORT_ATOL = 1e-6
+
+
+def fps_past_n(device) -> None:
+    """FPS with C > N: after N picks every distance is 0 and the lowest
+    index repeats, in the kernel as in the plain version (index for
+    index)."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.fps import farthest_point_sampling, farthest_point_sampling_plain
+
+    rng = np.random.default_rng(31)
+    for B, N, C in FPS_PAST_N:
+        pts = torch.from_numpy(block_cloud(rng, B, N)).to(device)
+        for start in (torch.zeros(B, dtype=torch.int32, device=device),
+                      torch.arange(B, dtype=torch.int32, device=device) * 37 % N):
+            before = _kernels.LAUNCHES["fps"]
+            got = farthest_point_sampling(pts, C, start_indices=start)
+            want = farthest_point_sampling_plain(pts, C, start)
+            if _kernels.LAUNCHES["fps"] != before + 1 or not torch.equal(got, want):
+                raise AssertionError(f"FPS {(B, N, C)}: the kernel differs from plain at "
+                                     f"{int((got != want).sum())} of {got.numel()} picks")
+            if len(torch.unique(got[0])) != N or not bool((got[:, N:] == 0).all()):
+                raise AssertionError(f"FPS {(B, N, C)}: not every point picked once, then 0")
+        us, instance = fps_device(lambda: farthest_point_sampling(pts, C))
+        print(f"fps {(B, N, C)} (C > N): kernel equal to plain index for index from two starts; "
+              f"{us:.1f} us a launch on the device ({instance})", flush=True)
+
+
+def knn_2l_at_k40(device) -> None:
+    """Kernel 5 at the enhanced trainer's k = 40, (2, 8192, 3) and (2,
+    8192, 64): `select="flat"` runs it (k > 32), slot for slot equal to the
+    plain version beyond float64-verified ties; device us a launch beside
+    kernel 5 and the flat kernel at k = 20 on the same rows."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+
+    rng = np.random.default_rng(32)
+    for x_np in (block_cloud(rng, 2, 8192), activations(rng, 2, 8192, 64)):
+        x = torch.from_numpy(x_np).to(device)
+        B, N, F = x.shape
+        before = dict(_kernels.LAUNCHES)
+        got = knn_indices(x, ENHANCED_K)
+        if (_kernels.LAUNCHES["knn_2l"] != before["knn_2l"] + 1
+                or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+            raise AssertionError(f"kNN {(B, N, F)} k={ENHANCED_K} must launch kernel 5 once")
+        flips, gap = check_picks(x, x, got, knn_indices_plain(x, ENHANCED_K))
+        us = kernel_device_us(lambda: knn_indices(x, ENHANCED_K), "knn_two_level_kernel", 5)
+        us_2l20 = kernel_device_us(lambda: knn_indices(x, K_NEIGHBOURS, select="two_level"),
+                                   "knn_two_level_kernel", 5)
+        flat20 = kernel_device_us(lambda: knn_indices(x, K_NEIGHBOURS), "knn_flat_kernel", 5)
+        flops = 2.0 * B * N * N * F
+        bound = max(flops / PEAK_F32_FLOPS, (4 * B * N * F + 4 * B * N * ENHANCED_K)
+                    / PEAK_BYTES_PER_S)
+        print(f"knn_2l {(B, N, F)} k={ENHANCED_K}: equal to plain slot for slot ({flips} "
+              f"float64-verified tie flips, gap {gap:.3g}); {us:.1f} us a launch on the device; "
+              f"k={K_NEIGHBOURS} on the same rows: kernel 5 {us_2l20:.1f} us, the flat kernel "
+              f"{flat20:.1f} us; bound {bound * 1e6:.1f} us", flush=True)
+
+
+def legacy_rooms(workdir: str) -> str:
+    """Synthetic chunked rooms of 20,000 points, two an area."""
+    from pointseg_torch.data import synthetic
+
+    return synthetic.make_chunked_dataset(f"{workdir}/legacy_rooms", rooms_per_area=2,
+                                          points_per_room=LEGACY_ROOM_POINTS, seed=0)
+
+
+def path_run(label: str, needed: tuple[str, ...], run):
+    """Runs `run()` with every launch count set to 0 before it and read
+    after it; fails unless each kernel of `needed` launched and no other.
+    Returns (run's result, the launches)."""
+    zero_launches()
+    result = run()
+    launches = read_launches()
+    ran = {k: v for k, v in launches.items() if v}
+    if set(ran) != set(needed):
+        raise AssertionError(f"{label}: launched {ran}, its path is {needed}")
+    print(f"{label}: launches {ran}", flush=True)
+    return result, launches
+
+
+def legacy_batch(rooms: str, device, cut: int | None, sampling: float | None, classes):
+    """The first train batch of `train-legacy` at its defaults (batch 2), preprocessed,
+    on `device`."""
+    from pointseg_torch.data.datasets import create_chunked_dataloaders
+    from pointseg_torch.train.legacy import batches
+
+    loader = create_chunked_dataloaders(rooms, batch_size=2)[0]
+    return next(batches(loader, classes, cut, sampling, np.random.default_rng(0), device))
+
+
+def legacy_phase(device, workdir: str, rooms: str) -> None:
+    """`train-legacy PointNet++` at its defaults (cut 1000, batch 2, 13
+    classes): one epoch, SA1 at C = 1024 > N = 1000; the step's time; the
+    card's logits against the CPU's for the same weights and batch."""
+    from pointseg_torch import cli
+    from pointseg_torch.data.s3dis import S3DIS_CLASSES_13
+    from pointseg_torch.train.state import train_step
+
+    args = cli.build_parser().parse_args(
+        ["train-legacy", "PointNet++", "--data-dir", rooms, "--epochs", "1",
+         "--records-dir", f"{workdir}/legacy_records"])
+    (state, records), launches = path_run("train-legacy PointNet++ (one epoch)",
+                                          path_kernels("PointNet++"),
+                                          lambda: cli.train_legacy_from_args(args))
+    if not all(math.isfinite(records[k][0]) for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"train-legacy PointNet++: {records}")
+    steps = state.step  # the epoch's; its evaluation is one batch of the two area-6 rooms
+    batch = legacy_batch(rooms, device, 1000, None, S3DIS_CLASSES_13)
+    if batch[0].shape != (2, 1000, 6):
+        raise AssertionError(f"train-legacy's batch is {tuple(batch[0].shape)}, not (2, 1000, 6)")
+    for _ in range(3):
+        train_step(state, *batch)
+    step_ms = timed(lambda: train_step(state, *batch), 10)
+    print(f"train-legacy PointNet++ (B=2, N=1000, 6 features, SA1 C=1024): {steps} steps, "
+          f"loss {records['train_loss'][0]:.4f}, val {records['val_loss'][0]:.4f}; "
+          f"{step_ms:.3f} ms a step (CUDA events, 10 steps); launches a forward "
+          f"{ {k: v / (steps + 1) for k, v in launches.items() if v} }", flush=True)
+    model = state.model.eval()
+    with torch.no_grad():
+        got = model(batch[0]).cpu()
+        want = cpu_copy("PointNet++", model, num_classes=13, in_dim=6)(batch[0].cpu())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    print(f"train-legacy PointNet++ eval logits card vs CPU: max |diff| "
+          f"{float((got - want).abs().max()):.3g}", flush=True)
+
+
+def enhanced_phase(device, workdir: str, rooms: str) -> None:
+    """`create_dgcnn_trainer` at the reference's recommended configuration
+    (k = 40, emb 1024, cut 8192, sampling 0.5, batch 2) for one epoch on
+    rooms of 20,000 points (8,192 points a sampled room): kernel 5 only,
+    never the flat kNN; ms a step, the peak and the memory line."""
+    from pointseg_torch.data.datasets import create_chunked_dataloaders
+    from pointseg_torch.data.s3dis import S3DIS_CLASSES
+    from pointseg_torch.train.enhanced import create_dgcnn_trainer
+    from pointseg_torch.train.state import train_step
+    from pointseg_torch.utils.memory import format_memory_usage
+
+    train, cfg = create_dgcnn_trainer(epochs=1, records_dir=f"{workdir}/enhanced")
+    if (cfg["k"], cfg["emb_dims"], cfg["cut"], cfg["sampling"]) != (ENHANCED_K, 1024, 8192, 0.5):
+        raise AssertionError(f"create_dgcnn_trainer's defaults moved: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    (state, records), _ = path_run("the enhanced DGCNN trainer (one epoch)",
+                                   ("knn_2l", "gather_rows"),
+                                   lambda: train(*create_chunked_dataloaders(rooms, batch_size=2)))
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(records["train_loss"][0]):
+        raise AssertionError(f"the enhanced trainer: {records}")
+    batch = legacy_batch(rooms, device, 8192, 0.5, S3DIS_CLASSES)
+    train_step(state, *batch)
+    step_ms = timed(lambda: train_step(state, *batch), 5)
+    print(f"enhanced DGCNN trainer (B=2, N={batch[0].shape[1]}, k={ENHANCED_K}, emb 1024): "
+          f"epoch {records['epoch_times'][0]:.2f} s, loss {records['train_loss'][0]:.4f}; "
+          f"{step_ms:.3f} ms a step (CUDA events, 5 steps); peak allocated over the epoch "
+          f"{peak / 2**20:.1f} MiB; {format_memory_usage()}", flush=True)
+
+
+def export_phase(device, workdir: str) -> None:
+    """`export` of PointNet++, DeepGraphCnn and PointNet at (1, 4096, 9)
+    through the CLI from a checkpoint: the graph holds the operators, the
+    loaded artifact launches the kernels and gives the eager model's
+    logits, for the exported weights and for a second checkpoint's; size,
+    and forward ms against the eager forward's (CUDA events, in turns)."""
+    from pointseg_torch import cli
+    from pointseg_torch.io.checkpoint import save_checkpoint
+    from pointseg_torch.io.export_aot import load_forward
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    x = torch.from_numpy(np.random.default_rng(33).random(EXPORT_SHAPE).astype(np.float32)
+                         ).to(device)
+    for name in EXPORT_MODELS:
+        states = []
+        for seed in (0, 1):
+            torch.manual_seed(seed)
+            states.append(create_train_state(create_model(name), device=device))
+        ckpt = f"{workdir}/export_{name}"
+        save_checkpoint(ckpt, states[0], config={"model": name})
+        out = f"{workdir}/{name}.pt2"
+        t0 = time.time()
+        cli.main(["export", ckpt, "--out", out, "--batch-size", str(EXPORT_SHAPE[0]),
+                  "--npoints", str(EXPORT_SHAPE[1])])
+        export_s = time.time() - t0
+        with open(out, "rb") as f:
+            blob = f.read()
+        graph = str(torch.export.load(io.BytesIO(blob)).graph)
+        operators = {k: graph.count(f"pointseg_torch.{k}.default") for k in KERNELS
+                     if f"pointseg_torch.{k}.default" in graph}
+        if set(operators) != set(path_kernels(name)):
+            raise AssertionError(f"export {name}: the graph holds {operators}, its path is "
+                                 f"{path_kernels(name)}")
+        forward = load_forward(blob)
+        for state in states:
+            model = state.model.eval()
+            got, launches = path_run(f"export {name}: the loaded artifact's forward",
+                                     path_kernels(name), lambda: forward(model.state_dict(), x))
+            with torch.no_grad():
+                want = model(x)
+            err = float((got - want).abs().max())
+            if got.shape != (*EXPORT_SHAPE[:2], 14) or not err <= EXPORT_ATOL:
+                raise AssertionError(f"export {name}: artifact against eager, max |diff| {err}")
+        weights = states[1].model.state_dict()
+        eager = states[1].model
+
+        def run_eager():
+            with torch.no_grad():
+                eager(x)
+
+        artifact_ms = timed(lambda: forward(weights, x), 10)
+        eager_ms = timed(run_eager, 10)
+        artifact_ms = (artifact_ms + timed(lambda: forward(weights, x), 10)) / 2
+        print(f"export {name} {EXPORT_SHAPE}: {len(blob) / 1024:.0f} KB in {export_s:.1f} s, "
+              f"operators {operators}; artifact logits = eager (max |diff| {err:.3g}, two "
+              f"checkpoints); forward {artifact_ms:.3f} ms artifact, {eager_ms:.3f} ms eager "
+              f"(CUDA events, 10 calls, in turns)", flush=True)
+
+
+def import_and_prepare_phase(device, workdir: str) -> None:
+    """`import-torch` of a reference-layout PointNet++ `.pt` (1x1
+    convolution weights), then `evaluate --model-path` of the result on
+    the blocks of a synthetic room an area (area 6 evaluated); `prepare
+    --stage all` on a small raw tree."""
+    from pointseg_torch import cli
+    from pointseg_torch.data import synthetic
+    from pointseg_torch.models import create_model
+
+    torch.manual_seed(5)
+    reference = create_model("PointNet++")
+    pt = f"{workdir}/reference.pt"
+    torch.save({k: v[..., None] if v.dim() == 2 else v
+                for k, v in reference.state_dict().items()}, pt)
+    out = f"{workdir}/imported"
+    cli.main(["import-torch", "--torch-checkpoint", pt, "--model", "PointNet++",
+              "--out-dir", out])
+    blocks = synthetic.make_block_dataset(f"{workdir}/import_blocks", rooms_per_area=1,
+                                          points_per_room=LEGACY_ROOM_POINTS, seed=0,
+                                          rgb_u8=True)
+    args = cli.build_parser().parse_args(["evaluate", "--model-path", out, "--data-path",
+                                          blocks])
+    results, _ = path_run("evaluate of the imported PointNet++", path_kernels("PointNet++"),
+                          lambda: cli.evaluate_from_args(args))
+    if not 0.0 <= results["accuracy"] <= 1.0:
+        raise AssertionError(f"evaluate of the imported checkpoint: {results}")
+
+    raw = f"{workdir}/raw/Area_1/office_1/Annotations"
+    os.makedirs(raw)
+    rng = np.random.default_rng(0)
+    for name in ("ceiling_1.txt", "floor_1.txt", "wall_1.txt"):
+        np.savetxt(f"{raw}/{name}", np.concatenate(
+            [rng.uniform(0, 2, (800, 3)), rng.uniform(0, 255, (800, 3))], axis=1), fmt="%.4f")
+    cli.main(["prepare", "--input-path", f"{workdir}/raw", "--areas-path", f"{workdir}/areas",
+              "--chunked-path", f"{workdir}/chunks", "--blocks-path", f"{workdir}/blocks",
+              "--n-chunks", "2"])
+    written = [f"{workdir}/areas/s3dis1.npz", f"{workdir}/chunks/chunked_index.json",
+               f"{workdir}/blocks/block_to_coords_mapping.json"]
+    if not all(os.path.exists(p) for p in written) or not glob.glob(f"{workdir}/blocks/area_1/*"):
+        raise AssertionError("prepare --stage all did not write its files")
+    print(f"import-torch PointNet++ then evaluate: accuracy {results['accuracy']:.4f}; prepare "
+          f"--stage all wrote {len(glob.glob(f'{workdir}/blocks/area_1/*'))} blocks", flush=True)
+
+
+def oom_phase(device) -> None:
+    """A real `torch.cuda.OutOfMemoryError`, from an allocation larger than
+    the card's memory, is an out-of-memory error to `is_oom_error`."""
+    from pointseg_torch.runtime import is_oom_error
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    try:
+        torch.empty(total + 2**30, dtype=torch.uint8, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        if not is_oom_error(e):
+            raise AssertionError(f"is_oom_error({type(e).__name__}) is false") from e
+        print(f"allocating {(total + 2**30) / 2**30:.1f} GiB: {type(e).__name__}, is_oom_error "
+              f"true", flush=True)
+    else:
+        raise AssertionError("an allocation past the card's memory did not raise")
+
+
+def operator_host_us(device) -> None:
+    """Host us of one call of the ball query (repeat filler) at SA3 and
+    of 3-NN at FP3, as phase 3's split times them, now that the
+    operators are registered; beside it the exporting test the wrappers
+    make and the same selections through the dispatcher, the route only a
+    trace takes."""
+    from pointseg_torch.ops.ballquery import ball_query
+    from pointseg_torch.ops.interpolate import three_nn
+
+    levels = training_levels(device)
+    cents, pts = levels[3], levels[2]
+    bq = host_us(lambda: ball_query(cents, pts, 0.4, 32))
+    nn = host_us(lambda: three_nn(pts, cents))
+    test = host_us(torch.compiler.is_exporting)
+    bq_op = host_us(lambda: torch.ops.pointseg_torch.ball_query(cents, pts, None, 0.4, 32, True))
+    nn_op = host_us(lambda: torch.ops.pointseg_torch.three_nn(pts, cents, None, 3))
+    print(f"host us a call, 10,000 calls, operators registered: ball_query(filler='repeat') at "
+          f"SA3 {bq:.2f}, three_nn at FP3 {nn:.2f}; torch.compiler.is_exporting() {test:.3f}; "
+          f"through the dispatcher (a trace's route) {bq_op:.2f} and {nn_op:.2f}", flush=True)
+
+
+def remaining_entry_points_phase(device, workdir: str) -> None:
+    """Phase 9."""
+    t0 = time.time()
+    fps_past_n(device)
+    knn_2l_at_k40(device)
+    rooms = legacy_rooms(workdir)
+    legacy_phase(device, workdir, rooms)
+    enhanced_phase(device, workdir, rooms)
+    torch.cuda.empty_cache()
+    export_phase(device, workdir)
+    import_and_prepare_phase(device, workdir)
+    oom_phase(device)
+    operator_host_us(device)
+    print(f"phase 9: {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--kernel-times"] and len(args) == 3:
@@ -3459,6 +3804,8 @@ def main() -> int:
         readings = measurement_phase(device, workdir, smi)
         phase("8. bf16")
         bf16 = bf16_phase(device, workdir, smi, states, batch)
+        phase("9. the remaining entry points")
+        remaining_entry_points_phase(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

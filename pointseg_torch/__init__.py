@@ -11,11 +11,13 @@ imports nothing of `pointseg`: `data/` is its own copy of the numpy
 data layer.
 
 Ported so far: training (checkpoints, resume, rate schedules, gradient
-clipping, `--profile`) and evaluation (blocks and whole rooms: the
-`train` and `evaluate` subcommands) of all eight registry models
-(PointNet, PointNet++ SSG and MSG, PointNeXt and its -B and -L depths,
-DGCNN with and without the colour branch), and the `benchmark` and
-`doctor` subcommands (ROADMAP.md lists the rest).
+clipping, `--profile`, `--bf16`, `--save-confusion`) and evaluation
+(blocks and whole rooms) of all eight registry models (PointNet,
+PointNet++ SSG and MSG, PointNeXt and its -B and -L depths, DGCNN with
+and without the colour branch), serving export (`io/export_aot.py`),
+reference checkpoint import, the legacy stack (`train/legacy.py`,
+`train/enhanced.py`) and every subcommand of the JAX CLI; only
+`train --data-parallel` is left (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

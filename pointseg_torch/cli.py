@@ -1,5 +1,6 @@
-"""Command-line interface of the port (the `train`, `evaluate`,
-`benchmark` and `doctor` subcommands of `pointseg/cli.py`).
+"""Command-line interface of the port (every subcommand of
+`pointseg/cli.py`: `train`, `prepare`, `evaluate`, `export`, `doctor`,
+`import-torch`, `benchmark` and `train-legacy`).
 
     python -m pointseg_torch train PointNet++ [--synthetic] [--data-dir D]
         [--epochs E] [--device cuda] [--model-dir saved_models] ...
@@ -13,29 +14,37 @@
     python -m pointseg_torch train <model> --accum-steps K
     python -m pointseg_torch train <model> --profile DIR
     python -m pointseg_torch train <model> --bf16
+    python -m pointseg_torch train <model> --save-confusion
+    python -m pointseg_torch prepare [--stage all|raw|chunks|index|blocks] ...
     python -m pointseg_torch evaluate --model-path CKPT --data-path D
         [--whole-rooms [--stream device|host]] [--bn-stats running|batch] [--bf16] ...
+    python -m pointseg_torch export CKPT --out F.pt2 [--batch-size 1] [--npoints 4096]
+        [--platforms cuda|cpu]
+    python -m pointseg_torch import-torch --torch-checkpoint F.pt --model M --out-dir D
     python -m pointseg_torch benchmark [--model PointNet++] [--mode train|inference]
         [--batch-size 8] [--num-points 4096] [--runs 30] [--warmup 5] [--bf16]
+    python -m pointseg_torch train-legacy <model> [--data-dir test_data] [--cut 1000] ...
     python -m pointseg_torch doctor
 
 Defaults are the reference configuration: Adam lr 1e-3, 10 epochs, batch
 8 (test 2), 4096 points, test area 6, 14 classes. `train` writes a
 checkpoint and its `config.json` sidecar after every epoch into
-`<model-dir>/<model>/<timestamp>`; `evaluate` reads the model name,
-`--static-graph` and `--bf16` from that sidecar. `--bf16` computes
+`<model-dir>/<model>/<timestamp>`; `evaluate` and `export` read the model
+name, `--static-graph` and `--bf16` from that sidecar. `--bf16` computes
 activations in bfloat16 with float32 parameters, gradients, Adam state
 and logits (`create_model(name, dtype=torch.bfloat16)`), as the JAX
-package's `--bf16` does; TF32 stays off. Flags of the JAX package that the
-port does not carry yet are accepted by the parser only to be refused
-with a pointer to ROADMAP.md. `--device cuda` (the default of
-`train`, `evaluate` and `benchmark`) without a CUDA device raises; the
-port never moves work to the CPU by itself.
+package's `--bf16` does; TF32 stays off. `--data-parallel`, the one flag
+of the JAX package that the port does not carry yet, is accepted by the
+parser only to be refused with a pointer to ROADMAP.md. `--device cuda`
+(the default of every subcommand that computes: `train`, `evaluate`,
+`benchmark`, `import-torch`, `train-legacy`, and `export`'s
+`--platforms`) without a CUDA device raises; the port never moves work
+to the CPU by itself. `prepare` is numpy only and takes the JAX
+package's flags alone.
 The JAX package's environment switches POINTSEG_SELECT2L and
 POINTSEG_BQ_FILLER select the two-level kernels and the ball-query
 filler here too (`kernel_switches`).
 """
-
 from __future__ import annotations
 
 import argparse
@@ -47,7 +56,7 @@ from datetime import datetime
 
 import torch
 
-from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, S3DIS_CLASSES
+from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, S3DIS_CLASSES, S3DIS_CLASSES_13
 
 # the JAX package's model names (pointseg_torch.models.MODELS)
 MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
@@ -57,7 +66,6 @@ DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 # JAX trainer flags not carried yet: (flag, argparse kwargs)
 _NOT_PORTED = (
     ("--data-parallel", dict(action="store_true")),
-    ("--save-confusion", dict(action="store_true")),
 )
 EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 BF16_HELP = "Compute in bfloat16 (parameters, gradients and Adam state stay float32)."
@@ -132,6 +140,10 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="Trace the whole training run with torch.profiler (host, and the "
                         "card's kernels on --device cuda) into DIR/trace.json, a Chrome "
                         "trace.")
+    p.add_argument("--save-confusion", action="store_true",
+                   help="Draw each epoch's evaluation confusion matrix into "
+                        "<log dir>/confusion/confusion_epoch_{n}.png (needs matplotlib; "
+                        "without it nothing is written).")
     for flag, kwargs in _NOT_PORTED:
         p.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
 
@@ -214,6 +226,7 @@ def train_from_args(args: argparse.Namespace):
     from pointseg_torch.data.datasets import create_block_dataloaders
     from pointseg_torch.io.checkpoint import restore_train_state
     from pointseg_torch.models import create_model
+    from pointseg_torch.runtime import is_oom_error, oom_advice
     from pointseg_torch.train.logging import MetricsLogger, save_records
     from pointseg_torch.train.loop import train_model
     from pointseg_torch.train.state import create_train_state
@@ -288,7 +301,13 @@ def train_from_args(args: argparse.Namespace):
                 state, train_loader, test_loader, num_epochs=args.epochs,
                 log_interval=args.log_interval, logger=logger,
                 num_classes=NUM_S3DIS_CLASSES, ckpt_dir=ckpt_dir, config=config,
+                confusion_dir=(os.path.join(log_path, "confusion")
+                               if args.save_confusion else None),
                 scan_steps=args.scan_steps, accum_steps=args.accum_steps)
+    except Exception as e:
+        if is_oom_error(e):
+            print(oom_advice(args.train_batch_size, args.train_sampling))
+        raise
     finally:
         logger.close()
     if args.profile:
@@ -377,27 +396,15 @@ def evaluate_from_args(args: argparse.Namespace) -> dict:
         ListLoader,
         create_block_dataloaders,
     )
-    from pointseg_torch.io.checkpoint import load_config, restore_train_state
-    from pointseg_torch.models import create_model
     from pointseg_torch.train.loop import evaluate
-    from pointseg_torch.train.state import create_train_state, make_eval_step
+    from pointseg_torch.train.state import make_eval_step
     from pointseg_torch.utils.evaluation import evaluate_rooms
 
-    ckpt_dir = (args.model_path if os.path.isdir(args.model_path)
-                else os.path.dirname(args.model_path))
-    config = load_config(ckpt_dir) or {}
-    use_bf16 = args.bf16 or bool(config.get("bf16"))  # the training run's, unless given
     device = resolve_device(args.device)
-    model_name = args.model or config.get("model", "PointNet++")
     num_classes = args.num_classes
     class_names = S3DIS_CLASSES[:num_classes]
-    model_kwargs = kernel_switches(model_name)
-    if config.get("static_graph") and model_name in DGCNN_NAMES:
-        model_kwargs["static_graph"] = True  # the graph mode the model was trained in
-    model = create_model(model_name, num_classes=num_classes, dtype=_dtype(use_bf16),
-                         **model_kwargs)
-    _no_tf32()
-    state = restore_train_state(args.model_path, create_train_state(model, device=device))
+    state, model_name, use_bf16 = _model_from_sidecar(args.model_path, args.model, num_classes,
+                                                      args.bf16, device)
     print(f"Loaded {model_name} from {args.model_path} (step {state.step})"
           f"{', computing in bfloat16' if use_bf16 else ''}.")
 
@@ -561,11 +568,226 @@ def doctor_from_args(args: argparse.Namespace) -> None:
         raise SystemExit(1)
 
 
+def _add_prepare_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--stage", choices=["all", "raw", "chunks", "index", "blocks"],
+                   default="all")
+    p.add_argument("--input-path", default="data/s3dis")
+    p.add_argument("--areas-path", default="data")
+    p.add_argument("--chunked-path", default="data_chunked")
+    p.add_argument("--blocks-path", default="S3DIS_blocks")
+    p.add_argument("--n-chunks", type=int, default=10)
+    p.add_argument("--force", action="store_true")
+
+
+def prepare_from_args(args: argparse.Namespace) -> None:
+    """Runs the `prepare` subcommand: the offline ETL raw S3DIS -> areas ->
+    chunks -> chunk index -> blocks, over the port's copies of the data
+    layer (`data/prepare.py`, `data/blocks.py`); numpy only."""
+    from pointseg_torch.data.blocks import preprocess_dataset
+    from pointseg_torch.data.prepare import precompute_chunk_index, prepare_s3dis, split_chunks
+
+    stage = args.stage
+    if stage in ("all", "raw"):
+        prepare_s3dis(args.input_path, args.areas_path)
+    if stage in ("all", "chunks"):
+        split_chunks(args.areas_path, args.chunked_path, n_chunks=args.n_chunks)
+    if stage in ("all", "index"):
+        precompute_chunk_index(args.chunked_path, force_recompute=args.force)
+    if stage in ("all", "blocks"):
+        preprocess_dataset(args.chunked_path, args.blocks_path)
+
+
+def _add_export_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model_path", help="Checkpoint file or directory.")
+    p.add_argument("--out", required=True, help="Output artifact path (torch.export, .pt2).")
+    p.add_argument("--model", default=None, choices=MODEL_CHOICES + [None],
+                   help="Default: the model of the checkpoint's config sidecar.")
+    p.add_argument("--num-classes", type=int, default=NUM_S3DIS_CLASSES)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--npoints", type=int, default=4096,
+                   help="Serving shape: export one artifact per bucket.")
+    p.add_argument("--bf16", action="store_true",
+                   help=BF16_HELP + " Default: the training run's setting in the sidecar.")
+    p.add_argument("--platforms", "--device", dest="platforms", default="cuda",
+                   help="The device the artifact is traced on and runs on: 'cuda' "
+                        "(default; the kernels' path) or 'cpu'. One only: a torch.export "
+                        "artifact has one device.")
+
+
+def _export_device(platforms: str) -> torch.device:
+    """`--platforms` as the one device of the trace."""
+    names = [p for p in platforms.split(",") if p]
+    if len(names) != 1:
+        raise SystemExit(f"--platforms {platforms}: a torch.export artifact is for one device; "
+                         "export once for each of them")
+    if names[0] not in ("cuda", "cpu"):
+        raise SystemExit(f"--platforms {platforms}: pointseg_torch exports for 'cuda' or "
+                         "'cpu' (a TPU artifact comes from the JAX package's export)")
+    return resolve_device(names[0])
+
+
+def _model_from_sidecar(model_path: str, model: str | None, num_classes: int, bf16: bool,
+                        device: torch.device):
+    """(TrainState restored from a checkpoint, model name, bf16): the model
+    named by `model` or the config sidecar, built with the kernel switches,
+    the sidecar's `--static-graph` for a DGCNN and its `--bf16` unless
+    `bf16` is given."""
+    from pointseg_torch.io.checkpoint import load_config, restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    ckpt_dir = model_path if os.path.isdir(model_path) else os.path.dirname(model_path)
+    config = load_config(ckpt_dir) or {}
+    use_bf16 = bf16 or bool(config.get("bf16"))  # the training run's, unless given
+    model_name = model or config.get("model", "PointNet++")
+    model_kwargs = kernel_switches(model_name)
+    if config.get("static_graph") and model_name in DGCNN_NAMES:
+        model_kwargs["static_graph"] = True  # the graph mode the model was trained in
+    net = create_model(model_name, num_classes=num_classes, dtype=_dtype(use_bf16),
+                       **model_kwargs)
+    _no_tf32()
+    state = restore_train_state(model_path, create_train_state(net, device=device))
+    return state, model_name, use_bf16
+
+
+def export_from_args(args: argparse.Namespace) -> bytes:
+    """Runs the `export` subcommand: the checkpoint's eval-mode forward at
+    (--batch-size, --npoints, 9) as a `torch.export` artifact in --out,
+    with the weights left out (`pointseg_torch/io/export_aot.py`); returns
+    the artifact's bytes."""
+    from pointseg_torch.io.export_aot import export_forward
+
+    device = _export_device(args.platforms)
+    state, model_name, use_bf16 = _model_from_sidecar(args.model_path, args.model,
+                                                      args.num_classes, args.bf16, device)
+    example = torch.zeros((args.batch_size, args.npoints, 9), device=device)
+    blob = export_forward(state.model, example, device=device)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    print(f"Exported {model_name} (B={args.batch_size}, N={args.npoints}, "
+          f"platforms={device.type}{', bf16' if use_bf16 else ''}) -> {args.out} "
+          f"({len(blob) / 1024:.0f} KB)")
+    return blob
+
+
+IMPORT_CHOICES = ["PointNet", "PointNet++", "PointNeXt", "DGCNN", "DeepGraphCnn"]
+
+
+def _add_import_torch_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--torch-checkpoint", required=True,
+                   help="Reference .pt file holding a state_dict (torch.save(model."
+                        "state_dict(), path)); a pickled model object is refused.")
+    p.add_argument("--model", required=True, choices=IMPORT_CHOICES,
+                   help="Model family the checkpoint belongs to (DeepGraphCnn = the "
+                        "colour-branch DGCNN of the main CLI; DGCNN = the plain variant).")
+    p.add_argument("--out-dir", required=True,
+                   help="Destination checkpoint directory (with a config.json sidecar, so "
+                        "`evaluate --model-path <out-dir>` finds the model).")
+    p.add_argument("--num-classes", type=int, default=14, choices=[13, 14])
+    p.add_argument("--num-points", type=int, default=4096,
+                   help="Accepted as the JAX package's command line has it, where it sizes "
+                        "an example input; no parameter shape depends on it, and the port "
+                        "builds its models without one.")
+    p.add_argument("--device", default="cuda",
+                   help="Where the model is built and saved from: 'cuda' (default) or 'cpu'.")
+
+
+def import_torch_from_args(args: argparse.Namespace) -> str:
+    """Runs the `import-torch` subcommand: a reference PyTorch state_dict
+    becomes a port checkpoint at step 0 with the sidecar {model,
+    num_classes, imported_from}. The port keeps the reference's keys but
+    in the DGCNNs, and its Linear weights drop the reference's 1x1
+    convolution dims (`io/torch_import.py`); the result loads with
+    `load_state_dict(strict=True)`. Read with
+    `torch.load(weights_only=True)`: a pickled model object would need the
+    reference's classes and unpickling runs their code, so it is refused
+    with a message. Returns the checkpoint's path."""
+    import pickle
+
+    from pointseg_torch.io.checkpoint import save_checkpoint
+    from pointseg_torch.io.torch_import import from_reference_state_dict
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    device = resolve_device(args.device)
+    ask = ("; save the model's state_dict instead (torch.save(model.state_dict(), path)) and "
+           "import that file")
+    try:
+        state_dict = torch.load(args.torch_checkpoint, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise SystemExit(f"{args.torch_checkpoint} holds a pickled object, not a state_dict "
+                         f"({str(e).splitlines()[0]}){ask}") from e
+    if not isinstance(state_dict, dict) or not all(
+            isinstance(v, torch.Tensor) for v in state_dict.values()):
+        raise SystemExit(f"{args.torch_checkpoint} holds a {type(state_dict).__name__}, not a "
+                         f"state_dict of tensors{ask}")
+    model = create_model(args.model, num_classes=args.num_classes)
+    model.load_state_dict(from_reference_state_dict(args.model, state_dict, model), strict=True)
+    state = create_train_state(model, device=device)
+    config = {"model": args.model, "num_classes": args.num_classes,
+              "imported_from": os.path.abspath(args.torch_checkpoint)}
+    path = save_checkpoint(args.out_dir, state, step=0, config=config)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Imported {args.model} ({n_params:,} params) from {args.torch_checkpoint}\n"
+          f"  -> {path}")
+    print(f"Evaluate it with: python -m pointseg_torch evaluate --model-path {args.out_dir} "
+          f"--data-path <blocks> --num-classes {args.num_classes}")
+    return path
+
+
+def _add_train_legacy_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model", choices=MODEL_CHOICES)
+    p.add_argument("--data-dir", default="test_data")
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--cut", type=int, default=1000)
+    p.add_argument("--sampling", type=float, default=None)
+    p.add_argument("--num-classes", type=int, default=13, choices=[13, 14])
+    p.add_argument("--no-index", action="store_true")
+    p.add_argument("--test-on-train", action="store_true")
+    p.add_argument("--records-dir", default="saved_training/history")
+    p.add_argument("--records-filename", default="records")
+    p.add_argument("--seed", type=int, default=0,
+                   help="Fixes the weights, the FPS generator and the point sampling.")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; the kernels' path) or 'cpu' (plain PyTorch "
+                        "versions).")
+
+
+def train_legacy_from_args(args: argparse.Namespace):
+    """Runs the `train-legacy` subcommand: the legacy/chunked stack
+    (`pointseg_torch/train/legacy.py`) on 6-feature (xyz + rgb) chunked
+    rooms, the model built for that width; returns (TrainState, records)."""
+    from pointseg_torch.data.datasets import create_chunked_dataloaders
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.legacy import train_model as legacy_train
+    from pointseg_torch.train.state import create_train_state
+
+    device = resolve_device(args.device)
+    mapping = S3DIS_CLASSES_13 if args.num_classes == 13 else S3DIS_CLASSES
+    train_loader, test_loader = create_chunked_dataloaders(
+        args.data_dir, batch_size=args.batch_size, require_index_file=not args.no_index)
+    if args.test_on_train:
+        test_loader = train_loader  # the reference's small-excerpt mode
+    torch.manual_seed(args.seed)  # weight init and dropout
+    model = create_model(args.model, num_classes=len(mapping), in_dim=6,
+                         **kernel_switches(args.model))
+    _no_tf32()
+    state = create_train_state(model, device=device, learning_rate=args.learning_rate,
+                               seed=args.seed)
+    return legacy_train(state, train_loader, test_loader, mapping, epochs=args.epochs,
+                        print_records=True, records_dir=args.records_dir,
+                        records_filename=args.records_filename, cut=args.cut,
+                        sampling=args.sampling, seed=args.seed)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
-        description="pointseg's PyTorch / CUDA port: trains, evaluates and benchmarks "
-                    "PointNet, PointNet++ (SSG and MSG), PointNeXt (-B, -L) and the DGCNNs.")
+        description="pointseg's PyTorch / CUDA port: trains, evaluates, exports and "
+                    "benchmarks PointNet, PointNet++ (SSG and MSG), PointNeXt (-B, -L) and "
+                    "the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")
     _add_train_args(train)
@@ -578,6 +800,21 @@ def build_parser() -> argparse.ArgumentParser:
     benchmark.set_defaults(func=benchmark_from_args)
     doctor = sub.add_parser("doctor", help="Environment and kernel diagnostics.")
     doctor.set_defaults(func=doctor_from_args)
+    prepare = sub.add_parser("prepare", help="Offline ETL: raw S3DIS -> blocks.")
+    _add_prepare_args(prepare)
+    prepare.set_defaults(func=prepare_from_args)
+    export = sub.add_parser("export", help="Export a checkpoint's forward as a torch.export "
+                                           "serving artifact.")
+    _add_export_args(export)
+    export.set_defaults(func=export_from_args)
+    import_torch = sub.add_parser("import-torch", help="Convert a reference PyTorch .pt "
+                                                       "state_dict to a pointseg_torch "
+                                                       "checkpoint.")
+    _add_import_torch_args(import_torch)
+    import_torch.set_defaults(func=import_torch_from_args)
+    legacy = sub.add_parser("train-legacy", help="Legacy/chunked-stack trainer.")
+    _add_train_legacy_args(legacy)
+    legacy.set_defaults(func=train_legacy_from_args)
     return parser
 
 

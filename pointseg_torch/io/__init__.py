@@ -1,4 +1,4 @@
-"""Weight import and checkpoints (port of `pointseg.io`)."""
+"""Weight import, checkpoints and export (port of `pointseg.io`)."""
 
 from pointseg_torch.io.checkpoint import (  # noqa: F401
     latest_checkpoint,
@@ -8,3 +8,4 @@ from pointseg_torch.io.checkpoint import (  # noqa: F401
     save_checkpoint,
 )
 from pointseg_torch.io.jax_import import from_jax_variables  # noqa: F401
+from pointseg_torch.io.torch_import import from_reference_state_dict  # noqa: F401

@@ -14,8 +14,9 @@ checkpoint restored on the other kind of device keeps the state's own
 generator, with a warning.
 
 The JAX package's checkpoints (`checkpoint_{step}.msgpack`, flax
-serialisation) are refused: importing them is a later item of the port
-(ROADMAP.md, M8).
+serialisation) are refused: the port reads its own checkpoints, and the
+reference's `.pt` state_dicts through `import-torch`; JAX weights held as
+numpy arrays convert with `io/jax_import.py::from_jax_variables`.
 """
 
 from __future__ import annotations
@@ -90,8 +91,10 @@ def _refuse_jax_checkpoint(ckpt_dir_or_path: str) -> None:
         os.path.isdir(ckpt_dir_or_path) and _numbered(ckpt_dir_or_path, _JAX_CKPT_RE))
     if jax_ckpt:
         raise ValueError(f"{ckpt_dir_or_path} holds a JAX checkpoint (.msgpack); "
-                         "pointseg_torch reads its own checkpoint_{step}.pt files. "
-                         "Importing JAX checkpoints is not yet ported (ROADMAP.md, M8).")
+                         "pointseg_torch reads its own checkpoint_{step}.pt files, and "
+                         "reference PyTorch .pt state_dicts through `import-torch`. JAX "
+                         "weights held as numpy arrays convert with "
+                         "pointseg_torch.io.jax_import.from_jax_variables.")
 
 
 def restore_train_state(ckpt_dir_or_path: str, state):

@@ -33,11 +33,22 @@ MODELS = {
 
 
 def create_model(name: str, num_classes: int = 14, dtype: torch.dtype = torch.float32,
-                 **kwargs) -> nn.Module:
+                 in_dim: int = 9, **kwargs) -> nn.Module:
     """Builds a model by its CLI name. `dtype` is the compute dtype
     (`nn/mlp.py`): torch.bfloat16 computes activations in bfloat16 with
     float32 parameters and logits, the JAX package's
-    `create_model(name, dtype=jnp.bfloat16)`."""
+    `create_model(name, dtype=jnp.bfloat16)`.
+
+    `in_dim` is the width of the input rows: 9 for the block format, 6 for
+    the legacy stack's xyz + rgb rooms. Flax infers each model's first
+    layer from its example input; here PointNet takes it as `in_dim`,
+    PointNet++ (SSG and MSG) as `in_features = in_dim - 3` (the features
+    beside xyz), the PointNeXt family as its stem's width, and the DGCNNs,
+    which read xyz (and rgb) only, not at all."""
     if name not in MODELS:
         raise ValueError(f"Unknown model '{name}'. Choices: {sorted(MODELS)}")
+    if name in ("PointNet++", "PointNet++MSG"):
+        kwargs["in_features"] = in_dim - 3
+    elif name not in ("DeepGraphCnn", "DGCNN"):
+        kwargs["in_dim"] = in_dim
     return MODELS[name](num_classes=num_classes, dtype=dtype, **kwargs)

@@ -6,7 +6,8 @@ SA(64, 0.4, [128,128,256]) -> SA(16, 0.8, [256,256,512]); decoder
 FP(768,[256,256]) -> FP(384,[256,256]) -> FP(320,[256,128]) ->
 FP(128,[128,128,128,128]) -> Dropout(0.5) -> Linear(classes).
 
-Input (B, N, 9) channels-last: coords = [..., :3], features = [..., 3:].
+Input (B, N, 3 + in_features) channels-last (9 in the block format): coords =
+[..., :3], features = [..., 3:].
 Returns float32 logits (B, N, classes). The SSG state_dict keys are the
 reference torch model's, so `pointseg/io/torch_import.py` loads them
 into the JAX model and `pointseg_torch/io/jax_import.py` goes back.

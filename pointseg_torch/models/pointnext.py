@@ -1,7 +1,8 @@
 """PointNeXt for semantic segmentation (port of
 `pointseg/models/pointnext.py`).
 
-A per-point stem MLP(9 -> width) on all nine input channels, four SA
+A per-point stem MLP(in_dim -> width) on every input channel (nine in
+the block format, six for the legacy stack's xyz + rgb rooms), four SA
 stages (PointNet++'s centroid counts and radii, relative coordinates
 divided by the radius) each followed by `blocks[i]` InvResMLP blocks,
 the PointNet++ FeaturePropagation decoder with the stem's output as the
@@ -11,7 +12,7 @@ is the reference model, whose stage-2 pair groups at radii 0.1 then
 K = 16 because only 16 points remain. `PointNeXt-B` is
 `blocks=(2, 3, 2, 2)` and `PointNeXt-L` `(3, 5, 3, 3)` at width 32.
 
-Input (B, N, 9) channels-last; returns float32 logits (B, N, classes).
+Input (B, N, in_dim) channels-last; returns float32 logits (B, N, classes).
 The module names are the reference torch model's (`mlp` for the stem,
 `irmlp2_1` for stage 2's second block), so the default model's
 state_dict loads into the JAX model through
@@ -42,13 +43,13 @@ def irmlp_name(stage: int, j: int) -> str:
 class PointNeXt(nn.Module):
     def __init__(self, num_classes: int = 14, width: int = 32,
                  blocks: tuple[int, int, int, int] = (1, 2, 1, 1), dropout: float = 0.5,
-                 ball_select: str = "flat", filler: str = "repeat",
+                 ball_select: str = "flat", filler: str = "repeat", in_dim: int = 9,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         w = width
         self.blocks = tuple(blocks)
         ball = dict(ball_select=ball_select, filler=filler, dtype=dtype)
-        self.mlp = SharedMLP(9, [w], dtype=dtype)
+        self.mlp = SharedMLP(in_dim, [w], dtype=dtype)
         self.sa1 = SetAbstraction(1024, 0.1, w, [w, w, 2 * w], grouping_norm=True, **ball)
         self.sa2 = SetAbstraction(256, 0.2, 2 * w, [2 * w, 2 * w, 4 * w],
                                   grouping_norm=True, **ball)

@@ -3,7 +3,8 @@
 FPS, ball query, 3-NN, kNN (flat and two-level) and the row gathers
 (batched and flat) launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
 `_kernels`) and run plain PyTorch on CPU tensors. Pooling is plain
-PyTorch on both.
+PyTorch on both. Importing this package registers the kernels as
+PyTorch operators for `torch.export` (`library.py`).
 """
 
 from pointseg_torch.ops.fps import farthest_point_sampling, sample  # noqa: F401
@@ -25,3 +26,4 @@ from pointseg_torch.ops.knn import (  # noqa: F401
 )
 from pointseg_torch.ops.interpolate import interpolate, three_nn  # noqa: F401
 from pointseg_torch.ops.pooling import masked_reduce, reduce  # noqa: F401
+from pointseg_torch.ops import library  # noqa: E402,F401  (registers the operators)

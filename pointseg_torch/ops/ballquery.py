@@ -17,7 +17,9 @@ mask. The flat kernel keeps one slot a warp lane (K <= `MAX_K`);
 any K <= N (the launch counters show which ran). On a CPU tensor the
 plain PyTorch version below runs for both. All return the same raw (idx, in_ball); `ball_query` with
 the repeat filler has the kernel write it (still one launch), or applies
-it with `torch.where` on the CPU.
+it with `torch.where` on the CPU. While `torch.export` traces, the
+selection is the operator `pointseg_torch::ball_query` or
+`ball_query_2l` (`ops/library.py`), which does the same at run time.
 """
 
 from __future__ import annotations
@@ -109,6 +111,10 @@ def _select(centroids, coords, radius, K, mask, select, repeat: bool):
     N = coords.shape[1]
     if not 1 <= K <= N:
         raise ValueError(f"ball query needs 1 <= K <= N, got K={K}, N={N}")
+    if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
+        op = (torch.ops.pointseg_torch.ball_query if select == "flat"
+              else torch.ops.pointseg_torch.ball_query_2l)
+        return op(centroids, coords, mask, radius, K, repeat)
     if _kernels.on_cuda(coords):
         return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask, select,
                                 TWO_LEVEL_DEPTH, repeat)

@@ -5,7 +5,9 @@ Port of `pointseg/ops/fps.py`. The start index comes from an explicit
 draws it from the flax 'fps' stream or uses 0. On a CUDA tensor the
 whole C-step loop is one launch of `csrc/fps.cu` (the training stages'
 clouds in registers, one block a cloud); on a CPU tensor the plain
-PyTorch loop below runs.
+PyTorch loop below runs. While `torch.export` traces, the selection is
+the operator `pointseg_torch::fps` (`ops/library.py`), which does the
+same at run time.
 
 Selection is not differentiable: coordinates are detached before either
 version sees them.
@@ -66,6 +68,8 @@ def farthest_point_sampling(
     coords = coords.detach().to(torch.float32).contiguous()
     if mask is not None:
         mask = mask.to(device=device, dtype=torch.bool).contiguous()
+    if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
+        return torch.ops.pointseg_torch.fps(coords, start, mask, C)
     if _kernels.on_cuda(coords):
         return _fps_cuda(coords, C, start.contiguous(), mask)
     return farthest_point_sampling_plain(coords, C, start, mask)

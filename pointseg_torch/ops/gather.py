@@ -100,7 +100,11 @@ def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor,
 
 
 def _gather(table: torch.Tensor, idx: torch.Tensor, coords: torch.Tensor | None):
-    """The forward on the tensors' device, with no autograd node."""
+    """The forward on the tensors' device, with no autograd node: while
+    `torch.export` traces, one operator in the graph (`ops/library.py`)."""
+    if torch.compiler.is_exporting():
+        rows, coord_rows = torch.ops.pointseg_torch.gather_rows(table, idx, coords)
+        return rows if coords is None else (rows, coord_rows)
     if _kernels.on_cuda(table):
         return _gather_rows_cuda(table, idx, coords)
     rows = gather_rows_plain(table, idx)

@@ -2,7 +2,8 @@
 
 Port of `pointseg/ops/interpolate.py`. On a CUDA tensor the 3-NN
 selection is one launch of `csrc/threenn.cu`; on a CPU tensor the plain
-PyTorch version below runs. The weights 1/(d² + eps), normalised over
+PyTorch version below runs; while `torch.export` traces, the operator
+`pointseg_torch::three_nn` (`ops/library.py`). The weights 1/(d² + eps), normalised over
 the neighbours, and the weighted sum are plain differentiable PyTorch.
 """
 
@@ -37,6 +38,8 @@ def three_nn(
     M = coords_src.shape[1]
     if not 1 <= k <= M:
         raise ValueError(f"three_nn needs 1 <= k <= M, got k={k}, M={M}")
+    if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
+        return torch.ops.pointseg_torch.three_nn(coords_tgt, coords_src, src_mask, k)
     if _kernels.on_cuda(coords_src):
         if k != 3:
             raise ValueError(f"the CUDA three_nn kernel takes k = 3, got {k}")

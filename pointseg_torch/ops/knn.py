@@ -20,7 +20,9 @@ slot a warp lane and stages a block's query rows whole, so it takes k <=
 `MAX_K` and F <= `MAX_F`; `select="flat"` runs the two-level kernel,
 which takes any k <= N and any F, for the shapes past either limit. The
 launch counters show which kernel ran. The plain PyTorch version below
-runs on a CPU tensor only.
+runs on a CPU tensor only. While `torch.export` traces, the selection is
+the operator `pointseg_torch::knn` or `knn_2l` (`ops/library.py`),
+which does the same at run time.
 """
 
 from __future__ import annotations
@@ -82,6 +84,9 @@ def knn_indices(
     if not 1 <= k <= N:
         raise ValueError(f"knn needs 1 <= k <= N, got k={k}, N={N}")
     x = x.detach().to(torch.float32).contiguous()
+    if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
+        op = torch.ops.pointseg_torch.knn if select == "flat" else torch.ops.pointseg_torch.knn_2l
+        return op(x, mask, k, include_self)
     if _kernels.on_cuda(x):
         return _knn_cuda(x, k, select, default_depth(k), mask=mask, include_self=include_self)
     return knn_indices_plain(x, k, mask=mask, include_self=include_self)

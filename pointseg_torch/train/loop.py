@@ -13,6 +13,7 @@ are read at the log interval and at the end of an epoch; with
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterable
 
@@ -191,13 +192,17 @@ def train_model(
     ckpt_every_epochs: int = 1,
     config: dict | None = None,
     verbose: bool = True,
+    confusion_dir: str | None = None,
     scan_steps: int = 1,
     accum_steps: int = 1,
 ) -> tuple[TrainState, dict]:
     """Full training run, with a checkpoint (and `config` as its sidecar)
-    in `ckpt_dir` every `ckpt_every_epochs` epochs. Returns the final
-    state and the records {train_loss, val_loss, val_acc, val_miou,
-    epoch_times, total_time}."""
+    in `ckpt_dir` every `ckpt_every_epochs` epochs and, with
+    `confusion_dir`, the epoch's evaluation confusion matrix drawn into
+    `confusion_dir/confusion_epoch_{n}.png` (nothing where matplotlib is
+    not installed, as in the JAX package). Returns the final state and
+    the records {train_loss, val_loss, val_acc, val_miou, epoch_times,
+    total_time}."""
     global_step = state.step
     records = {"train_loss": [], "val_loss": [], "val_acc": [], "val_miou": [],
                "epoch_times": []}
@@ -230,6 +235,18 @@ def train_model(
         records["val_acc"].append(ev["accuracy"])
         records["val_miou"].append(ev["mean_iou"])
         records["epoch_times"].append(dt)
+
+        if confusion_dir is not None:
+            # the reference wires this plot but leaves it commented out (training.py:176)
+            try:
+                from pointseg_torch.utils.visualize import plot_confusion_matrix
+
+                os.makedirs(confusion_dir, exist_ok=True)
+                plot_confusion_matrix(
+                    ev["confusion"],
+                    os.path.join(confusion_dir, f"confusion_epoch_{epoch + 1}.png"))
+            except ImportError:
+                pass  # matplotlib not installed
 
         if ckpt_dir is not None and (epoch + 1) % ckpt_every_epochs == 0:
             save_checkpoint(ckpt_dir, state, config=config)

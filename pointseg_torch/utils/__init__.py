@@ -1,2 +1,3 @@
-"""Whole-room evaluation (port of `pointseg.utils.sliding_window` and
-`pointseg.utils.evaluation`)."""
+"""Whole-room evaluation, measurement, memory telemetry and plots (port
+of `pointseg.utils`: `sliding_window`, `evaluation`, `benchmark`,
+`memory`, `visualize`)."""

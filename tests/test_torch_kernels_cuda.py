@@ -72,6 +72,9 @@ FPS_CASES = [(8, 4096, 1024), (8, 64, 16), (3, 3000, 1000), (2, 16384, 1024), (2
              (64, 1024, 256), (1, 4096, 1024)]
 FPS_CASES += [(2, n + extra, 200) for n in (128, 256, 512, 1024, 2048, 4096, 8192, 12288)
               for extra in (0, 1)]
+# more centroids than points: SA1 of `train-legacy` at its cut of 1000, and
+# a small cloud (after N picks every distance is 0 and index 0 repeats)
+FPS_CASES += [(2, 1000, 1024), (8, 100, 128)]
 
 
 @pytest.mark.parametrize("B,N,C", FPS_CASES)
@@ -533,6 +536,19 @@ def test_knn_flat_kernel_tile_edges_match_plain_and_two_level(device, B, N, F, k
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         torch.testing.assert_close(knn_indices(x, k, select="two_level", **kwargs), want,
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F", [3, 64])
+def test_knn_two_level_kernel_at_the_enhanced_trainers_k(device, F):
+    """`create_dgcnn_trainer`'s kNN: (2, 8192, F) at k = 40, past the flat
+    kernel's 32, so `select="flat"` launches kernel 5; equal to the plain
+    version slot for slot."""
+    x = _cloud(30, 2, 8192, device) if F == 3 else _features(30, 2, 8192, F, device)
+    before = dict(_kernels.LAUNCHES)
+    got = knn_indices(x, 40)
+    assert _kernels.LAUNCHES["knn_2l"] == before["knn_2l"] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(got, knn_indices_plain(x, 40), rtol=0, atol=0)
 
 
 def test_knn_flat_kernel_on_rows_that_are_not_16_byte_aligned(device):

@@ -243,11 +243,14 @@ def test_cli_refuses_accum_steps_with_device_data_before_the_store_is_built(
     ["--bf16"], ["--data-parallel"], ["--save-confusion"],
 ])
 def test_cli_refuses_flags_not_yet_ported(flags, tiny_blocks, tmp_path):
-    """The two trainer flags still to port are refused with a pointer to
-    ROADMAP.md. `--bf16`, refused until it was ported, now trains: a DGCNN
-    epoch in bfloat16 on the CPU, a finite loss, float32 parameters, and
-    `"bf16": true` in the checkpoint's config sidecar, where `evaluate`
-    reads it."""
+    """The trainer flag still to port, `--data-parallel`, is refused with
+    a pointer to ROADMAP.md. `--bf16` and `--save-confusion`, refused until
+    they were ported, now train: `--bf16` a DGCNN epoch in bfloat16 on the
+    CPU, a finite loss, float32 parameters, and `"bf16": true` in the
+    checkpoint's config sidecar, where `evaluate` reads it;
+    `--save-confusion` a DGCNN epoch whose evaluation confusion matrix is
+    drawn into `<log dir>/confusion/confusion_epoch_1.png` (matplotlib is
+    installed here)."""
     if flags == ["--bf16"]:
         state, rec = _train_dgcnn(tiny_blocks, tmp_path, *flags)
         assert state.step == 6 and math.isfinite(rec["train_loss"][0])
@@ -255,6 +258,13 @@ def test_cli_refuses_flags_not_yet_ported(flags, tiny_blocks, tmp_path):
         assert {p.dtype for p in state.model.parameters()} == {torch.float32}
         (sidecar,) = list((tmp_path / "models").rglob("config.json"))
         assert json.loads(sidecar.read_text())["bf16"] is True
+        return
+    if flags == ["--save-confusion"]:
+        state, rec = _train_dgcnn(tiny_blocks, tmp_path, *flags)
+        assert state.step == 6 and rec["config"]["save_confusion"] is True
+        (png,) = list((tmp_path / "logs").rglob("confusion_epoch_*.png"))
+        assert png.name == "confusion_epoch_1.png" and png.parent.name == "confusion"
+        assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
         return
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli.main(["train", "PointNet++", "--device", "cpu",
