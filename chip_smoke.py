@@ -281,6 +281,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    runs with the launch counts set to 0 before it and read after it. The
    script's whole time is printed before the two JSON lines.
 
+10. Data parallel (`train --data-parallel`, `pointseg_torch/parallel/`),
+   each path with the launch counts set to 0 before it and read after it:
+   (a) `train PointNet++ --data-parallel` one epoch through the CLI on
+   the one card (world size 1, in this process), in turns with the run
+   without the flag (no flag, flag, flag, no flag), same seed, the host
+   loader in one thread (reader threads draw each block's points in the
+   order they arrive, so runs differ in their batches): the first
+   step's loss equal within 1e-6, the epoch losses printed (atomics part
+   two epochs by 1-6%), step ms and device ms of both states' steps
+   (with two or more cards only the run without the flag, for (e)); (b)
+   two ranks on the one card (gloo: NCCL refuses two ranks on a device),
+   4 rows a rank, against the one-process step at B = 8 from the same
+   weights and batch, for PointNet++, PointNet and DeepGraphCnn: one SGD
+   step in float64 (loss within 1e-6 relative, parameters within 1e-9)
+   and in float32 (loss within 5e-4, each parameter within 2e-5 plus
+   twice its float32-to-float64 distance in the one-process step), FPS
+   picks equal, the ranks bit-equal after three Adam steps, each rank's
+   launches those of its model's path; step ms, device ms and peak MiB
+   of a rank beside the one-process step's; (c) (b) again on two cards
+   with NCCL where there are two, else a line that it was not run; (d)
+   whole-room streaming of PointNet++ (a room of 20,000 points, window
+   4096) with each group's windows shared by two ranks, against
+   unsharded, running and batch statistics: equal predictions; (e) the
+   entry point on several ranks: `train PointNet++ --data-parallel` one
+   epoch as in (a), started by `cli.spawn_training` on two ranks sharing
+   the card (gloo), or one rank a card (NCCL) where there are two or
+   more: each rank launches its path's kernels, rank 0's first-step loss
+   within 1e-5 of (a)'s run without the flag, one log directory and one
+   checkpoint, which one process restores bit for bit. Each run of ranks
+   has a deadline.
+
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -3738,6 +3769,344 @@ def remaining_entry_points_phase(device, workdir: str) -> None:
     print(f"phase 9: {time.time() - t0:.1f} s")
 
 
+DP_MODELS = {  # phase 10 (b, c): the model -> its path's kernels
+    "PointNet++": ("fps", "ball_query", "three_nn", "gather_rows"),
+    "PointNet": (),
+    "DeepGraphCnn": ("knn", "gather_rows"),
+}
+DP_RANK_TIMEOUT = 300  # seconds for one run of ranks
+DP_ROOM_POINTS = 20_000
+DP_WINDOW = (4096, 512)  # window, overlap
+# rank 0's first-step loss on several ranks against one process: the same
+# function summed in another order; 1e-5 is about 40 float32 ulps of a loss near 2.7
+DP_CLI_LOSS_ATOL = 1e-5
+
+
+def rank_side():
+    """`tests/torch_parallel_ranks.py`: the rank-side runs that phase 10
+    shares with `tests/test_torch_parallel.py` (torch and the port only).
+    Its directory goes on `sys.path`, which the ranks inherit, so that
+    they import it by name."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_parallel_ranks
+
+    return torch_parallel_ranks
+
+
+def dp_cli_args(device, workdir: str, tag: str, flags: tuple[str, ...]):
+    """`train PointNet++` (B = 8, N = 4096, seed 0, one epoch) into logs of
+    its own, the host loader reading in one thread (with reader threads
+    each block's points are drawn in the order the threads arrive, so two
+    runs differ in their batches)."""
+    from pointseg_torch import cli
+
+    return cli.build_parser().parse_args([
+        "train", "PointNet++", "--synthetic", "--data-dir", f"{workdir}/data",
+        "--epochs", "1", "--train-batch-size", "8", "--train-sampling", "4096",
+        "--num-workers", "0", "--device", device.type,
+        "--log-dir", f"{workdir}/dp_logs/{tag}", "--model-dir", f"{workdir}/dp_models/{tag}",
+        *flags])
+
+
+def dp_first_loss(workdir: str, tag: str) -> float:
+    """The first step's loss as the run's one metrics log holds it."""
+    (metrics,) = glob.glob(f"{workdir}/dp_logs/{tag}/*/*/metrics.jsonl")
+    with open(metrics) as f:
+        return next(r["value"] for r in map(json.loads, f) if r["tag"] == "Train/Loss")
+
+
+def dp_cli_epoch(device, workdir: str, tag: str, flags: tuple[str, ...]):
+    """One epoch of `dp_cli_args` in this process; returns (state, records,
+    the first step's loss as logged)."""
+    from pointseg_torch import cli
+
+    state, records = cli.train_from_args(dp_cli_args(device, workdir, tag, flags))
+    return state, records, dp_first_loss(workdir, tag)
+
+
+def dp_world_one(device, workdir: str, batch, smi: str) -> tuple[dict, float]:
+    """Phase 10 (a): `train PointNet++ --data-parallel` on one card (world
+    size 1, in this process) in turns with the run without the flag (no
+    flag, flag, flag, no flag), each with the counts set to 0 before it;
+    the first step's loss equal within 1e-6; the epoch losses printed (not
+    compared: `index_add_`'s atomics part two epochs by 1-6%); step ms and
+    device ms of both states' steps on phase 4's batch, in turns. Returns
+    the times and the first step's loss."""
+    from pointseg_torch.train.state import train_step
+
+    timed_steps = rank_side().timed_steps
+    runs, by_turn = {}, []
+    for turn, flags in enumerate(((), ("--data-parallel",), ("--data-parallel",), ())):
+        label = "--data-parallel" if flags else "no flag"
+        (state, records, first), _ = path_run(
+            f"phase 10 (a) train PointNet++ {label}", DP_MODELS["PointNet++"],
+            lambda: dp_cli_epoch(device, workdir, f"turn{turn}", flags))
+        if flags and (state.mesh is None or state.mesh.world_size != 1):
+            raise AssertionError(f"--data-parallel on one card: world size 1, got {state.mesh}")
+        runs.setdefault(label, []).append((state, records["train_loss"][0], first))
+        by_turn.append((label, state))
+    firsts = [first for turns in runs.values() for _, _, first in turns]
+    if max(firsts) - min(firsts) > 1e-6:
+        raise AssertionError(f"phase 10 (a): first-step losses differ: {firsts}")
+    print(f"phase 10 (a): first-step losses {firsts} (equal within 1e-6); epoch losses "
+          + ", ".join(f"{label} {[round(loss, 6) for _, loss, _ in turns]}"
+                      for label, turns in runs.items()), flush=True)
+    times = {label: [] for label in runs}
+    for turn in (0, 1, 2, 3, 3, 2, 1, 0):  # each turn's state, in turns and back
+        label, state = by_turn[turn]
+        times[label].append(timed_steps(state, batch, train_step, 20))
+    for label, readings in times.items():
+        print(f"phase 10 (a): {smi}; train PointNet++ {label}, a step on phase 4's batch "
+              f"(each turn's state, in turns and back): "
+              f"{[round(r['step_ms'], 3) for r in readings]} ms (CUDA events, 20 steps), "
+              f"device {[round(r['device_ms'], 3) for r in readings]} ms (profiler), peak "
+              f"{readings[0]['peak_mib']:.1f} MiB", flush=True)
+    return times, firsts[0]
+
+
+def dp_cli_ranks(device, workdir: str, want_first: float) -> dict:
+    """Phase 10 (e): `train PointNet++ --data-parallel` through the CLI on
+    several ranks, one epoch as in (a): two ranks sharing the one card
+    (gloo), or one rank a card (NCCL) where there are two or more, started
+    by `cli.spawn_training`, as `train --data-parallel` starts them
+    standalone on several cards. Each rank is a new process, its launch
+    counts 0 at its start, and must launch its path's kernels and no
+    other. Rank 0's first-step loss within DP_CLI_LOSS_ATOL of the run
+    without the flag; exactly one log directory and one checkpoint, which
+    a one-process state restores bit for bit at the epoch's last step."""
+    from pointseg_torch import cli
+    from pointseg_torch.io.checkpoint import load_checkpoint, restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state
+
+    cards = torch.cuda.device_count()
+    world, visible, backend = (2, str(device.index or 0), "gloo") if cards == 1 else (
+        cards, None, "nccl")
+    label = f"phase 10 (e) train PointNet++ --data-parallel, {world} ranks ({backend})"
+    args = dp_cli_args(device, workdir, "ranks", ("--data-parallel",))
+    zero_launches()
+    t0 = time.time()
+    with visible_cards(visible):
+        ranks = cli.spawn_training(args, world, timeout=DP_RANK_TIMEOUT)
+    seconds = time.time() - t0
+    if any(v for v in read_launches().values()):
+        raise AssertionError(f"{label}: this process launched {read_launches()}")
+    for rank, r in enumerate(ranks):
+        ran = {k: v for k, v in r["launches"].items() if v}
+        if set(ran) != set(DP_MODELS["PointNet++"]):
+            raise AssertionError(f"{label}: rank {rank} launched {ran}, its path is "
+                                 f"{DP_MODELS['PointNet++']}")
+    records = ranks[0]["records"]
+    if records["config"]["world_size"] != world:
+        raise AssertionError(f"{label}: world size {records['config']['world_size']}")
+    first = dp_first_loss(workdir, "ranks")
+    if not abs(first - want_first) <= DP_CLI_LOSS_ATOL:
+        raise AssertionError(f"{label}: first-step loss {first} against {want_first} in one "
+                             f"process")
+    logs = [p for p in glob.glob(f"{workdir}/dp_logs/ranks/*/*") if os.path.isdir(p)]
+    ckpt_dirs = [p for p in glob.glob(f"{workdir}/dp_models/ranks/*/*") if os.path.isdir(p)]
+    ckpts = glob.glob(f"{workdir}/dp_models/ranks/*/*/checkpoint_*.pt")
+    if len(logs) != 1 or len(ckpt_dirs) != 1 or len(ckpts) != 1:
+        raise AssertionError(f"{label}: log directories {logs}, checkpoint directories "
+                             f"{ckpt_dirs}, checkpoints {ckpts}: one of each expected")
+    torch.manual_seed(0)
+    state = create_train_state(create_model("PointNet++", num_classes=cli.NUM_S3DIS_CLASSES,
+                                            **cli.kernel_switches("PointNet++")),
+                               device=device, seed=0)
+    restore_train_state(ckpts[0], state)
+    saved = load_checkpoint(ckpts[0])["model"]
+    got = state.model.state_dict()
+    if got.keys() != saved.keys() or any(not torch.equal(got[k].cpu(), saved[k]) for k in saved):
+        raise AssertionError(f"{label}: {ckpts[0]} does not restore bit for bit")
+    if os.path.basename(ckpts[0]) != f"checkpoint_{state.step}.pt":
+        raise AssertionError(f"{label}: {ckpts[0]} restored at step {state.step}")
+    ran = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
+    print(f"{label}: launches a rank {ran}; "
+          f"first-step loss {first:.7f}, one process {want_first:.7f} (|diff| "
+          f"{abs(first - want_first):.3g}, bound {DP_CLI_LOSS_ATOL}); epoch loss "
+          f"{records['train_loss'][0]:.6f}, val mIoU {records['val_miou'][0]:.4f}, epoch "
+          f"{records['epoch_times'][0]:.1f} s, the ranks' run {seconds:.1f} s; one log "
+          f"directory, one checkpoint ({os.path.basename(ckpts[0])}), restored bit for bit "
+          f"in one process", flush=True)
+    return {"world": world, "backend": backend, "first": first, "want_first": want_first,
+            "epoch_s": records["epoch_times"][0], "seconds": seconds}
+
+
+def dp_specs(name: str, batch) -> dict:
+    """Phase 10's runs of one model from seed 3 on the global batch: one
+    SGD step in float32 (then 10 steps timed) and in float64, three Adam
+    steps in float32."""
+    common = dict(model=name, seed=3, batch=tuple(t.cpu().numpy() for t in batch),
+                  optimizer="sgd", lr=1e-3, steps=1)
+    return {"f32": dict(common, timed=10), "f64": dict(common, dtype=torch.float64),
+            "adam": dict(common, optimizer="adam", steps=3)}
+
+
+def dp_max_abs(a: dict, b: dict, key: str) -> float:
+    return max(float((a[key][k].double() - b[key][k].double()).abs().max())
+               for k in a[key] if a[key][k].numel())
+
+
+def dp_check(name: str, one: dict, ranks: list, label: str) -> None:
+    """The checks of `tests/test_torch_parallel.py`: in float64 the ranks'
+    step is the one-process step (loss within 1e-6 relative: float32
+    logits; parameters within 1e-9); in float32 the loss within 5e-4 and
+    every parameter within 2e-5 plus twice the leaf's float32-to-float64
+    distance of the one-process step; FPS picks equal; the two ranks
+    bit-equal after three Adam steps; each rank launched its path's kernels
+    and no other."""
+    for kind in ("f64", "f32"):
+        picks = [torch.cat([r[kind]["fps"][i] for r in ranks])
+                 for i in range(len(one[kind]["fps"]))]
+        if any(not torch.equal(got, want) for got, want in zip(picks, one[kind]["fps"])):
+            raise AssertionError(f"{label} {name} {kind}: FPS picks differ from one process")
+    r64, o64 = ranks[0]["f64"], one["f64"]
+    if (abs(r64["loss"] - o64["loss"]) > 1e-6 * abs(o64["loss"])
+            or dp_max_abs(r64, o64, "params") > 1e-9):
+        raise AssertionError(f"{label} {name} float64: loss {r64['loss']} against "
+                             f"{o64['loss']}, params {dp_max_abs(r64, o64, 'params'):.3g}")
+    r32, o32 = ranks[0]["f32"], one["f32"]
+    worst = 0.0
+    for k, want in o32["params"].items():
+        got = (r32["params"][k].double() - want.double()).abs().max()
+        noise = (want.double() - o64["params"][k].double()).abs().max()
+        worst = max(worst, float(got / (2e-5 + 2.0 * noise)))
+    if abs(r32["loss"] - o32["loss"]) >= 5e-4 or worst > 1.0:
+        raise AssertionError(f"{label} {name} float32: loss {r32['loss']} against "
+                             f"{o32['loss']}; worst parameter at {worst:.3f} of its bound")
+    a, b = (r["adam"]["final_params"] for r in ranks)
+    if any(not torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{label} {name}: the ranks part after three Adam steps")
+    for r in ranks:
+        ran = {k for k, v in r["f32"]["launches"].items() if v}
+        if ran != set(DP_MODELS[name]):
+            raise AssertionError(f"{label} {name} rank {r['f32']['rank']}: launched {ran}, "
+                                 f"its path is {DP_MODELS[name]}")
+    print(f"phase 10 {label} {name}: float64 loss {r64['loss']:.9f} / {o64['loss']:.9f}, "
+          f"params {dp_max_abs(r64, o64, 'params'):.3g} from one process; float32 loss "
+          f"{r32['loss']:.7f} / {o32['loss']:.7f}, params {dp_max_abs(r32, o32, 'params'):.3g} "
+          f"(worst leaf at {worst:.3f} of 2e-5 + 2x its float32 noise, largest noise "
+          f"{dp_max_abs(o32, o64, 'params'):.3g}); FPS picks equal; ranks bit-equal after 3 "
+          f"Adam steps; launches a rank {ranks[0]['f32']['launches']}", flush=True)
+
+
+@contextlib.contextmanager
+def visible_cards(cards: str | None):
+    """The ranks started in the block see only `cards`
+    (CUDA_VISIBLE_DEVICES; None: every card). This process's own CUDA
+    context is made already and keeps its cards."""
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if cards is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = cards
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+def dp_two_ranks(device, batch, smi: str, label: str, cards: str | None) -> dict:
+    """Phase 10 (b) or (c): two ranks (`parallel.spawn`, one process a rank,
+    seeing `cards`: one card, gloo; two, NCCL), 4 rows a rank, against the
+    one-process step at B = 8, from the same weights and batch, for each
+    model of DP_MODELS; step ms, device ms and peak MiB of a rank beside
+    the one-process step's."""
+    from pointseg_torch.parallel import Mesh, spawn
+
+    side = rank_side()
+    train_run, train_runs = side.train_run, side.train_runs
+    specs = {(name, kind): spec for name in DP_MODELS
+             for kind, spec in dp_specs(name, batch).items()}
+    one = {key: train_run(Mesh(device=device), spec) for key, spec in specs.items()}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with visible_cards(cards):  # one run of the ranks for every model
+        ranks = spawn(train_runs, 2, (specs,), device=device.type, timeout=DP_RANK_TIMEOUT)
+    print(f"phase 10 {label}: the ranks' run {time.time() - t0:.1f} s")
+    out = {}
+    for name in DP_MODELS:
+        dp_check(name, {kind: one[(name, kind)] for kind in ("f32", "f64", "adam")},
+                 [{kind: rank[(name, kind)] for kind in ("f32", "f64", "adam")}
+                  for rank in ranks], label)
+        r = [rank[(name, "f32")] for rank in ranks]
+        o = one[(name, "f32")]
+        print(f"phase 10 {label}: {smi}; {name} step ms one process (B = 8) {o['step_ms']:.3f}, "
+              f"a rank (4 rows) {[round(x['step_ms'], 3) for x in r]}; device ms "
+              f"{o['device_ms']:.3f}, a rank {[round(x['device_ms'], 3) for x in r]}; peak MiB "
+              f"{o['peak_mib']:.1f}, a rank {[round(x['peak_mib'], 1) for x in r]}; "
+              f"collectives a step {r[0]['collectives']:.0f}, host ms in them a rank "
+              f"{[round(x['collective_ms'], 3) for x in r]}, NCCL kernels' device ms a rank "
+              f"{[round(x['nccl_ms'], 3) for x in r]}", flush=True)
+        out[name] = {"one": o, "ranks": r}
+    return out
+
+
+def dp_rooms(device) -> None:
+    """Phase 10 (d): whole-room streaming of PointNet++ on one room of
+    20,000 points (window 4096, overlap 512, seed 1), each group of 8
+    windows shared by two ranks on the card, against unsharded. With
+    running statistics the windows' sums are the same additions (a point
+    lies in at most two windows): equal predictions, confidences within
+    1e-5. With batch statistics each group's statistics are summed in
+    another order, which the BatchNorms magnify (a CPU rehearsal at window
+    1024 read 8.7e-5): averaged logits within 1e-3 and equal predictions
+    outside near-ties (`near_tie_check`)."""
+    from pointseg_torch.parallel import Mesh, spawn
+
+    room_run = rank_side().room_run
+    rng = np.random.default_rng(0)
+    points = np.concatenate([rng.random((DP_ROOM_POINTS, 3)) * np.array([5.0, 5.0, 3.0]),
+                             rng.random((DP_ROOM_POINTS, 3))], axis=1).astype(np.float32)
+    for mode in ("running", "batch"):
+        spec = dict(model="PointNet++", seed=1, points=points, window_size=DP_WINDOW[0],
+                    overlap=DP_WINDOW[1], bn_stats=mode)
+        want = room_run(Mesh(device=device), spec)
+        label = f"phase 10 (d): a room of {DP_ROOM_POINTS} points, window groups on two ranks"
+        for r in spawn(room_run, 2, (spec,), device=device.type, timeout=DP_RANK_TIMEOUT):
+            if mode == "batch":
+                near_tie_check(f"{label}, --bn-stats batch", r["logits"], want["logits"], 1e-3)
+                continue
+            flips = int((r["preds"] != want["preds"]).sum())
+            conf = float(np.abs(r["conf"] - want["conf"]).max())
+            if flips or conf > 1e-5:
+                raise AssertionError(f"{label}: {flips} predictions differ, confidence "
+                                     f"{conf:.3g}")
+            print(f"{label}, --bn-stats running: predictions equal, confidences within "
+                  f"{conf:.3g}", flush=True)
+
+
+def data_parallel_phase(device, workdir: str, smi: str, batch) -> dict:
+    """Phase 10."""
+    t0 = time.time()
+    cards = torch.cuda.device_count()
+    out = {"world_one": {}}
+    if cards == 1:
+        out["world_one"], first = dp_world_one(device, workdir, batch, smi)
+    else:
+        print(f"phase 10 (a): world size 1 not run: with {cards} cards visible "
+              f"`--data-parallel` starts {cards} ranks (phase 10 (e)); the run without the "
+              f"flag only, for (e)'s first-step loss")
+        (_, _, first), _ = path_run("phase 10 (a) train PointNet++ no flag",
+                                    DP_MODELS["PointNet++"],
+                                    lambda: dp_cli_epoch(device, workdir, "plain", ()))
+    torch.cuda.empty_cache()
+    out["gloo"] = dp_two_ranks(device, batch, smi, "(b) gloo, two ranks on one card",
+                               str(device.index or 0))
+    if cards >= 2:
+        out["nccl"] = dp_two_ranks(device, batch, smi, "(c) NCCL, two cards", None)
+    else:
+        print("phase 10 (c): not run (one card; two cards with NCCL need two)")
+    with visible_cards(str(device.index or 0)):
+        dp_rooms(device)
+    out["cli"] = dp_cli_ranks(device, workdir, first)
+    print(f"phase 10: {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--kernel-times"] and len(args) == 3:
@@ -3806,6 +4175,8 @@ def main() -> int:
         bf16 = bf16_phase(device, workdir, smi, states, batch)
         phase("9. the remaining entry points")
         remaining_entry_points_phase(device, workdir)
+        phase("10. data parallel")
+        dp = data_parallel_phase(device, workdir, smi, batch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3851,6 +4222,24 @@ def main() -> int:
         print(f"summary: {smi}; benchmark --bf16 {model_name} {mode}: mean "
               f"{1e3 * r['mean_s']:.3f} ms, {r['points_per_sec']:.0f} points/s, launches a "
               f"call {r['launches_a_call']}")
+    for label, times in dp["world_one"].items():
+        print(f"summary: {smi}; train PointNet++ {label} (world size 1) step ms "
+              f"{[round(r['step_ms'], 3) for r in times]}, device ms "
+              f"{[round(r['device_ms'], 3) for r in times]}")
+    for backend in ("gloo", "nccl"):
+        for name, r in dp.get(backend, {}).items():
+            print(f"summary: {smi}; {name} two ranks ({backend}) against one process at B = 8: "
+                  f"step ms {[round(x['step_ms'], 3) for x in r['ranks']]} / "
+                  f"{r['one']['step_ms']:.3f}, device ms "
+                  f"{[round(x['device_ms'], 3) for x in r['ranks']]} / "
+                  f"{r['one']['device_ms']:.3f}, peak MiB "
+                  f"{[round(x['peak_mib'], 1) for x in r['ranks']]} / {r['one']['peak_mib']:.1f}"
+                  f", collectives a step {r['ranks'][0]['collectives']:.0f} holding "
+                  f"{[round(x['collective_ms'], 3) for x in r['ranks']]} host ms a rank")
+    r = dp["cli"]
+    print(f"summary: {smi}; train PointNet++ --data-parallel on {r['world']} ranks "
+          f"({r['backend']}): first-step loss {r['first']:.7f} / {r['want_first']:.7f} in one "
+          f"process, epoch {r['epoch_s']:.1f} s, the ranks' run {r['seconds']:.1f} s")
     print(f"summary: whole script {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

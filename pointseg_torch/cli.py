@@ -15,6 +15,8 @@
     python -m pointseg_torch train <model> --profile DIR
     python -m pointseg_torch train <model> --bf16
     python -m pointseg_torch train <model> --save-confusion
+    python -m pointseg_torch train <model> --data-parallel
+    torchrun --nproc-per-node N -m pointseg_torch train <model> --data-parallel
     python -m pointseg_torch prepare [--stage all|raw|chunks|index|blocks] ...
     python -m pointseg_torch evaluate --model-path CKPT --data-path D
         [--whole-rooms [--stream device|host]] [--bn-stats running|batch] [--bf16] ...
@@ -33,9 +35,10 @@ checkpoint and its `config.json` sidecar after every epoch into
 name, `--static-graph` and `--bf16` from that sidecar. `--bf16` computes
 activations in bfloat16 with float32 parameters, gradients, Adam state
 and logits (`create_model(name, dtype=torch.bfloat16)`), as the JAX
-package's `--bf16` does; TF32 stays off. `--data-parallel`, the one flag
-of the JAX package that the port does not carry yet, is accepted by the
-parser only to be refused with a pointer to ROADMAP.md. `--device cuda`
+package's `--bf16` does; TF32 stays off. `train --data-parallel` shards
+each batch over data-parallel ranks and computes what one process computes
+(`pointseg_torch/parallel/`; `train_from_args` says how the ranks start).
+The port carries every flag of the JAX CLI. `--device cuda`
 (the default of every subcommand that computes: `train`, `evaluate`,
 `benchmark`, `import-torch`, `train-legacy`, and `export`'s
 `--platforms`) without a CUDA device raises; the port never moves work
@@ -63,10 +66,6 @@ MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
                  "PointNeXt-B", "PointNeXt-L", "DeepGraphCnn", "DGCNN"]
 DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 
-# JAX trainer flags not carried yet: (flag, argparse kwargs)
-_NOT_PORTED = (
-    ("--data-parallel", dict(action="store_true")),
-)
 EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 BF16_HELP = "Compute in bfloat16 (parameters, gradients and Adam state stay float32)."
 
@@ -144,17 +143,11 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="Draw each epoch's evaluation confusion matrix into "
                         "<log dir>/confusion/confusion_epoch_{n}.png (needs matplotlib; "
                         "without it nothing is written).")
-    for flag, kwargs in _NOT_PORTED:
-        p.add_argument(flag, help=argparse.SUPPRESS, **kwargs)
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    given = [flag for flag, kwargs in _NOT_PORTED
-             if getattr(args, flag[2:].replace("-", "_")) != kwargs.get("default",
-                                                                       False)]
-    if given:
-        raise SystemExit(f"not yet ported to pointseg_torch: {', '.join(given)}; "
-                         "see ROADMAP.md for the order of the port")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="Shard each batch over data-parallel ranks, with the result of one "
+                        "process: under torchrun its ranks, else one rank a visible card "
+                        "(one card, or --device cpu: one rank). NCCL when every rank has a "
+                        "card of its own, else gloo.")
 
 
 def kernel_switches(model: str) -> dict:
@@ -190,54 +183,109 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _device_train_loader(args: argparse.Namespace, device: torch.device):
+def _device_train_loader(args: argparse.Namespace, device: torch.device, say=print):
     """(train loader, mode) of `--device-data`: the device-resident store, by
     the policy chain flat store -> 16 B/point compact store -> chunked
     host prefetcher (`pointseg_torch/data/device.py`). Evaluation keeps the
-    host loader: it needs whole blocks, not samples."""
+    host loader: it needs whole blocks, not samples. Under
+    `--data-parallel` every rank holds a store of its own, samples the
+    global batch and keeps its rows. `say` prints."""
     from pointseg_torch.data.datasets import BlockDataset
     from pointseg_torch.data.device import device_store_or_host_loader
 
     train_areas = {1, 2, 3, 4, 5, 6} - set(args.test_areas)
     raw_ds = BlockDataset(args.data_dir, train_areas, sampling=None, seed=args.seed)
     if args.pack_cache and args.device_store in ("flat", "host"):
-        print(f"note: --pack-cache is ignored with --device-store "
-              f"{args.device_store} (only the compact store packs)")
+        say(f"note: --pack-cache is ignored with --device-store "
+            f"{args.device_store} (only the compact store packs)")
     loader, data_mode = device_store_or_host_loader(
         raw_ds, args.train_batch_size, args.train_sampling, seed=args.seed, device=device,
         num_workers=max(args.num_workers, 4), layout=args.device_store,
         pack_cache=args.pack_cache)
     if data_mode in ("device", "compact"):
         store = loader.store
-        print(f"Device-resident train split ({data_mode}): {store.num_blocks} blocks, "
-              f"{store.nbytes / 1e6:.1f} MB on {device}.")
+        say(f"Device-resident train split ({data_mode}): {store.num_blocks} blocks, "
+            f"{store.nbytes / 1e6:.1f} MB on {device}.")
     elif args.device_store == "host":
-        print("Device store layout forced to host; using the chunked host prefetcher.")
+        say("Device store layout forced to host; using the chunked host prefetcher.")
     else:
         why = loader.policy_reason
-        print("Device store unavailable" + (f" ({why})" if why else "")
-              + "; using the chunked host prefetcher.")
+        say("Device store unavailable" + (f" ({why})" if why else "")
+            + "; using the chunked host prefetcher.")
     return loader, data_mode
 
 
 def train_from_args(args: argparse.Namespace):
-    """Runs the `train` subcommand; returns (TrainState, records)."""
-    from pointseg_torch.data import synthetic
-    from pointseg_torch.data.datasets import create_block_dataloaders
-    from pointseg_torch.io.checkpoint import restore_train_state
-    from pointseg_torch.models import create_model
-    from pointseg_torch.runtime import is_oom_error, oom_advice
-    from pointseg_torch.train.logging import MetricsLogger, save_records
-    from pointseg_torch.train.loop import train_model
-    from pointseg_torch.train.state import create_train_state
+    """Runs the `train` subcommand; returns (TrainState, records).
 
-    _refuse_unported(args)
+    `--data-parallel` (`pointseg_torch/parallel/`): under `torchrun` this
+    process is its rank of torchrun's group; standalone it runs one rank a
+    visible card, started by `parallel.spawn` where there are two or more
+    (this process then returns (None, rank 0's records)), and in this
+    process on one card or the CPU (a mesh of one rank, the one-process
+    step). A rank that cannot join, fails or dies fails the command; the
+    run never falls back to one process."""
+    from pointseg_torch import parallel
+
     if args.device_data and args.accum_steps > 1:
         # fail before the (possibly long) store build: the accumulation
         # path stacks batches on the host
         raise SystemExit("--accum-steps requires a host loader; drop "
                          "--device-data or --accum-steps")
     device = resolve_device(args.device)
+    if not args.data_parallel:
+        return _train(args, device, None)
+    if parallel.under_torchrun():
+        mesh = parallel.create_mesh(device)
+        try:
+            return _train(args, mesh.device, mesh)
+        finally:
+            parallel.close_mesh(mesh)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cards == 1:
+        return _train(args, device, parallel.Mesh(device=device))
+    return None, spawn_training(args, cards)[0]["records"]
+
+
+def spawn_training(args: argparse.Namespace, world_size: int,
+                   timeout: float | None = None) -> list[dict]:
+    """`train --data-parallel` on `world_size` new ranks, one a card of
+    `args.device`'s type (CPU ranks, gloo, share this process's threads),
+    within `timeout` seconds (None: no limit); returns each rank's
+    {"records", "launches"} (its kernel launch counts), in rank order."""
+    from pointseg_torch import parallel
+
+    parallel.refuse_indivisible(args.train_batch_size, parallel.Mesh(world_size=world_size))
+    threads = max(1, torch.get_num_threads() // world_size) if args.device == "cpu" else None
+    return parallel.spawn(_train_rank, world_size, (args,), device=args.device,
+                          timeout=timeout, threads=threads)
+
+
+def _train_rank(mesh, args: argparse.Namespace) -> dict:
+    """One rank of `spawn_training`: its records and kernel launches."""
+    from pointseg_torch.ops import _kernels
+
+    records = _train(args, mesh.device, mesh)[1]
+    return {"records": records, "launches": dict(_kernels.LAUNCHES)}
+
+
+def _train(args: argparse.Namespace, device: torch.device, mesh):
+    """The `train` subcommand in this process: one process (`mesh` None)
+    or one rank of `mesh`, whose rank 0 alone prints, logs and writes."""
+    from pointseg_torch import parallel
+    from pointseg_torch.data import synthetic
+    from pointseg_torch.data.datasets import create_block_dataloaders
+    from pointseg_torch.io.checkpoint import restore_train_state
+    from pointseg_torch.models import create_model
+    from pointseg_torch.runtime import is_oom_error, oom_advice
+    from pointseg_torch.train.logging import rank_logger, save_records
+    from pointseg_torch.train.loop import train_model
+    from pointseg_torch.train.state import create_train_state
+
+    main = mesh is None or mesh.rank == 0
+    say = print if main else _quiet
+    if mesh is not None:
+        parallel.refuse_indivisible(args.train_batch_size, mesh)
     switches = kernel_switches(args.model)
     model_kwargs = dict(switches)
     if args.static_graph:
@@ -249,15 +297,16 @@ def train_from_args(args: argparse.Namespace):
                          **model_kwargs)
     _no_tf32()
 
-    if args.synthetic and not os.path.exists(args.data_dir):
+    if args.synthetic and main and not os.path.exists(args.data_dir):
         print(f"Generating synthetic block dataset at {args.data_dir} ...")
         synthetic.make_block_dataset(args.data_dir, rooms_per_area=2,
                                      points_per_room=20000, seed=args.seed, rgb_u8=True)
+    parallel.barrier(mesh)  # the other ranks read what rank 0 made
 
     run_name = os.path.join(args.model, datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
     log_path = os.path.join(args.log_dir, run_name)
     ckpt_dir = os.path.join(args.model_dir, run_name)
-    print(f"Starting training of model {args.model} on {device}.")
+    say(f"Starting training of model {args.model} on {device}.")
     train_loader, test_loader = create_block_dataloaders(
         data_dir=args.data_dir,
         test_areas=set(args.test_areas),
@@ -273,10 +322,10 @@ def train_from_args(args: argparse.Namespace):
     )
     data_mode = "host loader"
     if args.device_data:
-        train_loader, data_mode = _device_train_loader(args, device)
-    print(f"Initialized train dataloader with areas {set(range(1, 7)) - set(args.test_areas)}, "
-          f"and test dataloader with areas {set(args.test_areas)}.")
-    print("-" * 15)
+        train_loader, data_mode = _device_train_loader(args, device, say)
+    say(f"Initialized train dataloader with areas {set(range(1, 7)) - set(args.test_areas)}, "
+        f"and test dataloader with areas {set(args.test_areas)}.")
+    say("-" * 15)
 
     state = create_train_state(
         model, device=device, learning_rate=args.learning_rate, seed=args.seed,
@@ -284,13 +333,19 @@ def train_from_args(args: argparse.Namespace):
         warmup_steps=args.warmup_steps, grad_clip=args.grad_clip)
     if args.resume:
         restore_train_state(args.resume, state)
-        print(f"Resumed from step {state.step}.")
+        say(f"Resumed from step {state.step}.")
     config = {k: v for k, v in vars(args).items() if not callable(v) and k != "func"}
     config["data_mode"] = data_mode  # "device", "compact", "host" or "host loader"
     config["kernel_switches"] = switches
-    logger = MetricsLogger(log_path)
+    if mesh is not None:
+        # every rank walks the global batches and keeps its rows
+        state = parallel.shard_state(mesh, state)
+        train_loader = parallel.ShardedLoader(train_loader, mesh)
+        config["world_size"] = mesh.world_size
+        say(f"Data-parallel over {mesh.world_size} device(s).")
+    logger = rank_logger(log_path, 0 if mesh is None else mesh.rank)
     profiler = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and main:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -310,6 +365,8 @@ def train_from_args(args: argparse.Namespace):
         raise
     finally:
         logger.close()
+    if not main:
+        return state, records
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
@@ -318,6 +375,10 @@ def train_from_args(args: argparse.Namespace):
     print(f"View logs under: {log_path} (metrics.csv / metrics.jsonl)")
     print(f"Model checkpoints saved to: {ckpt_dir}.")
     return state, records
+
+
+def _quiet(*args, **kwargs) -> None:
+    """`print` of a data-parallel rank other than 0."""
 
 
 def _no_tf32() -> None:

@@ -13,6 +13,11 @@ generator's state does not fit a CPU generator (nor the reverse): a
 checkpoint restored on the other kind of device keeps the state's own
 generator, with a warning.
 
+Data-parallel training (`parallel/mesh.py`) leaves the model unwrapped,
+so its checkpoints have the one-process keys: rank 0 writes them, every
+rank restores them on `--resume`, and a checkpoint of either kind of run
+resumes the other.
+
 The JAX package's checkpoints (`checkpoint_{step}.msgpack`, flax
 serialisation) are refused: the port reads its own checkpoints, and the
 reference's `.pt` state_dicts through `import-torch`; JAX weights held as

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from pointseg_torch import ops
-from pointseg_torch.nn import EdgeConv, Linear, SharedMLP, cast, leaky_relu_02
+from pointseg_torch.nn import Dropout, EdgeConv, Linear, SharedMLP, cast, leaky_relu_02
 
 
 def _conv(in_features: int, width: int, dtype: torch.dtype) -> SharedMLP:
@@ -60,7 +60,7 @@ class DGCNN(nn.Module):
         self.conv5 = _conv(cat, emb_dims, dtype)
         self.conv6 = _conv(cat + emb_dims, 512, dtype)
         self.conv7 = _conv(512, 256, dtype)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv8 = Linear(256, num_classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,

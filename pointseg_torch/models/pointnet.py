@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointseg_torch import ops
-from pointseg_torch.nn import BatchNorm, Linear, TNet
+from pointseg_torch.nn import BatchNorm, Dropout, Linear, TNet
 
 
 class PointNetEncoder(nn.Module):
@@ -96,7 +96,7 @@ class PointNetCls(nn.Module):
         self.feat = PointNetEncoder(in_dim, feature_transform, global_feat=True, dtype=dtype)
         self.fc1, self.bn1 = Linear(1024, 512, dtype=dtype), BatchNorm(512, dtype=dtype)
         self.fc2, self.bn2 = Linear(512, 256, dtype=dtype), BatchNorm(256, dtype=dtype)
-        self.dropout = nn.Dropout(0.3)
+        self.dropout = Dropout(0.3)
         self.fc3 = Linear(256, num_classes, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,

@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointseg_torch.nn import FeaturePropagation, Linear, SetAbstraction, SetAbstractionMSG
+from pointseg_torch.nn import (Dropout, FeaturePropagation, Linear, SetAbstraction,
+                                SetAbstractionMSG)
 
 
 class PointNetPP(nn.Module):
@@ -42,7 +43,7 @@ class PointNetPP(nn.Module):
         self.fp3 = FeaturePropagation(w2 + 256, [256, 256], dtype=dtype)
         self.fp2 = FeaturePropagation(w1 + 256, [256, 128], dtype=dtype)
         self.fp1 = FeaturePropagation(128, [128, 128, 128, 128], dtype=dtype)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv = Linear(128, num_classes, dtype=dtype)
 
     def _build_encoder(self, in_features: int, **kw) -> tuple[int, int, int, int]:

@@ -29,7 +29,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointseg_torch.nn import FeaturePropagation, InvResMLP, Linear, SetAbstraction, SharedMLP
+from pointseg_torch.nn import (Dropout, FeaturePropagation, InvResMLP, Linear, SetAbstraction,
+                                SharedMLP)
 
 STAGE_RADII = ((0.1,), (0.1, 0.2), (0.4,), (0.8,))  # the InvResMLP radii per stage
 STAGE_K = (32, 32, 32, 16)
@@ -65,7 +66,7 @@ class PointNeXt(nn.Module):
         self.fp3 = FeaturePropagation(4 * w + 256, [256, 256], dtype=dtype)
         self.fp2 = FeaturePropagation(2 * w + 256, [256, 128], dtype=dtype)
         self.fp1 = FeaturePropagation(w + 128, [128, 128, 128, 128], dtype=dtype)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv = Linear(128, num_classes, dtype=dtype)
 
     def _irmlp_stack(self, stage: int, coords, feats):

@@ -1,6 +1,13 @@
 """Layers and blocks (port of `pointseg.nn`)."""
 
-from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu_02  # noqa: F401
+from pointseg_torch.nn.mlp import (  # noqa: F401
+    BatchNorm,
+    Dropout,
+    Linear,
+    SharedMLP,
+    cast,
+    leaky_relu_02,
+)
 from pointseg_torch.nn.blocks import (  # noqa: F401
     BNStats,
     EdgeConv,

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pointseg_torch import ops
 from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu_02
+from pointseg_torch.parallel.mesh import active, all_reduce_sum
 
 
 class GroupedFirstLayer(SharedMLP):
@@ -231,7 +232,11 @@ class EdgeConv(torch.nn.Module):
     s_i = sum_j p_j and q_i = sum_j p_j²:
         sum e  = sum_i (s_i + k d_i),
         sum e² = sum_i (q_i + 2 d_i s_i + k d_i²),
-    with var = max(E[e²] - E[e]², 0), the JAX block's form. `fused=False`
+    with var = max(E[e²] - E[e]², 0), the JAX block's form. Inside a
+    data-parallel step (`parallel/mesh.py`) the two channel sums and the
+    edge count are the global batch's, all-reduced with the gradient
+    flowing through the sum; `fused=False` takes its statistics from
+    `BatchNorm`, global there too. `fused=False`
     gathers, adds, normalises and reduces the edge tensor itself. Both
     give the same output and running statistics up to reassociation.
 
@@ -293,8 +298,15 @@ class EdgeConv(torch.nn.Module):
             s, q = reduced[2], reduced[3]
             count = p.shape[0] * p.shape[1] * self.k
             df = d.to(s.dtype)
-            mean = (s + self.k * df).sum(dim=(0, 1)) / count
-            ex2 = (q + 2.0 * df * s + self.k * df * df).sum(dim=(0, 1)) / count
+            sum_e = (s + self.k * df).sum(dim=(0, 1))
+            sum_e2 = (q + 2.0 * df * s + self.k * df * df).sum(dim=(0, 1))
+            mesh = active()
+            if mesh is not None:  # the global batch's sums and edge count
+                sum_e, sum_e2, count = all_reduce_sum(
+                    torch.cat([sum_e, sum_e2, sum_e.new_full((1,), count)]), mesh
+                ).split([sum_e.shape[0], sum_e.shape[0], 1])
+            mean = sum_e / count
+            ex2 = sum_e2 / count
             var = torch.clamp_min(ex2 - mean * mean, 0.0)
         scale, bias, mean, var = self.bn.stats(mean, var)
         t = scale * torch.rsqrt(var + self.bn.eps)  # per-channel slope

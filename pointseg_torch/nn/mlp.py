@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointseg_torch.parallel.mesh import active, all_reduce_
+
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`x` in a block's compute dtype: unchanged under float32 (the
@@ -55,14 +57,32 @@ class _TrainNorm(torch.autograd.Function):
     dweight = sum(dy * x^), dbias = sum(dy)), by aten's fused batch-norm
     backward given these statistics. Saves the input rows and three
     vectors, as `F.batch_norm` does. The statistics come back too,
-    detached, for the running averages."""
+    detached, for the running averages.
+
+    With a data-parallel `mesh` (`parallel/mesh.py`) the rows are one
+    rank's share and the statistics are the global batch's, in two passes
+    over `all_reduce`, as accurate as `var_mean` (F6): the sum and count
+    give the mean, then each rank's sum of squared deviations from it the
+    biased variance. The backward all-reduces sum(dy) and sum(dy * x^),
+    the two reductions inside the fused backward, before its elementwise
+    pass; dweight and dbias stay the rank's own sums, which the gradient
+    reduction adds up."""
 
     @staticmethod
-    def forward(ctx, rows, weight, bias, eps: float, out_dtype: torch.dtype):
+    def forward(ctx, rows, weight, bias, eps: float, out_dtype: torch.dtype, mesh=None):
         acc = torch.promote_types(rows.dtype, torch.float32)
-        var, mean = torch.var_mean(rows.to(acc), dim=0, correction=0)
+        if mesh is None:
+            var, mean = torch.var_mean(rows.to(acc), dim=0, correction=0)
+        else:
+            x = rows.to(acc)
+            sums = torch.cat([x.sum(dim=0), x.new_full((1,), rows.shape[0])])
+            sums = all_reduce_(sums, mesh)
+            ctx.count = sums[-1]
+            mean = sums[:-1] / ctx.count
+            var = all_reduce_((x - mean).square().sum(dim=0), mesh) / ctx.count
         y = F.batch_norm(rows, mean, var, weight, bias, training=False, eps=eps)
         ctx.eps = eps
+        ctx.mesh = mesh
         ctx.save_for_backward(rows, weight, mean, torch.rsqrt(var + eps))
         ctx.mark_non_differentiable(mean, var)
         return y.to(out_dtype), mean, var
@@ -70,10 +90,18 @@ class _TrainNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _mean, _var):
         rows, weight, mean, rstd = ctx.saved_tensors
-        dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
-            dy.to(rows.dtype), rows, weight, None, None, mean, rstd, True, ctx.eps,
-            list(ctx.needs_input_grad[:3]))
-        return dx, dweight, dbias, None, None
+        if ctx.mesh is None:
+            dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
+                dy.to(rows.dtype), rows, weight, None, None, mean, rstd, True, ctx.eps,
+                list(ctx.needs_input_grad[:3]))
+            return dx, dweight, dbias, None, None, None
+        dy = dy.to(mean.dtype)
+        xhat = (rows.to(mean.dtype) - mean) * rstd
+        local = torch.cat([dy.sum(dim=0), (dy * xhat).sum(dim=0)])
+        dbias, dweight = local.clone().chunk(2)
+        mean_dy, mean_dy_xhat = (all_reduce_(local, ctx.mesh) / ctx.count).chunk(2)
+        dx = (weight * rstd) * (dy - mean_dy - xhat * mean_dy_xhat)
+        return dx.to(rows.dtype), dweight, dbias, None, None, None
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -89,7 +117,9 @@ class BatchNorm(nn.BatchNorm1d):
     unbiased one. One row normalises to `bias`, as flax's does (exactly on
     the card, whose elementwise pass centres first; within rounding on the
     CPU, whose pass folds the mean into the shift), where a training-mode
-    `F.batch_norm` refuses a batch of one row. In eval mode it
+    `F.batch_norm` refuses a batch of one row. Inside a data-parallel step
+    the statistics are the global batch's (`_TrainNorm`), and so are the
+    running averages, the same on every rank. In eval mode it
     normalises with the running statistics. The output is in `dtype`
     (module docstring); the arithmetic is float32 either way.
 
@@ -106,7 +136,8 @@ class BatchNorm(nn.BatchNorm1d):
         acc = torch.promote_types(x.dtype, torch.float32)
         out_dtype = acc if self.dtype == torch.float32 else self.dtype
         if self.training:
-            y, mean, var = _TrainNorm.apply(rows, self.weight, self.bias, self.eps, out_dtype)
+            y, mean, var = _TrainNorm.apply(rows, self.weight, self.bias, self.eps, out_dtype,
+                                            active())
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -116,6 +147,24 @@ class BatchNorm(nn.BatchNorm1d):
             y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
                              self.bias, training=False, eps=self.eps).to(out_dtype)
         return y.reshape(x.shape)
+
+
+class Dropout(nn.Dropout):
+    """`nn.Dropout` whose mask, inside a data-parallel step
+    (`parallel/mesh.py`), is drawn for the global batch, each rank keeping
+    its rows: the rank's rows get the mask that one process draws for
+    them, and torch's generator advances as in one process. Elsewhere it
+    is `nn.Dropout`. The mask is drawn by the same call on a tensor of
+    ones of the global shape, so it is the one-process mask on the CPU and
+    on the card alike."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = active()
+        if mesh is None or not self.training or self.p == 0.0:
+            return super().forward(x)
+        rows = x.shape[0] * mesh.world_size
+        scale = F.dropout(x.new_ones((rows, *x.shape[1:])), self.p, training=True)
+        return x * scale[mesh.rows(rows)]
 
 
 def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:

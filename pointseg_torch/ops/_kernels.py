@@ -48,6 +48,7 @@ it, runs on a stream chosen with `torch.cuda.stream` and is captured by
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -126,7 +127,9 @@ def _check_nvcc(cmd: list[str], returncode: int, log: str) -> None:
 
 def build() -> Path:
     """Compiles the kernels unless this exact build exists; returns the
-    shared library's path."""
+    shared library's path. Processes that build at once (the ranks of a
+    data-parallel run) take turns on a lock file beside the library: the
+    first builds, the others find its library and compile nothing."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         digest.update(name.encode())
@@ -136,6 +139,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not lib.exists():
+            _compile(out_dir, lib)
+    return lib
+
+
+def _compile(out_dir: Path, lib: Path) -> None:
+    """Compiles every source at once and links them into `lib`."""
     nvcc, tag = _nvcc(), os.getpid()
     objects = [out_dir / f".partial-{tag}-{name}.o" for name in SOURCES]
     compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
@@ -153,8 +165,7 @@ def build() -> Path:
     finally:
         for obj in objects:
             obj.unlink(missing_ok=True)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    os.replace(tmp, lib)  # atomic: a reader never sees half a file
 
 
 def library() -> ctypes.CDLL:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from pointseg_torch.ops import _kernels
+from pointseg_torch.parallel.mesh import active
 
 # fps.cu's kMaxSmemPoints: larger clouds keep their distances in a scratch array
 MAX_SMEM_POINTS = 12288
@@ -36,9 +37,11 @@ def farthest_point_sampling(
     Args:
         coords: (B, N, 3) point coordinates.
         num_samples: number of points C to select.
-        generator: draws a random start per cloud, uniform over N. With
-            neither `generator` nor `start_indices` the start is 0 (or
-            the first valid point under `mask`).
+        generator: draws a random start per cloud, uniform over N (in a
+            data-parallel step, `parallel/mesh.py`, the global batch's
+            starts, of which this rank keeps its rows). With neither
+            `generator` nor `start_indices` the start is 0 (or the first
+            valid point under `mask`).
         start_indices: optional (B,) explicit start indices; overrides
             `generator`.
         mask: optional (B, N) bool; False points are never selected
@@ -53,8 +56,12 @@ def farthest_point_sampling(
     if start_indices is not None:
         start = start_indices.to(device=device, dtype=torch.int32)
     elif generator is not None:
-        start = torch.randint(0, N, (B,), generator=generator,
-                              device=generator.device).to(device, torch.int32)
+        mesh = active()  # in a data-parallel step: the global batch's draw, this rank's rows
+        rows = B if mesh is None else B * mesh.world_size
+        start = torch.randint(0, N, (rows,), generator=generator, device=generator.device)
+        if mesh is not None:
+            start = start[mesh.rows(rows)]
+        start = start.to(device, torch.int32)
         if mask is not None:
             # an excluded draw becomes the cloud's first valid point
             first_valid = mask.int().argmax(dim=1).to(torch.int32)

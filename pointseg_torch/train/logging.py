@@ -80,6 +80,31 @@ class MetricsLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """`MetricsLogger`'s interface, writing nothing: the logger of every
+    data-parallel rank but rank 0."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def add_tensor(self, tag: str, values, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def rank_logger(log_dir: str, rank: int, use_tensorboard: bool = True):
+    """A `MetricsLogger` on rank 0, a `NullLogger` on any other rank (no
+    directory and no file is made there)."""
+    if rank != 0:
+        return NullLogger()
+    return MetricsLogger(log_dir, use_tensorboard)
+
+
 def save_records(
     path_dir: str,
     filename: str,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pointseg_torch.io.checkpoint import save_checkpoint
+from pointseg_torch.parallel.mesh import barrier
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.logging import MetricsLogger
 from pointseg_torch.train.state import TrainState, eval_step, train_step, train_step_accum
@@ -55,7 +56,10 @@ def train_epoch(
     its `scan_epoch`: same batch sequence and random streams, no host
     read until the epoch's stacked metrics are fetched once at its end
     (interval logging still happens, from those). With any other loader
-    it changes nothing, as in the JAX package.
+    it changes nothing, as in the JAX package; `--data-parallel` hands
+    the epoch a `parallel.ShardedLoader`, which is not one, so the scan
+    path is not taken there either (as in the JAX package, whose wrapper
+    hides the store's loader in the same way).
 
     `accum_steps > 1` groups K consecutive loader batches into ONE
     optimizer update via `train_step_accum` (an effective batch K*B at
@@ -202,7 +206,14 @@ def train_model(
     `confusion_dir/confusion_epoch_{n}.png` (nothing where matplotlib is
     not installed, as in the JAX package). Returns the final state and
     the records {train_loss, val_loss, val_acc, val_miou, epoch_times,
-    total_time}."""
+    total_time}.
+
+    On a data-parallel `state.mesh` every rank trains on its rows and
+    evaluates the whole test set, as one process does; only rank 0
+    prints, draws and writes the checkpoint, after every rank has come to
+    it (give the other ranks a `NullLogger`, `train/logging.py`)."""
+    main = state.mesh is None or state.mesh.rank == 0
+    verbose = verbose and main
     global_step = state.step
     records = {"train_loss": [], "val_loss": [], "val_acc": [], "val_miou": [],
                "epoch_times": []}
@@ -236,7 +247,7 @@ def train_model(
         records["val_miou"].append(ev["mean_iou"])
         records["epoch_times"].append(dt)
 
-        if confusion_dir is not None:
+        if confusion_dir is not None and main:
             # the reference wires this plot but leaves it commented out (training.py:176)
             try:
                 from pointseg_torch.utils.visualize import plot_confusion_matrix
@@ -249,7 +260,9 @@ def train_model(
                 pass  # matplotlib not installed
 
         if ckpt_dir is not None and (epoch + 1) % ckpt_every_epochs == 0:
-            save_checkpoint(ckpt_dir, state, config=config)
+            barrier(state.mesh)  # every rank has finished the epoch
+            if main:
+                save_checkpoint(ckpt_dir, state, config=config)
 
     records["total_time"] = time.time() - t_start
     if config is not None:

@@ -1,12 +1,20 @@
 """Masked cross-entropy (port of `pointseg/train/loss.py`): float32
 log-softmax over classes, positions at or past each sample's length
 masked out, mean over the valid points, and 0 when every point is
-padding."""
+padding.
+
+Inside a data-parallel step (`parallel/mesh.py`) the batch is one rank's
+rows and the mean divides by the valid points of the global batch: each
+rank's loss is its share of the global loss (0 for a rank whose rows are
+all padding), the shares sum to the one-process loss, and so do their
+gradients. A global batch that is all padding gives 0."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from pointseg_torch.parallel.mesh import active, all_reduce_
 
 
 def length_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
@@ -18,6 +26,9 @@ def length_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
 def _masked_mean(token_loss: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     mask = length_mask(lengths, token_loss.shape[1]).to(torch.float32)
     total = mask.sum()
+    mesh = active()
+    if mesh is not None:  # the global batch's count: this rank's share of its mean
+        total = all_reduce_(total.clone(), mesh)
     loss = (token_loss * mask).sum() / total.clamp_min(1.0)
     return torch.where(total > 0, loss, torch.zeros_like(loss))
 

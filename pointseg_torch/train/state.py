@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointseg_torch.parallel.mesh import Mesh, global_totals, reduce_gradients, use
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
 
@@ -124,6 +125,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator | None  # FPS starts in training; None starts at 0
     step: int = 0
+    mesh: Mesh | None = None  # data-parallel group (`parallel.shard_state`); None: one process
 
     @property
     def device(self) -> torch.device:
@@ -155,19 +157,41 @@ def _apply_update(state: TrainState) -> None:
     state.step += 1
 
 
-def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
-               lengths: torch.Tensor) -> dict[str, torch.Tensor]:
-    """One optimisation step + train-batch metrics {loss, accuracy, miou}."""
-    state.model.train()
-    logits = state.model(points, generator=state.generator)
-    loss = masked_onehot_cross_entropy(logits, labels, lengths)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    _apply_update(state)
-    with torch.no_grad():
+@torch.no_grad()
+def _batch_metrics(loss, logits, labels, lengths, mesh: Mesh | None):
+    """(loss, accuracy, mIoU) of the batch; on a data-parallel mesh of the
+    global batch, from the ranks' loss shares and accuracy and IoU totals
+    summed in one all_reduce."""
+    if mesh is None or mesh.world_size == 1:
         accuracy = M.overall_accuracy(logits, labels, lengths)
         miou, _ = M.intersection_over_union(logits, labels, lengths)
-    return {"loss": loss.detach(), "accuracy": accuracy, "miou": miou}
+        return loss.detach(), accuracy, miou
+    correct, total = M.update_accuracy(logits, labels, lengths)
+    inter, union = M.update_intersection_over_union(logits, labels, lengths)
+    loss, correct, total, inter, union = global_totals(
+        [loss.detach(), correct, total, inter, union], mesh)
+    miou, _ = M.iou_from_totals(inter, union)
+    return loss, correct / total.clamp_min(1), miou
+
+
+def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
+               lengths: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One optimisation step + train-batch metrics {loss, accuracy, miou}.
+
+    On a data-parallel `state.mesh` the batch is this rank's rows of the
+    global batch; the step computes what one process computes on the
+    global batch (`parallel/mesh.py`): the gradients are summed over the
+    ranks before the update and the metrics are the global batch's."""
+    with use(state.mesh):
+        state.model.train()
+        logits = state.model(points, generator=state.generator)
+        loss = masked_onehot_cross_entropy(logits, labels, lengths)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        reduce_gradients(state.model, state.mesh)
+        _apply_update(state)
+        loss, accuracy, miou = _batch_metrics(loss, logits, labels, lengths, state.mesh)
+    return {"loss": loss, "accuracy": accuracy, "miou": miou}
 
 
 def train_step_accum(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
@@ -192,21 +216,26 @@ def train_step_accum(state: TrainState, points: torch.Tensor, labels: torch.Tens
 
     Why: an effective batch K*B at the peak memory of one micro-batch.
     Returned metrics are means over the micro-batches.
+
+    On a data-parallel `state.mesh` each micro-batch is this rank's rows
+    of a global micro-batch, with global BatchNorm statistics, loss count
+    and metrics, and the gradients are summed over the ranks once, after
+    the K backward passes.
     """
     k = points.shape[0]
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
     sums = None
-    for i in range(k):
-        logits = state.model(points[i], generator=state.generator)
-        loss = masked_onehot_cross_entropy(logits, labels[i], lengths[i])
-        (loss / k).backward()
-        with torch.no_grad():
-            accuracy = M.overall_accuracy(logits, labels[i], lengths[i])
-            miou, _ = M.intersection_over_union(logits, labels[i], lengths[i])
-            micro = torch.stack([loss.detach(), accuracy, miou])
-        sums = micro if sums is None else sums + micro
-    _apply_update(state)  # the clip, if any, sees the mean gradient
+    with use(state.mesh):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        for i in range(k):
+            logits = state.model(points[i], generator=state.generator)
+            loss = masked_onehot_cross_entropy(logits, labels[i], lengths[i])
+            (loss / k).backward()
+            micro = torch.stack(_batch_metrics(loss, logits, labels[i], lengths[i],
+                                               state.mesh))
+            sums = micro if sums is None else sums + micro
+        reduce_gradients(state.model, state.mesh)
+        _apply_update(state)  # the clip, if any, sees the mean gradient
     loss, accuracy, miou = (sums / k).unbind(0)
     return {"loss": loss, "accuracy": accuracy, "miou": miou}
 

@@ -18,6 +18,10 @@ of being shorter.
   labels packed as the room's last channel, bin-counting (target,
   prediction) pairs into a device-resident confusion matrix; the only
   read is the matrix after all rooms (`evaluate_rooms`).
+- With `mesh=` (a `parallel.Mesh`, the JAX package's `mesh=`), the
+  streaming path shares each group's windows over the data-parallel
+  ranks and all-reduces the overlap sums; no CLI flag reaches it, in
+  either package.
 
 The streaming path keeps the JAX package's schedule, grouping and
 padding: the room buffer is padded to a geometric bucket (`_bucket`),
@@ -38,6 +42,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from pointseg_torch.parallel.mesh import Mesh, all_reduce_, use
 
 Forward = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -126,10 +132,19 @@ def _room_pad(n: int, window_size: int, step: int) -> int:
 
 @torch.no_grad()
 def scene_logits_device(forward: Forward, room: torch.Tensor, n: int, window_size: int,
-                        step: int, num_classes: int, group: int = 8) -> torch.Tensor:
+                        step: int, num_classes: int, group: int = 8,
+                        mesh: Mesh | None = None) -> torch.Tensor:
     """Averaged per-point logits (R, C) over a room buffer `room` (R, D)
     on the device, whose first `n` rows are the room; windows `group` at
-    a time, the overlap sums on the device."""
+    a time, the overlap sums on the device.
+
+    With a data-parallel `mesh` (`parallel/mesh.py`; every rank holds the
+    room) each rank forwards its share of every group's windows, rows
+    [r G/n, (r+1) G/n), inside `use(mesh)` (so batch BatchNorm statistics
+    are the group's, as in one process), sums its windows, and the sums
+    and counts are all-reduced: the JAX package's `mesh=`, the group axis
+    sharded. The world size must divide `group`."""
+    share = slice(0, group) if mesh is None else mesh.rows(group)
     R = room.shape[0]
     num_win = 1 if n <= window_size else (n - window_size + 2 * step - 1) // step
     n_groups = -(-num_win // group)
@@ -141,26 +156,32 @@ def scene_logits_device(forward: Forward, room: torch.Tensor, n: int, window_siz
     counts = torch.zeros((R,), dtype=torch.float32, device=room.device)
     for g in range(n_groups):
         first = g * group
-        group_starts = starts_dev[first:first + group]
+        group_starts = starts_dev[first + share.start:first + share.stop]
         wlens = (n - group_starts).clamp(0, window_size).to(torch.int32)
-        logits = forward(room[group_starts[:, None] + arange], wlens)  # (G, W, C)
+        with use(mesh):
+            logits = forward(room[group_starts[:, None] + arange], wlens)  # (G, W, C)
         # windows of one group can overlap: accumulate them in order
-        for j in range(min(group, num_win - first)):  # a clamped window past the room: no sums
-            s = starts[first + j]
+        for j in range(share.start, min(share.stop, num_win - first)):
+            s = starts[first + j]  # a clamped window past the room: no sums
             m = arange < min(n - s, window_size)
-            logits_sum[s:s + window_size] += torch.where(m[:, None], logits[j], 0.0)
+            logits_sum[s:s + window_size] += torch.where(m[:, None], logits[j - share.start],
+                                                         0.0)
             counts[s:s + window_size] += m.to(torch.float32)
+    if mesh is not None:
+        all_reduce_(logits_sum, mesh)
+        all_reduce_(counts, mesh)
     return logits_sum / counts.clamp_min(1.0)[:, None]
 
 
 def predict_single_scene_device(forward: Forward, points: np.ndarray, window_size: int = 4096,
                                 overlap: int = 512, num_classes: int = 14,
-                                device: torch.device | str = "cuda"
-                                ) -> tuple[np.ndarray, np.ndarray]:
+                                device: torch.device | str = "cuda",
+                                mesh: Mesh | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Streaming `predict_single_scene`: the room resident on the device,
     one copy there and one back. Same schedule, same per-window forward
     and the same overlap averaging as the host loop, the windows batched
-    8 at a time."""
+    8 at a time; with a data-parallel `mesh`, each group's windows shared
+    over its ranks (`scene_logits_device`)."""
     n, d = points.shape
     step = window_size - overlap
     if step <= 0:
@@ -168,7 +189,7 @@ def predict_single_scene_device(forward: Forward, points: np.ndarray, window_siz
     buf = np.zeros((_room_pad(n, window_size, step), d), np.float32)
     buf[:n] = points
     avg = scene_logits_device(forward, _to_device(buf, device), n, window_size, step,
-                              num_classes)
+                              num_classes, mesh=mesh)
     preds, conf = _predictions(avg)
     return preds[:n].cpu().numpy(), conf[:n].cpu().numpy()
 

@@ -19,6 +19,7 @@ package's on the CPU.
   `--data-parallel` is the one refused.
 """
 
+import argparse
 import json
 
 import jax
@@ -240,17 +241,23 @@ def test_memory_usage_has_the_jax_keys(monkeypatch):
     assert memory.format_memory_usage().startswith("cuda:0: 3MB in use (peak 5MB); host RSS: ")
 
 
-def _subcommands(parser):
+def _subparsers(parser):
     (sub,) = [a for a in parser._actions if a.__class__.__name__ == "_SubParsersAction"]
+    return sub.choices
+
+
+def _subcommands(parser):
     return {name: {s for a in p._actions for s in a.option_strings}
             | {a.dest for a in p._actions if not a.option_strings}
-            for name, p in sub.choices.items()}
+            for name, p in _subparsers(parser).items()}
 
 
-def test_every_jax_subcommand_and_flag_is_taken_and_only_data_parallel_refused():
+def test_every_jax_subcommand_and_flag_is_taken_and_none_refused():
     want = _subcommands(jax_cli.build_parser())
     got = _subcommands(cli.build_parser())
     assert set(want) <= set(got)
     for name, flags in want.items():
         assert flags <= got[name], (name, sorted(flags - got[name]))
-    assert [flag for flag, _ in cli._NOT_PORTED] == ["--data-parallel"]
+    hidden = {name: [a.option_strings for a in p._actions if a.help == argparse.SUPPRESS]
+              for name, p in _subparsers(cli.build_parser()).items()}
+    assert not any(hidden.values()), hidden  # a flag refused was a hidden one

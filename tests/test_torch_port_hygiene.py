@@ -1,7 +1,8 @@
 """Structural rules of the PyTorch port.
 
-- `pointseg_torch` and `chip_smoke.py` import no JAX, flax or optax, and
-  nothing of `pointseg`, not even a module there that imports no JAX:
+- `pointseg_torch`, `chip_smoke.py` and the rank-side module that it
+  imports (`tests/torch_parallel_ranks.py`) import no JAX, flax or optax,
+  and nothing of `pointseg`, not even a module there that imports no JAX:
   the port keeps its own copy of the numpy data layer. Checked on the
   source (AST), not on `sys.modules`, where JAX may already sit.
 - CPU tensors run the plain versions and never count as kernel launches;
@@ -28,7 +29,8 @@ from pointseg_torch.ops import _kernels
 torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "pointseg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "pointseg_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py"]
 ALLOWED_POINTSEG = set()  # nothing of the JAX package
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax"}
 

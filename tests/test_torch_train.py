@@ -242,15 +242,16 @@ def test_cli_refuses_accum_steps_with_device_data_before_the_store_is_built(
 @pytest.mark.parametrize("flags", [
     ["--bf16"], ["--data-parallel"], ["--save-confusion"],
 ])
-def test_cli_refuses_flags_not_yet_ported(flags, tiny_blocks, tmp_path):
-    """The trainer flag still to port, `--data-parallel`, is refused with
-    a pointer to ROADMAP.md. `--bf16` and `--save-confusion`, refused until
-    they were ported, now train: `--bf16` a DGCNN epoch in bfloat16 on the
-    CPU, a finite loss, float32 parameters, and `"bf16": true` in the
+def test_cli_refuses_flags_not_yet_ported(flags, tiny_blocks, tmp_path, capsys):
+    """No trainer flag is refused any more. Each flag that was refused
+    until it was ported now trains: `--bf16` a DGCNN epoch in bfloat16 on
+    the CPU, a finite loss, float32 parameters, and `"bf16": true` in the
     checkpoint's config sidecar, where `evaluate` reads it;
     `--save-confusion` a DGCNN epoch whose evaluation confusion matrix is
     drawn into `<log dir>/confusion/confusion_epoch_1.png` (matplotlib is
-    installed here)."""
+    installed here); `--data-parallel` a DGCNN epoch on the CPU at world
+    size 1 (no card: one rank, in this process), which is the epoch without
+    the flag, loss for loss."""
     if flags == ["--bf16"]:
         state, rec = _train_dgcnn(tiny_blocks, tmp_path, *flags)
         assert state.step == 6 and math.isfinite(rec["train_loss"][0])
@@ -266,9 +267,13 @@ def test_cli_refuses_flags_not_yet_ported(flags, tiny_blocks, tmp_path):
         assert png.name == "confusion_epoch_1.png" and png.parent.name == "confusion"
         assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
         return
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(["train", "PointNet++", "--device", "cpu",
-                  "--log-dir", str(tmp_path), *flags])
+    assert flags == ["--data-parallel"]
+    state, rec = _train_dgcnn(tiny_blocks, tmp_path, *flags)
+    assert "Data-parallel over 1 device(s)." in capsys.readouterr().out
+    assert state.step == 6 and rec["config"]["world_size"] == 1
+    assert state.mesh.world_size == 1 and state.mesh.backend is None
+    _, plain = _train_dgcnn(tiny_blocks, tmp_path / "plain")
+    assert rec["train_loss"] == plain["train_loss"] and rec["val_loss"] == plain["val_loss"]
 
 
 def test_cli_refuses_models_not_yet_ported(tmp_path):
