@@ -312,6 +312,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    checkpoint, which one process restores bit for bit. Each run of ranks
    has a deadline.
 
+11. Placements (M10: `pointseg_torch/parallel/`'s two-axis mesh, tensor
+   parallelism, the point-sharded forward and the row-sharded store, and
+   `pointseg_torch/multichip.py`), four ranks (`parallel.spawn`: gloo
+   sharing the one card, or one NCCL rank a card on four), each job's
+   launch counts set to 0 before it and read after it in every rank: (a)
+   a (data, model) = (2, 2) mesh's SGD step (`shard_state_tp`) of
+   PointNet++ and DeepGraphCnn (k = 20, emb 1024) on phase 4's batch
+   against the one-process step from the same weights and seeds: in
+   float64 every gathered parameter within 1e-12, in float32 within 2e-5
+   plus twice the leaf's float32-to-float64 distance, the sharded
+   fraction equal to the JAX package's (constants below), each rank
+   launching its model's kernels; a rank's step ms, device ms,
+   collectives a step and the host ms they hold, peak MiB and launches
+   beside the one-process step's; (b) the point-sharded PointNet++ eval
+   forward of one 65,536-point cloud, a quarter a rank, against the
+   unsharded forward: every FPS, ball-query and 3-NN selection equal,
+   logits within 2e-4; (c) the compact store of the synthetic training
+   blocks row-sharded over the four ranks: every batch bit-equal to the
+   unsharded store's, kernel 8 once a batch a rank; and one of
+   273,000,000 rows made on the card from a seed: ms a sampled batch
+   sharded against unsharded, each rank's resident bytes; (d)
+   `dryrun_multichip(4)` through its own ranks, its summary line printed.
+
 The next-to-last line of output is the kernels' JSON record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -4107,6 +4130,229 @@ def data_parallel_phase(device, workdir: str, smi: str, batch) -> dict:
     return out
 
 
+# Phase 11: the placements of `pointseg/parallel/mesh.py` that no CLI flag
+# reaches (M10): a (data, model) = (2, 2) mesh with tensor parallelism, the
+# point-sharded forward, the row-sharded compact store and the multichip dry
+# run. Four ranks: gloo sharing the one card, or one NCCL rank a card on four.
+PLACEMENT_MODELS = {  # full width -> the kernels of its train step
+    "PointNet++": ("fps", "ball_query", "three_nn", "gather_rows"),
+    "DeepGraphCnn": ("knn", "gather_rows"),
+}
+# the JAX package's `sharded_param_fraction` of each model on a model axis of
+# 2 (`pointseg.parallel.sharded_param_fraction` of the JAX model's params, on
+# the CPU; `tests/test_torch_mesh.py` holds the port's to the same numbers)
+JAX_TP_FRACTIONS = {"PointNet++": 0.9870639531881582, "DeepGraphCnn": 0.9864078515139785}
+PLACEMENT_RANKS = 4
+PLACEMENT_SHAPE = (2, 2)
+POINT_CLOUD = 65_536  # the largest eval bucket
+STORE_BLOCK = 10_920  # points a block of the timing table: 25,000 blocks of all S3DIS
+PLACEMENT_TIMEOUT = 600  # seconds for one run of the ranks
+TP_KERNELS = ("fps", "ball_query", "three_nn", "knn", "gather_rows", "gather_rows_flat")
+
+
+def tp_side():
+    """`tests/torch_tp_ranks.py`, the rank-side runs phase 11 shares with
+    `tests/test_torch_tensor_parallel.py` (on `sys.path` as `rank_side`
+    puts it)."""
+    rank_side()
+    import torch_tp_ranks
+
+    return torch_tp_ranks
+
+
+def placement_jobs(batch, store_case) -> dict:
+    """Phase 11's jobs: (a) one SGD step of each model in float64 and in
+    float32 (then 5 steps timed) on the 2 x 2 mesh; (b) the point-sharded
+    forward of one cloud on four ranks; (c) the synthetic store's batches
+    and the timing table's, row-sharded over the four ranks."""
+    common = dict(seed=3, shape=PLACEMENT_SHAPE, batch=tuple(t.cpu().numpy() for t in batch),
+                  optimizer="sgd", lr=1e-3, steps=1)
+    jobs = {}
+    for name in PLACEMENT_MODELS:
+        jobs[f"f64 {name}"] = ("train", dict(common, model=name, dtype=torch.float64))
+        jobs[f"f32 {name}"] = ("train", dict(common, model=name, timed=5))
+    cloud = np.concatenate([block_cloud(np.random.default_rng(11), 1, POINT_CLOUD),
+                            np.random.default_rng(12).random((1, POINT_CLOUD, 6))], axis=-1)
+    jobs["points"] = ("points", dict(model="PointNet++", seed=5, points=cloud.astype(np.float32),
+                                     axes=("data", "model"), shape=(PLACEMENT_RANKS, 1),
+                                     axis="data"))
+    jobs["store"] = ("store", store_case)
+    jobs["store timing"] = ("store_timing", dict(rows=S3DIS_ROWS, block=STORE_BLOCK, seed=7,
+                                                 batch_size=8, npoints=4096, warmup=3, reps=20))
+    return jobs
+
+
+def synthetic_store_case(workdir: str) -> dict:
+    """The synthetic dataset's training blocks (areas 1-5, as phase 4's
+    store holds them), a block of the first block's points appended so that
+    the rows divide by the ranks, with two batches of given block ids and
+    uniforms and two drawn from a seed, B = 8, N = 4096."""
+    from pointseg_torch.data import device as dev
+    from pointseg_torch.data.datasets import BlockDataset
+
+    pts, labs, counts = dev._load_raw_blocks(
+        BlockDataset(f"{workdir}/data", {1, 2, 3, 4, 5}, sampling=None, seed=0), 8)
+    counts = np.asarray(counts, np.int64)
+    pad = (-len(pts)) % PLACEMENT_RANKS
+    if pad:
+        pts = np.concatenate([pts, pts[:pad]])
+        labs = np.concatenate([labs, labs[:pad]])
+        counts = np.append(counts, pad)
+    rng = np.random.default_rng(13)
+    draws = [(rng.permutation(len(counts))[:8], rng.random((8, 4096), dtype=np.float32))
+             for _ in range(2)]
+    return dict(layout="compact", points=pts, labels=labs, counts=counts, num_classes=14,
+                draws=draws, seed=4, batch_size=8, npoints=4096, steps=2)
+
+
+def placement_launches(r: dict) -> dict:
+    return {k: r["launches"][k] for k in TP_KERNELS}
+
+
+def placement_check_steps(one: dict, ranks: list, label: str) -> dict:
+    """(a): in float64 the gathered parameters of every rank within 1e-12 of
+    the one-process step; in float32 within 2e-5 plus twice the leaf's
+    float32-to-float64 distance (phase 10's bound); each rank launched its
+    model's kernels; the sharded fraction JAX's."""
+    out = {}
+    for name, path in PLACEMENT_MODELS.items():
+        o64, o32 = one[f"f64 {name}"], one[f"f32 {name}"]
+        keys = o64["param_keys"]
+        worst64 = worst32 = 0.0
+        for r in ranks:
+            r64, r32 = r[f"f64 {name}"], r[f"f32 {name}"]
+            for k in keys:
+                worst64 = max(worst64, float((r64["state"][k] - o64["state"][k]).abs().max()))
+                noise = float((o32["state"][k].double() - o64["state"][k]).abs().max())
+                gap = float((r32["state"][k].double() - o32["state"][k].double()).abs().max())
+                worst32 = max(worst32, gap / (2e-5 + 2.0 * noise))
+            ran = {k for k, v in r32["launches"].items() if v}
+            if ran != set(path):
+                raise AssertionError(f"{label} {name} rank {r32['rank']}: launched {ran}, its "
+                                     f"path is {path}")
+        if worst64 > 1e-12 or worst32 > 1.0:
+            raise AssertionError(f"{label} {name}: float64 parameters {worst64:.3g} from one "
+                                 f"process (bound 1e-12); float32 worst leaf at {worst32:.3f} "
+                                 f"of its bound")
+        fraction = ranks[0][f"f32 {name}"]["fraction"]
+        if fraction != JAX_TP_FRACTIONS[name]:
+            raise AssertionError(f"{label} {name}: sharded fraction {fraction!r}, JAX's "
+                                 f"{JAX_TP_FRACTIONS[name]!r}")
+        r = [x[f"f32 {name}"] for x in ranks]
+        print(f"phase 11 {label} {name}: float64 params {worst64:.3g} from one process (bound "
+              f"1e-12), loss {ranks[0][f'f64 {name}']['loss']:.9f} / {o64['loss']:.9f}; float32 "
+              f"worst leaf at {worst32:.3f} of 2e-5 + 2x its float32 noise; sharded fraction "
+              f"{fraction:.6f}, JAX's {JAX_TP_FRACTIONS[name]:.6f}; placed tensors "
+              f"{len(r[0]['placed'])}", flush=True)
+        print(f"phase 11 {label}: {name} step ms one process (B = 8) {o32['step_ms']:.3f}, a "
+              f"rank {[round(x['step_ms'], 3) for x in r]}; device ms {o32['device_ms']:.3f}, a "
+              f"rank {[round(x['device_ms'], 3) for x in r]}; collectives a step "
+              f"{[round(x['collectives'], 1) for x in r]} holding "
+              f"{[round(x['collective_ms'], 3) for x in r]} host ms; peak MiB "
+              f"{o32['peak_mib']:.1f}, a rank {[round(x['peak_mib'], 1) for x in r]}; launches "
+              f"a rank (one step) {[placement_launches(x) for x in r]}", flush=True)
+        out[name] = {"one": o32, "ranks": r, "worst64": worst64, "worst32": worst32}
+    return out
+
+
+def placement_check_points(one: dict, ranks: list, label: str) -> dict:
+    """(b): the ranks' logits within 2e-4 of the unsharded forward's and
+    every selection equal (FPS on every rank; ball query and 3-NN rank by
+    rank)."""
+    split = sorted((r["points"] for r in ranks), key=lambda r: r["index"])
+    got = torch.cat([r["logits"] for r in split], 1)
+    gap = float((got - one["logits"]).abs().max())
+    counted = 0
+    for kind, calls in one["picks"].items():
+        for i, want in enumerate(calls):
+            if kind == "fps":
+                same = all(torch.equal(r["picks"][kind][i], want) for r in split)
+            else:
+                same = torch.equal(torch.cat([r["picks"][kind][i] for r in split], 1), want)
+            if not same:
+                raise AssertionError(f"{label}: {kind} call {i} differs from the unsharded one")
+            counted += 1
+    if gap > 2e-4 or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: logits {gap:.3g} from the unsharded forward (2e-4)")
+    for r in split:
+        ran = {k for k, v in r["launches"].items() if v}
+        if ran != set(PLACEMENT_MODELS["PointNet++"]):
+            raise AssertionError(f"{label}: a rank launched {ran}")
+    print(f"phase 11 {label}: PointNet++ eval forward of (1, {POINT_CLOUD}, 9), a quarter a "
+          f"rank: {counted} selections equal to the unsharded forward's, logits within "
+          f"{gap:.3g} (bound 2e-4); launches a rank {[placement_launches(r) for r in split]}, "
+          f"unsharded {placement_launches(one)}", flush=True)
+    return {"gap": gap, "selections": counted}
+
+
+def placement_check_store(one: dict, timing_one: dict, ranks: list, label: str,
+                          smi: str) -> dict:
+    """(c): every batch of the sharded synthetic store bit-equal to the
+    unsharded store's; each rank launched kernel 8 once a batch on its
+    shard; the timing table's ms a batch and each rank's resident bytes."""
+    batches = 0
+    for r in (x["store"] for x in ranks):
+        for got, want in zip(r["given"] + r["drawn"], one["given"] + one["drawn"]):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{label}: a sharded batch differs from the unsharded one")
+            batches += 1
+        if r["launches"]["gather_rows_flat"] != 4 or sum(r["launches"].values()) != 4:
+            raise AssertionError(f"{label}: a rank launched {r['launches']} for 4 batches")
+    t = [x["store timing"] for x in ranks]
+    for r in t:
+        if r["launches"]["gather_rows_flat"] != 20 or not r["finite"]:
+            raise AssertionError(f"{label}: timing table launches {r['launches']}")
+    print(f"phase 11 {label}: {batches} batches of the synthetic compact store (B = 8, N = "
+          f"4096) sharded over {PLACEMENT_RANKS} ranks, each bit-equal to the unsharded store's;"
+          f" kernel 8 launched once a batch a rank on its shard", flush=True)
+    print(f"phase 11 {label}: {smi}; the compact store of {S3DIS_ROWS} rows: ms a sampled batch "
+          f"(8 x 4096) unsharded {timing_one['ms']:.3f}, sharded a rank "
+          f"{[round(r['ms'], 3) for r in t]} (its all-reduce {[round(r['collective_ms'], 3) for r in t]}"
+          f" host ms); resident bytes unsharded {timing_one['nbytes']}, a rank "
+          f"{[r['nbytes'] for r in t]}; kernel 8 launches a rank in 20 batches "
+          f"{[r['launches']['gather_rows_flat'] for r in t]}", flush=True)
+    return {"one": timing_one, "ranks": t}
+
+
+def placement_phase(device, workdir: str, smi: str, batch) -> dict:
+    """Phase 11: (a)-(c) in one run of four ranks (one process a rank,
+    `parallel.spawn`), each against this process's one-process run of the
+    same job; (d) `dryrun_multichip(4)` through its own ranks."""
+    from pointseg_torch.multichip import dryrun_multichip
+    from pointseg_torch.parallel import Mesh, spawn
+
+    t0 = time.time()
+    side = tp_side()
+    jobs = placement_jobs(batch, synthetic_store_case(workdir))
+    one = {}
+    for name, (task, spec) in jobs.items():
+        one[name] = side.TASKS[task](Mesh(device=device), spec)
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    shared = cards < PLACEMENT_RANKS
+    label = "gloo, four ranks on one card" if shared else "NCCL, one rank a card"
+    t1 = time.time()
+    with visible_cards(str(device.index or 0) if shared else None):
+        ranks = spawn(side.suite, PLACEMENT_RANKS, (jobs,), device="cuda",
+                      timeout=PLACEMENT_TIMEOUT)
+    print(f"phase 11: the ranks' run ({label}) {time.time() - t1:.1f} s; collectives a rank "
+          f"{[r['collectives']['calls'] for r in ranks]}", flush=True)
+    out = {"label": label}
+    out["steps"] = placement_check_steps(one, ranks, f"(a) {label}")
+    out["points"] = placement_check_points(one["points"], ranks, f"(b) {label}")
+    out["store"] = placement_check_store(one["store"], one["store timing"], ranks,
+                                         f"(c) {label}", smi)
+    t1 = time.time()
+    with visible_cards(str(device.index or 0) if shared else None):
+        line = dryrun_multichip(PLACEMENT_RANKS, device="cuda", timeout=PLACEMENT_TIMEOUT)
+    if not line.startswith(f"dryrun_multichip({PLACEMENT_RANKS}): dp=2 x tp=2 train steps ok"):
+        raise AssertionError(f"(d): {line}")
+    print(f"phase 11 (d) {label}: {time.time() - t1:.1f} s", flush=True)
+    out["dryrun"] = line
+    print(f"phase 11: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--kernel-times"] and len(args) == 3:
@@ -4177,6 +4423,8 @@ def main() -> int:
         remaining_entry_points_phase(device, workdir)
         phase("10. data parallel")
         dp = data_parallel_phase(device, workdir, smi, batch)
+        phase("11. placements (M10)")
+        placements = placement_phase(device, workdir, smi, batch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4240,6 +4488,22 @@ def main() -> int:
     print(f"summary: {smi}; train PointNet++ --data-parallel on {r['world']} ranks "
           f"({r['backend']}): first-step loss {r['first']:.7f} / {r['want_first']:.7f} in one "
           f"process, epoch {r['epoch_s']:.1f} s, the ranks' run {r['seconds']:.1f} s")
+    for name, r in placements["steps"].items():
+        print(f"summary: {smi}; {name} 2 x 2 ({placements['label']}) against one process at "
+              f"B = 8: step ms {[round(x['step_ms'], 3) for x in r['ranks']]} / "
+              f"{r['one']['step_ms']:.3f}, device ms "
+              f"{[round(x['device_ms'], 3) for x in r['ranks']]} / {r['one']['device_ms']:.3f}, "
+              f"peak MiB {[round(x['peak_mib'], 1) for x in r['ranks']]} / "
+              f"{r['one']['peak_mib']:.1f}, collectives a step "
+              f"{r['ranks'][0]['collectives']:.0f} holding "
+              f"{[round(x['collective_ms'], 3) for x in r['ranks']]} host ms a rank; float64 "
+              f"{r['worst64']:.3g} from one process")
+    r = placements["store"]
+    print(f"summary: {smi}; compact store of {S3DIS_ROWS} rows, ms a sampled batch sharded "
+          f"over 4 ranks {[round(x['ms'], 3) for x in r['ranks']]} / unsharded "
+          f"{r['one']['ms']:.3f}; resident bytes a rank {r['ranks'][0]['nbytes']} / "
+          f"{r['one']['nbytes']}")
+    print(f"summary: {placements['dryrun']}")
     print(f"summary: whole script {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,6 +48,18 @@ final batches are filled with id -1 rows that come back with length 0
 Nothing on the per-step path reads a device value on the host: the step
 counter is a Python int, and masks are applied with `where`, never by
 boolean indexing.
+
+Row-sharded stores (`mesh=`, the JAX package's `sharding=NamedSharding(
+mesh, P("data"))`): each rank of the mesh's data axis holds rows
+[r T/n, (r+1) T/n) of the flat or packed tables, T divisible by n; the
+per-block tables (`offsets`, `counts`, `centers`) are whole on every
+rank. `sample()` gives every rank the whole batch, bit-equal to the
+unsharded store's: each rank gathers the rows it holds with the flat
+gather kernel on local indices, writes zeros in the others, and one int32
+all-reduce (float32 points as their bits) assembles the batch
+(`_assemble`); `parallel.shard_batch` then takes a rank's data rows.
+Every rank must draw the same epoch order and uniforms (generators
+seeded alike).
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ import torch
 
 from pointseg_torch.data.s3dis import BLOCK_SIZE, NUM_S3DIS_CLASSES
 from pointseg_torch.ops.gather import gather_rows_flat
+from pointseg_torch.parallel.mesh import Mesh, all_reduce_
 
 
 class NotPackableError(ValueError):
@@ -343,6 +356,31 @@ def _finish_batch(pts, lab, valid, npoints, num_classes):
     return pts, onehot, lengths
 
 
+class _Shard:
+    """A row-sharded table's place: this rank holds rows [start, start +
+    rows) of `total`, on the data axis of `mesh`."""
+
+    def __init__(self, mesh: Mesh, total: int):
+        if total % mesh.world_size:
+            raise ValueError(f"a table of {total} rows does not split over "
+                             f"{mesh.world_size} ranks")
+        self.mesh, self.total = mesh, total
+        self.rows = total // mesh.world_size
+        self.start = mesh.rank * self.rows
+
+    def local(self, flat: torch.Tensor):
+        """(local indices, held) of the global row indices `flat`: rows
+        this rank does not hold read its row 0."""
+        held = (flat >= self.start) & (flat < self.start + self.rows)
+        return torch.where(held, flat - self.start, 0), held
+
+
+def _assemble(words: torch.Tensor, held: torch.Tensor, shard: _Shard) -> torch.Tensor:
+    """The whole batch's int32 words from each rank's own rows (zeros
+    elsewhere): one all-reduce over the data axis."""
+    return all_reduce_(torch.where(held[:, None], words, 0), shard.mesh)
+
+
 def _sample_batch(
     points: torch.Tensor,    # (T, F) flat point table
     labels: torch.Tensor,    # (T,)  flat class ids
@@ -352,14 +390,24 @@ def _sample_batch(
     u: torch.Tensor,         # (B, npoints) uniforms in [0, 1)
     *,
     num_classes: int,
+    shard: _Shard | None = None,
 ):
     """One sampled batch from the flat layout: two flat-table gathers
-    (36-byte point rows, 1-byte labels)."""
+    (36-byte point rows, 1-byte labels); from a row-sharded table the same
+    two of this rank's rows and one all-reduce."""
     batch_size, npoints = u.shape
     rows, _, valid = _choose_rows(offsets, counts, ids, u)
     flat = rows.reshape(-1)
-    pts = gather_rows_flat(points, flat).reshape(batch_size, npoints, points.shape[-1])
-    lab = gather_rows_flat(labels, flat).reshape(batch_size, npoints)
+    if shard is not None:
+        flat, held = shard.local(flat)
+    pts = gather_rows_flat(points, flat)
+    lab = gather_rows_flat(labels, flat)
+    if shard is not None:
+        words = _assemble(torch.cat([pts.view(torch.int32), lab.to(torch.int32)[:, None]], 1),
+                          held, shard)
+        pts, lab = words[:, :-1].contiguous().view(torch.float32), words[:, -1].to(labels.dtype)
+    pts = pts.reshape(batch_size, npoints, points.shape[-1])
+    lab = lab.reshape(batch_size, npoints)
     return _finish_batch(pts, lab, valid, npoints, num_classes)
 
 
@@ -389,14 +437,22 @@ def _sample_batch_packed(
     u: torch.Tensor,
     *,
     num_classes: int,
+    shard: _Shard | None = None,
 ):
     """Sampled batch from the 16-byte/point packed table: one 16-byte-row
     gather fetches everything (against a 36-byte and a 1-byte one for the
     flat layout). Bit-identical to `_sample_batch` on the table it was
-    packed from (see `_unpack`)."""
+    packed from (see `_unpack`). From a row-sharded table: the gather of
+    this rank's rows and one all-reduce."""
     batch_size, npoints = u.shape
     rows, safe, valid = _choose_rows(offsets, counts, ids, u)
-    w = gather_rows_flat(packed, rows.reshape(-1)).reshape(batch_size, npoints, 4)
+    flat = rows.reshape(-1)
+    if shard is not None:
+        flat, held = shard.local(flat)
+    w = gather_rows_flat(packed, flat)
+    if shard is not None:
+        w = _assemble(w, held, shard)
+    w = w.reshape(batch_size, npoints, 4)
     pts, lab = _unpack(w, centers[safe][:, None, :])
     return _finish_batch(pts, lab, valid, npoints, num_classes)
 
@@ -421,7 +477,7 @@ def _load_raw_blocks(dataset, num_workers: int):
 
 
 def upload_flat(arr: np.ndarray | torch.Tensor, device: torch.device | str,
-                chunk_rows: int = 4_000_000) -> torch.Tensor:
+                chunk_rows: int = 4_000_000, *, mesh: Mesh | None = None) -> torch.Tensor:
     """Copies a large host array into one preallocated tensor on
     `device`, `chunk_rows` rows at a time.
 
@@ -433,8 +489,15 @@ def upload_flat(arr: np.ndarray | torch.Tensor, device: torch.device | str,
     table (which is read-only: `torch.from_numpy` on the whole of it
     would warn, and a full copy would defeat the mapping). uint32 arrays
     come back as int32 with the same bits. A tensor is moved as it is.
+    With `mesh`, only this rank's rows [r T/n, (r+1) T/n) of the data axis
+    are uploaded (T must divide by n).
     """
     device = torch.device(device)
+    if mesh is not None and mesh.world_size > 1:
+        shard = _Shard(mesh, arr.shape[0])
+        arr = arr[shard.start:shard.start + shard.rows]
+        if isinstance(arr, torch.Tensor):  # a copy: the whole table may be freed
+            return arr.to(device, copy=True)
     if isinstance(arr, torch.Tensor):
         return arr.to(device)
     if arr.dtype == np.uint32:
@@ -471,9 +534,11 @@ def _per_block(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 class _DeviceStoreBase:
     """Shared store machinery: subclasses set `_tables` (the positional
-    prefix of their `_sampler`), `counts`, `num_classes` and `device`."""
+    prefix of their `_sampler`), `counts`, `num_classes`, `device` and
+    `shard` (None, or the row-sharded table's place)."""
 
     _sampler: staticmethod
+    shard: _Shard | None = None
 
     @property
     def tables(self) -> tuple:
@@ -485,7 +550,11 @@ class _DeviceStoreBase:
 
     @property
     def nbytes(self) -> int:
+        """Bytes this rank holds resident (its shard of a sharded table)."""
         return sum(x.numel() * x.element_size() for x in self._tables)
+
+    def _set_shard(self, mesh: Mesh | None, total: int) -> None:
+        self.shard = _Shard(mesh, total) if mesh is not None and mesh.world_size > 1 else None
 
     def _set_blocks(self, counts, device: torch.device) -> None:
         counts = np.asarray(counts, np.int64)
@@ -499,7 +568,8 @@ class _DeviceStoreBase:
         """The deterministic core: the batch of block `ids` (B,) drawn
         with the uniforms `u` (B, npoints). Returns (points, onehot,
         lengths), all on the store's device."""
-        return type(self)._sampler(*self._tables, ids, u, num_classes=self.num_classes)
+        return type(self)._sampler(*self._tables, ids, u, num_classes=self.num_classes,
+                                   shard=self.shard)
 
     def sample(self, order: torch.Tensor, step: int, generator: torch.Generator,
                batch_size: int, npoints: int):
@@ -523,9 +593,18 @@ class _DeviceStoreBase:
 
     @classmethod
     def from_block_dataset(cls, dataset, num_classes: int = NUM_S3DIS_CLASSES,
-                           num_workers: int = 8, *, device: torch.device | str):
+                           num_workers: int = 8, *, device: torch.device | str | None = None,
+                           mesh: Mesh | None = None):
         pts, labs, counts = _load_raw_blocks(dataset, num_workers)
-        return cls(pts, labs, counts, num_classes, device=device)
+        return cls(pts, labs, counts, num_classes, device=device, mesh=mesh)
+
+
+def _store_device(device, mesh: Mesh | None) -> torch.device:
+    if device is None:
+        if mesh is None:
+            raise ValueError("a device store needs a device (or a mesh, whose device it takes)")
+        return mesh.device
+    return torch.device(device)
 
 
 class DeviceBlockStore(_DeviceStoreBase):
@@ -541,22 +620,26 @@ class DeviceBlockStore(_DeviceStoreBase):
         counts: np.ndarray | Sequence[int],
         num_classes: int = NUM_S3DIS_CLASSES,
         *,
-        device: torch.device | str,
+        device: torch.device | str | None = None,
+        mesh: Mesh | None = None,
     ):
         """Args:
         points: (T, F) all block points, concatenated.
         labels: (T,) integer class ids.
         counts: (M,) points per block; offsets are the exclusive cumsum.
         device: where the tables live (arrays are uploaded in chunks,
-            tensors moved as they are).
+            tensors moved as they are); default the mesh's device.
+        mesh: row-shards the two tables over its data axis (module
+            docstring); None keeps them whole.
         """
-        device = torch.device(device)
+        device = _store_device(device, mesh)
         if not isinstance(points, torch.Tensor):
             points = np.asarray(points, np.float32)
         if not isinstance(labels, torch.Tensor):
             labels = np.asarray(labels, np.uint8)
-        self.points = upload_flat(points, device)
-        self.labels = upload_flat(labels, device)
+        self._set_shard(mesh, points.shape[0])
+        self.points = upload_flat(points, device, mesh=mesh)
+        self.labels = upload_flat(labels, device, mesh=mesh)
         self._set_blocks(counts, device)
         self.num_classes = num_classes
         self._tables = (self.points, self.labels, self.offsets, self.counts)
@@ -578,24 +661,30 @@ class CompactDeviceStore(_DeviceStoreBase):
         counts: np.ndarray | Sequence[int],
         num_classes: int = NUM_S3DIS_CLASSES,
         *,
-        device: torch.device | str,
+        device: torch.device | str | None = None,
+        mesh: Mesh | None = None,
     ):
         counts = np.asarray(counts, np.int64)
         packed, centers = pack_block_table(points, labels, counts)
-        self._init_from_packed(packed, centers, counts, num_classes, torch.device(device))
+        self._init_from_packed(packed, centers, counts, num_classes,
+                               _store_device(device, mesh), mesh)
 
     @classmethod
     def from_packed(cls, packed, centers, counts,
-                    num_classes: int = NUM_S3DIS_CLASSES, *, device: torch.device | str):
+                    num_classes: int = NUM_S3DIS_CLASSES, *,
+                    device: torch.device | str | None = None, mesh: Mesh | None = None):
         """Wraps an ALREADY-packed table (a host array, memory-mapped or
         not, or a tensor) without re-verifying: for callers that packed
-        via `pack_block_table` themselves or read the pack cache."""
+        via `pack_block_table` themselves or read the pack cache. With
+        `mesh`, the table is row-sharded (module docstring)."""
         self = object.__new__(cls)
-        self._init_from_packed(packed, centers, counts, num_classes, torch.device(device))
+        self._init_from_packed(packed, centers, counts, num_classes,
+                               _store_device(device, mesh), mesh)
         return self
 
-    def _init_from_packed(self, packed, centers, counts, num_classes, device):
-        self.packed = upload_flat(packed, device)
+    def _init_from_packed(self, packed, centers, counts, num_classes, device, mesh=None):
+        self._set_shard(mesh, packed.shape[0])
+        self.packed = upload_flat(packed, device, mesh=mesh)
         if self.packed.dtype != torch.int32 or self.packed.shape[1:] != (4,):
             raise ValueError(f"packed table must be (T, 4) of 32-bit words, got "
                              f"{self.packed.dtype} {tuple(self.packed.shape)}")
@@ -612,16 +701,19 @@ def flat_tables_from_compact(store: CompactDeviceStore, chunk_rows: int = 8_000_
     was packed from (the exactness argument of `_unpack`). The device
     then holds both layouts of the same data with no second host upload:
     for comparing the two samplers on one table. `chunk_rows` bounds the
-    temporaries of the unpack."""
+    temporaries of the unpack. A row-sharded store gives this rank's rows
+    of the flat tables (the shard a `DeviceBlockStore` with the same mesh
+    holds)."""
     packed, centers, offsets, _ = store.tables
     total = packed.shape[0]
+    first = 0 if store.shard is None else store.shard.start
     # big buffer first: when memory is short, the OOM lands on it with
     # nothing else allocated
     pbuf = torch.empty((total, 9), dtype=torch.float32, device=packed.device)
     lbuf = torch.empty((total,), dtype=torch.uint8, device=packed.device)
     for start in range(0, total, chunk_rows):
         stop = min(start + chunk_rows, total)
-        idx = torch.arange(start, stop, device=packed.device)
+        idx = torch.arange(first + start, first + stop, device=packed.device)
         blk = torch.searchsorted(offsets, idx, right=True) - 1
         pbuf[start:stop], lbuf[start:stop] = _unpack(packed[start:stop], centers[blk])
     return pbuf, lbuf

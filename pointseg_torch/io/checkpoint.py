@@ -16,7 +16,13 @@ generator, with a warning.
 Data-parallel training (`parallel/mesh.py`) leaves the model unwrapped,
 so its checkpoints have the one-process keys: rank 0 writes them, every
 rank restores them on `--resume`, and a checkpoint of either kind of run
-resumes the other.
+resumes the other. A tensor-parallel state (`parallel/tensor_parallel.py`)
+is saved whole as well: the ranks of data rank 0 (every rank of its model
+line) call `save_checkpoint`, which gathers each shard's whole tensor and
+its optimizer moments over the model axis, and the line's first rank
+writes; restoring into a placed state cuts every rank's shards from the
+whole tensors. So a checkpoint of a tensor-parallel run restores in one
+process, and the reverse.
 
 The JAX package's checkpoints (`checkpoint_{step}.msgpack`, flax
 serialisation) are refused: the port reads its own checkpoints, and the
@@ -34,6 +40,8 @@ from typing import Any
 
 import torch
 
+from pointseg_torch.parallel import tensor_parallel as tp
+
 _CKPT_RE = re.compile(r"checkpoint_(\d+)\.pt$")
 _JAX_CKPT_RE = re.compile(r"checkpoint_(\d+)\.msgpack$")
 
@@ -48,16 +56,22 @@ def save_checkpoint(ckpt_dir: str, state, step: int | None = None,
     """Writes `checkpoint_{step}.pt` (and `config.json` when `config` is
     given) into `ckpt_dir`, prunes all but the newest `keep`, and returns
     the checkpoint's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     step = state.step if step is None else int(step)
+    placed = tp.is_placed(state.model)
+    path = os.path.join(ckpt_dir, f"checkpoint_{step}.pt")
+    model = tp.full_state_dict(state.model) if placed else state.model.state_dict()
+    optimizer = (tp.full_optimizer_state(state.optimizer, state.model) if placed
+                 else state.optimizer.state_dict())
+    if placed and state.mesh.axis_index(tp.MODEL_AXIS) != 0:
+        return path  # the model line's first rank writes
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": step,
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": model,
+        "optimizer": optimizer,
         "generator": None if state.generator is None else state.generator.get_state(),
         "generator_device": None if state.generator is None else state.generator.device.type,
     }
-    path = os.path.join(ckpt_dir, f"checkpoint_{step}.pt")
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -121,18 +135,22 @@ def restore_train_state(ckpt_dir_or_path: str, state):
         raise FileNotFoundError(f"No checkpoint found in {ckpt_dir_or_path}")
     restored = load_checkpoint(path)
 
-    want = state.model.state_dict()
+    want = tp.full_shapes(state.model)
     got = restored["model"]
     mismatches = [f"{k}: missing from the checkpoint" for k in want if k not in got]
     mismatches += [f"{k}: not in the model" for k in got if k not in want]
-    mismatches += [f"{k}: {tuple(got[k].shape)} vs model {tuple(w.shape)}"
-                   for k, w in want.items() if k in got and got[k].shape != w.shape]
+    mismatches += [f"{k}: {tuple(got[k].shape)} vs model {w}"
+                   for k, w in want.items() if k in got and tuple(got[k].shape) != w]
     if mismatches:
         raise ValueError(f"Checkpoint {path} does not match the model architecture:\n  "
                          + "\n  ".join(mismatches[:10]))
 
-    state.model.load_state_dict(got)
     state.optimizer.load_state_dict(restored["optimizer"])
+    if tp.is_placed(state.model):  # every rank its shards of the whole tensors
+        tp.load_full_state_dict(state.model, got)
+        tp.shard_optimizer_state_(state.optimizer, state.model)
+    else:
+        state.model.load_state_dict(got)
     state.step = int(restored["step"])
     if state.generator is not None and restored["generator"] is not None:
         if restored["generator_device"] == state.generator.device.type:

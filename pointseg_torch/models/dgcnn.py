@@ -30,6 +30,7 @@ from torch import nn
 
 from pointseg_torch import ops
 from pointseg_torch.nn import Dropout, EdgeConv, Linear, SharedMLP, cast, leaky_relu_02
+from pointseg_torch.parallel.points import gather, point_split, share
 
 
 def _conv(in_features: int, width: int, dtype: torch.dtype) -> SharedMLP:
@@ -72,8 +73,11 @@ class DGCNN(nn.Module):
         xyz = x[..., :3]
         idx = None
         if self.static_graph:
-            idx = ops.knn_indices(cast(xyz, self.dtype), self.k, mask=mask,
-                                  select=self.knn_select)
+            split = point_split()  # point-sharded: this rank's rows of the whole graph
+            on = cast(xyz, self.dtype) if split is None else gather(split, cast(xyz, self.dtype))[0]
+            idx = ops.knn_indices(on, self.k, mask=mask, select=self.knn_select)
+            if split is not None:
+                idx = share(idx, split)
         x1 = self.conv1(xyz, mask=mask, idx=idx)
         x2 = self.conv2(x1, mask=mask, idx=idx)
         x3 = self.conv3(x2, mask=mask, idx=idx)

@@ -28,6 +28,7 @@ from torch import nn
 
 from pointseg_torch import ops
 from pointseg_torch.nn import BatchNorm, Dropout, Linear, TNet
+from pointseg_torch.parallel.points import global_max, point_split
 
 
 class PointNetEncoder(nn.Module):
@@ -56,6 +57,9 @@ class PointNetEncoder(nn.Module):
         x = self.bn3(self.conv3(x))  # no ReLU before the pool, as the reference
         pooled = (torch.amax(x, dim=1) if mask is None
                   else ops.masked_reduce(x, mask, "max", dim=1))  # (B, 1024)
+        split = point_split()
+        if split is not None:  # point-sharded: the whole cloud's maximum
+            pooled = global_max(pooled, split)
         if self.global_feat:
             return pooled
         tiled = pooled[:, None, :].expand(-1, x.shape[1], -1)

@@ -13,6 +13,14 @@ Every block takes `dtype`, the compute dtype of `nn/mlp.py`. Under
 bfloat16 features flow in bfloat16 and coordinates stay float32: FPS,
 ball query and 3-NN see only coordinates, and relative coordinates are
 cast after the division by the radius, as in the JAX blocks.
+
+Inside `parallel.points.use_points(mesh)` (the point-sharded forward,
+eval mode) each block takes and returns this rank's rows of every cloud
+and gathers the whole level where it needs neighbours
+(`parallel/points.py` says which block does what). A layer split by
+tensor parallelism (`parallel/tensor_parallel.py`) computes with its
+shard inside `nn/mlp.py`'s Linear and BatchNorm; the GroupedFirstLayer's
+first layer, which distributes over the gather, does so here.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from pointseg_torch import ops
 from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu_02
+from pointseg_torch.parallel import points as pts
+from pointseg_torch.parallel import tensor_parallel as tp_ops
 from pointseg_torch.parallel.mesh import active, all_reduce_sum
 
 
@@ -63,17 +73,28 @@ class GroupedFirstLayer(SharedMLP):
     def forward(self, centroids, coords, features, mask=None):
         idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask,
                                 filler=self.filler, select=self.ball_select)
-        first, dtype = self.conv[0], self.dtype
+        first, dtype, plan = self.conv[0], self.dtype, self.conv[0].tp
         weight = cast(first.weight, dtype)
         w_rel, w_feat = weight[:, :3], weight[:, 3:]
-        # (B, N, h): per point, before the gather
-        hfeat = F.linear(cast(features, dtype), w_feat)
+        features = cast(features, dtype)
+        # (B, N, h): per point, before the gather; split over a model axis, the
+        # rank's output channels of both products ('column', gathered after the
+        # sum) or w_feat's partial product over the rank's input channels
+        if plan is not None and plan.mode == "column":
+            hfeat = F.linear(tp_ops.sum_grad(features, plan), w_feat)
+        elif plan is not None:
+            hfeat = tp_ops.reduce_sum(F.linear(tp_ops.take_share(features, plan), w_feat), plan)
+        else:
+            hfeat = F.linear(features, w_feat)
         gfeat, gcoords = ops.gather_rows_with_coords(hfeat, coords, idx)
         rel = gcoords - centroids[:, :, None, :]
         if self.normalize:
             rel = rel / self.radius
         rel = cast(rel, dtype)  # float32 up to here, as in the JAX block
-        x = F.relu(self.batch[0](gfeat + F.linear(rel, w_rel, cast(first.bias, dtype))))
+        x = gfeat + F.linear(rel, w_rel, cast(first.bias, dtype))
+        if plan is not None and plan.mode == "column":
+            x = tp_ops.gather(x, plan)
+        x = F.relu(self.batch[0](x))
         for conv, bn in zip(self.conv[1:], self.batch[1:]):
             x = F.relu(bn(conv(x)))
         return x
@@ -98,11 +119,26 @@ class SetAbstraction(torch.nn.Module):
                                            filler=filler, dtype=dtype)
 
     def forward(self, coords, features, mask=None, generator=None):
-        idx = ops.farthest_point_sampling(
-            coords, self.num_centroids, generator=generator, mask=mask)
-        centroids = ops.gather_rows(coords, idx)
+        centroids, coords, features, mask = _centroids(self.num_centroids, coords, features,
+                                                       mask, generator)
         regions = self.point_net(centroids, coords, features, mask=mask)
         return centroids, ops.reduce(regions, self.pooling, dim=2)
+
+
+def _centroids(num_centroids, coords, features, mask, generator):
+    """FPS and its centroids. Point-sharded (`parallel/points.py`): on
+    the whole level, gathered, the centroids this rank's share; returns
+    (centroids, coords, features, mask) with the level whole."""
+    split = pts.point_split()
+    if split is not None:
+        if mask is not None:
+            raise ValueError("the point-sharded forward takes no mask")
+        coords, features = pts.gather(split, coords, features)
+    idx = ops.farthest_point_sampling(coords, num_centroids, generator=generator, mask=mask)
+    centroids = ops.gather_rows(coords, idx)
+    if split is not None:
+        centroids = pts.share(centroids, split)
+    return centroids, coords, features, mask
 
 
 class SetAbstractionMSG(torch.nn.Module):
@@ -130,9 +166,8 @@ class SetAbstractionMSG(torch.nn.Module):
             for r, k, widths in zip(radii, Ks, mlps))
 
     def forward(self, coords, features, mask=None, generator=None):
-        idx = ops.farthest_point_sampling(
-            coords, self.num_centroids, generator=generator, mask=mask)
-        centroids = ops.gather_rows(coords, idx)
+        centroids, coords, features, mask = _centroids(self.num_centroids, coords, features,
+                                                       mask, generator)
         pooled = [ops.reduce(scale(centroids, coords, features, mask=mask), self.pooling, dim=2)
                   for scale in self.scales]
         return centroids, torch.cat(pooled, dim=-1)
@@ -151,6 +186,9 @@ class FeaturePropagation(torch.nn.Module):
         self.point_net = SharedMLP(in_features, mlps, dtype=dtype)
 
     def forward(self, coords_tgt, coords_src, skip, features):
+        split = pts.point_split()
+        if split is not None:  # this rank's targets against the whole sources
+            coords_src, features = pts.gather(split, coords_src, features)
         upsampled = ops.interpolate(features, coords_tgt, coords_src)
         if skip is not None:
             upsampled = torch.cat([skip, upsampled], dim=-1)
@@ -178,7 +216,11 @@ class InvResMLP(torch.nn.Module):
         self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size], dtype=dtype)
 
     def forward(self, coords, features, mask=None):
-        h = self.neighbour_features_mlp(coords, coords, features, mask=mask)  # (B, N, K, m)
+        table, table_features = coords, features
+        split = pts.point_split()
+        if split is not None:  # this rank's points against the whole level
+            table, table_features = pts.gather(split, coords, features)
+        h = self.neighbour_features_mlp(coords, table, table_features, mask=mask)  # (B, N, K, m)
         h = self.point_features_mlp(ops.reduce(h, self.pooling, dim=2))
         return coords, h + features
 
@@ -200,13 +242,10 @@ class BNStats(BatchNorm):
 
     def stats(self, batch_mean: torch.Tensor | None, batch_var: torch.Tensor | None):
         if not self.training or batch_mean is None:
-            return self.weight, self.bias, self.running_mean, self.running_var
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(batch_var, alpha=m)
-            self.num_batches_tracked.add_(1)
-        return self.weight, self.bias, batch_mean, batch_var
+            return self.whole(True)
+        self.fold(batch_mean, batch_var)
+        weight, bias, _, _ = self.whole(False)
+        return weight, bias, batch_mean, batch_var
 
 
 class EdgeConv(torch.nn.Module):
@@ -279,19 +318,30 @@ class EdgeConv(torch.nn.Module):
 
     def forward(self, x, knn_on=None, mask=None, idx=None):
         x = cast(x, self.dtype)
-        if idx is None:
-            idx = ops.knn_indices(x if knn_on is None else knn_on, self.k, mask=mask,
-                                  select=self.knn_select)
-        p = self.w_edge(x)  # (B, N, out)
+        split = pts.point_split()
+        if split is not None:  # this rank's rows' neighbours in the whole table
+            if mask is not None:
+                raise ValueError("the point-sharded forward takes no mask")
+            table = pts.gather(split, x)[0]
+            if idx is None:
+                on = table if knn_on is None else pts.gather(split, knn_on)[0]
+                idx = pts.share(ops.knn_indices(on, self.k, select=self.knn_select), split)
+            p_table = self.w_edge(table)
+            p = pts.share(p_table, split)
+        else:
+            if idx is None:
+                idx = ops.knn_indices(x if knn_on is None else knn_on, self.k, mask=mask,
+                                      select=self.knn_select)
+            p_table = p = self.w_edge(x)  # (B, N, out)
         d = self.w_center(x) - p
         if not self.fused:
-            edges = ops.gather_neighbors(p, idx) + d[:, :, None, :]
+            edges = ops.gather_neighbors(p_table, idx) + d[:, :, None, :]
             return leaky_relu_02(self.bn(edges)).amax(dim=2)
 
         if self.remat:
-            reduced = checkpoint(self._gather_reduce, p, idx, use_reentrant=False)
+            reduced = checkpoint(self._gather_reduce, p_table, idx, use_reentrant=False)
         else:
-            reduced = self._gather_reduce(p, idx)
+            reduced = self._gather_reduce(p_table, idx)
         g_max, g_min = reduced[0], reduced[1]
         mean = var = None
         if self.bn.training:  # batch statistics follow the BatchNorm's mode
@@ -348,6 +398,9 @@ class TNet(torch.nn.Module):
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
         x = torch.amax(x, dim=1) if mask is None else ops.masked_reduce(x, mask, "max", dim=1)
+        split = pts.point_split()
+        if split is not None:  # the whole cloud's maximum
+            x = pts.global_max(x, split)
         x = F.relu(self.bn4(self.fc1(x)))
         x = F.relu(self.bn5(self.fc2(x)))
         eye = torch.eye(self.k, dtype=x.dtype, device=x.device).reshape(1, self.k * self.k)

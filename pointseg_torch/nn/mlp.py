@@ -11,6 +11,12 @@ bias, to bfloat16 (flax `Dense`'s `promote_dtype`); BatchNorm takes its
 statistics and normalises in float32 and returns bfloat16 (flax's
 `BatchNorm(dtype=bfloat16)`). `torch.float32`, the default, casts
 nothing, so a model moved to float64 with `.double()` computes in float64.
+
+Tensor parallelism: a `Linear` or `BatchNorm` that
+`parallel/tensor_parallel.py::shard_state_tp` split holds its shard and a
+plan (`tp`); it computes with the shard by the Megatron pairing and
+returns whole activations (that module's docstring). `tp` is None
+otherwise, and nothing changes.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointseg_torch.parallel import tensor_parallel as tp_ops
 from pointseg_torch.parallel.mesh import active, all_reduce_
 
 
@@ -33,7 +40,14 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class Linear(nn.Linear):
     """`nn.Linear` that computes in `dtype`: input, weight and bias are
     cast to it, as flax's `Dense(dtype=...)` casts them; the parameters,
-    and so their gradients, stay float32. Same state_dict keys."""
+    and so their gradients, stay float32. Same state_dict keys.
+
+    Column-parallel (`tp.mode == 'column'`): the rank's output channels
+    from the whole input, all-gathered over the model axis. Row-parallel
+    ('row'): the rank's input channels' partial product, summed over the
+    axis, then the (whole) bias. The shard is cast as the whole weight is."""
+
+    tp = None  # the tensor-parallel plan (`parallel/tensor_parallel.py`), or None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -42,7 +56,14 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else cast(self.bias, self.dtype)
-        return F.linear(cast(x, self.dtype), cast(self.weight, self.dtype), bias)
+        weight, x = cast(self.weight, self.dtype), cast(x, self.dtype)
+        plan = self.tp
+        if plan is None:
+            return F.linear(x, weight, bias)
+        if plan.mode == "column":
+            return tp_ops.gather(F.linear(tp_ops.sum_grad(x, plan), weight, bias), plan)
+        y = tp_ops.reduce_sum(F.linear(tp_ops.take_share(x, plan), weight), plan)
+        return y if bias is None else y + bias
 
 
 class _TrainNorm(torch.autograd.Function):
@@ -125,27 +146,53 @@ class BatchNorm(nn.BatchNorm1d):
 
     The state_dict keys are `nn.BatchNorm1d`'s (weight, bias,
     running_mean, running_var, num_batches_tracked).
+
+    Split over a model axis (`tp`), the four vectors are all-gathered
+    before use (one collective; the backward keeps the rank's slice of
+    the gradient) and a running-statistics update writes the rank's slice.
     """
+
+    tp = None  # the tensor-parallel plan (`parallel/tensor_parallel.py`), or None
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.dtype = dtype
 
+    def whole(self, running: bool):
+        """(weight, bias, running_mean, running_var) as whole vectors: the
+        module's own, or gathered over the model axis where they are split
+        (the running statistics only with `running`, else None)."""
+        if self.tp is None:
+            return self.weight, self.bias, self.running_mean, self.running_var
+        parts = [self.weight, self.bias]
+        if running:
+            parts += [self.running_mean, self.running_var]
+        out = tp_ops.gather(torch.stack(parts), self.tp).unbind(0)
+        return (out[0], out[1], out[2].detach(), out[3].detach()) if running else (
+            out[0], out[1], None, None)
+
+    @torch.no_grad()
+    def fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Folds a batch's (whole) statistics into the running ones."""
+        if self.tp is not None:
+            n = self.running_mean.shape[0]
+            mean, var = (t.narrow(0, self.tp.index * n, n) for t in (mean, var))
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.reshape(-1, x.shape[-1])
         acc = torch.promote_types(x.dtype, torch.float32)
         out_dtype = acc if self.dtype == torch.float32 else self.dtype
+        weight, bias, running_mean, running_var = self.whole(not self.training)
         if self.training:
-            y, mean, var = _TrainNorm.apply(rows, self.weight, self.bias, self.eps, out_dtype,
-                                            active())
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+            y, mean, var = _TrainNorm.apply(rows, weight, bias, self.eps, out_dtype, active())
+            self.fold(mean, var)
         else:
-            y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
-                             self.bias, training=False, eps=self.eps).to(out_dtype)
+            y = F.batch_norm(rows, running_mean, running_var, weight, bias, training=False,
+                             eps=self.eps).to(out_dtype)
         return y.reshape(x.shape)
 
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from pointseg_torch.parallel.mesh import Mesh, global_totals, reduce_gradients, use
+from pointseg_torch.parallel.tensor_parallel import global_sq_norm
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
 
@@ -91,19 +92,25 @@ class ScheduledAdam(torch.optim.Adam):
         for group in self.param_groups:
             group["lr"] = rate
         if self.grad_clip:
-            grads = [p.grad for group in self.param_groups for p in group["params"]
-                     if p.grad is not None]
-            clip_by_global_norm_(grads, self.grad_clip)
+            params = [p for group in self.param_groups for p in group["params"]
+                      if p.grad is not None]
+            clip_by_global_norm_([p.grad for p in params], self.grad_clip, params)
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         params: list[torch.Tensor] | None = None) -> None:
     """`optax.clip_by_global_norm` in place: every tensor kept where the
     global norm sqrt(sum |g|^2) is below `max_norm`, else g / norm *
     max_norm. (`torch.nn.utils.clip_grad_norm_` multiplies by max_norm /
-    (norm + 1e-6) and clips at equality, so it rounds otherwise.)"""
+    (norm + 1e-6) and clips at equality, so it rounds otherwise.) With
+    the gradients' `params`, the norm is over whole tensors where some are
+    tensor-parallel shards (`parallel/tensor_parallel.py::global_sq_norm`)."""
     if not grads:
         return
-    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    if params is not None and any(getattr(p, "tp_plan", None) is not None for p in params):
+        norm = global_sq_norm(grads, params).sqrt()
+    else:
+        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -1089,3 +1089,39 @@ def test_model_on_the_card_matches_the_cpu(device, name, kwargs):
         want = model(x)
         got = model.to(device)(x.to(device)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["flat", "compact"])
+def test_row_sharded_store_gathers_its_shard_with_kernel_8(device, layout):
+    """Two ranks sharing the card (gloo), each holding half of the table:
+    every sampled batch is the unsharded store's bit for bit, and each rank
+    launches kernel 8 on its own shard, twice a batch for the flat layout
+    and once for the compact one."""
+    import torch_tp_ranks
+
+    from pointseg_torch.data.device import CompactDeviceStore, DeviceBlockStore
+    from pointseg_torch.parallel import Mesh, spawn
+
+    rng = np.random.default_rng(3)
+    counts = rng.integers(80, 300, size=8)
+    counts[-1] += (-int(counts.sum())) % 2
+    raw = np.empty((int(counts.sum()), 6), np.float32)
+    raw[:, :3] = rng.uniform(0, 30, size=(raw.shape[0], 3))
+    raw[:, 3:] = rng.integers(0, 256, size=(raw.shape[0], 3))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    from pointseg_torch.data.blocks import augment_points
+
+    pts = np.concatenate([augment_points(raw[s:s + n]) for s, n in zip(starts, counts)])
+    labs = rng.integers(0, 14, size=pts.shape[0]).astype(np.uint8)
+    draws = [(np.array([3, 0, 7, -1]), rng.random((4, 64), dtype=np.float32))]
+    spec = dict(layout=layout, points=pts, labels=labs, counts=counts, num_classes=14,
+                draws=draws, seed=4, batch_size=4, npoints=64, steps=2)
+    want = torch_tp_ranks.store_run(Mesh(device=device), spec)
+    per_batch = 2 if layout == "flat" else 1
+    assert want["launches"]["gather_rows_flat"] == 3 * per_batch
+    for r in spawn(torch_tp_ranks.store_run, 2, (spec,), device="cuda", timeout=300):
+        for got, ref in zip(r["given"] + r["drawn"], want["given"] + want["drawn"]):
+            assert all(torch.equal(g, w) for g, w in zip(got, ref))
+        assert r["launches"]["gather_rows_flat"] == 3 * per_batch
+    cls = DeviceBlockStore if layout == "flat" else CompactDeviceStore
+    assert cls(pts, labs, counts, 14, device=device).nbytes > r["nbytes"]

@@ -1,7 +1,8 @@
 """Structural rules of the PyTorch port.
 
-- `pointseg_torch`, `chip_smoke.py` and the rank-side module that it
-  imports (`tests/torch_parallel_ranks.py`) import no JAX, flax or optax,
+- `pointseg_torch`, `chip_smoke.py` and the rank-side modules that it
+  imports (`tests/torch_parallel_ranks.py`, `tests/torch_tp_ranks.py`)
+  import no JAX, flax or optax,
   and nothing of `pointseg`, not even a module there that imports no JAX:
   the port keeps its own copy of the numpy data layer. Checked on the
   source (AST), not on `sys.modules`, where JAX may already sit.
@@ -30,7 +31,8 @@ torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "pointseg_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py",
+    REPO / "tests" / "torch_tp_ranks.py"]
 ALLOWED_POINTSEG = set()  # nothing of the JAX package
 BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax"}
 
@@ -308,6 +310,7 @@ def test_device_store_gathers_its_point_tables_through_gather_rows_flat():
     assert flat.count("gather_rows_flat(") == 2 and packed.count("gather_rows_flat(") == 1
     for text in (flat, packed, inspect.getsource(dev._choose_rows),
                  inspect.getsource(dev._finish_batch), inspect.getsource(dev._unpack),
+                 inspect.getsource(dev._Shard.local), inspect.getsource(dev._assemble),
                  inspect.getsource(dev._DeviceStoreBase.sample),
                  inspect.getsource(dev.DeviceEpochLoader.__iter__),
                  inspect.getsource(dev.DeviceEpochLoader.scan_epoch)):
@@ -442,3 +445,27 @@ def test_flat_ball_query_and_three_nn_kernels_vote_once_a_chunk_and_round_every_
     bq = (_kernels.CSRC / "ballquery.cu").read_text()
     assert "write_sparse(" in bq and "rank += before(" in bq
     assert "__reduce_min_sync" in (_kernels.CSRC / "threenn.cu").read_text()
+
+
+# what `torch.distributed` may be asked for: the two collectives that gloo has
+# for CUDA tensors, and setting the groups up
+DIST_CALLS = {"all_reduce", "broadcast", "init_process_group", "new_group",
+              "destroy_process_group", "is_available", "is_initialized", "get_rank",
+              "get_world_size", "get_backend", "FileStore"}
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "pointseg_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_collectives_are_all_reduce_and_broadcast_only(path):
+    """Every collective of the port (data, tensor and point parallelism,
+    the sharded store) is a sum `all_reduce` or a `broadcast`, so one path
+    serves gloo, which has no other for CUDA tensors, and NCCL; nothing
+    builds on `DTensor`, whose sharding rules know none of the port's
+    operators."""
+    text = path.read_text()
+    used = set(re.findall(r"\btorch\.distributed\.(\w+)", text))
+    if "import torch.distributed as dist" in text:
+        used |= set(re.findall(r"\bdist\.(\w+)", text))
+    assert used <= DIST_CALLS, (path.name, used - DIST_CALLS)
+    assert "DTensor" not in text and "torch.distributed.tensor" not in text
+    assert not re.search(r"ReduceOp\.(MAX|MIN|PRODUCT|AVG)", text)
