@@ -136,9 +136,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="'cuda' (default; the kernels' path) or 'cpu' "
                         "(plain PyTorch versions, for small runs and tests).")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="Trace the whole training run with torch.profiler (host, and the "
-                        "card's kernels on --device cuda) into DIR/trace.json, a Chrome "
-                        "trace.")
+                   help="Trace the whole training run with torch.profiler (every host "
+                        "thread, the program's spans pointseg_torch.*, and the card's "
+                        "kernels on --device cuda) into DIR/trace.json, a Chrome trace.")
     p.add_argument("--save-confusion", action="store_true",
                    help="Draw each epoch's evaluation confusion matrix into "
                         "<log dir>/confusion/confusion_epoch_{n}.png (needs matplotlib; "
@@ -349,7 +349,10 @@ def _train(args: argparse.Namespace, device: torch.device, mesh):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
+        # every thread: the host loader's reader threads open spans too
+        profiler = torch.profiler.profile(
+            activities=activities,
+            experimental_config=torch.profiler._ExperimentalConfig(profile_all_threads=True))
     try:
         with profiler:
             state, records = train_model(

@@ -17,6 +17,8 @@ chunked_datasets.py, datasets.py) without torch:
   stand-in for torch DataLoader worker processes (the reference's only
   parallelism, SURVEY.md §2). Short partial batches are padded with
   zero-length samples (masked out of loss/metrics by construction).
+  Under a profiler its wait, block reads and collates are spans
+  (`pointseg_torch/utils/trace.py`).
 - `ChunkedRoomDataset` — whole-room samples from chunk archives with
   the precomputed-index / on-the-fly-index behaviors of
   chunked_datasets.py:35-163; returns dicts {'x', 'y', 'area',
@@ -43,6 +45,7 @@ from pointseg_torch.data.prepare import (
     room_archive_len,
 )
 from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, POINT_FEATURE_DIM
+from pointseg_torch.utils.trace import span
 
 _BLOCK_RE = re.compile(r"room(\d+)_block(\d+)\.(npz|pt)$")
 
@@ -234,21 +237,26 @@ class Loader:
             out.append(idx)
         return out
 
+    def _read(self, i: int):
+        with span("pointseg_torch.data.loader_read"):
+            return self.dataset[i]
+
     def _collate(self, samples):
-        return collate_blocks(
-            samples,
-            pad_to=self.pad_to,
-            buckets=self.buckets,
-            num_classes=self.num_classes,
-            batch_size=self.batch_size,
-            pad_mode=self.pad_mode,
-        )
+        with span("pointseg_torch.data.loader_collate"):
+            return collate_blocks(
+                samples,
+                pad_to=self.pad_to,
+                buckets=self.buckets,
+                num_classes=self.num_classes,
+                batch_size=self.batch_size,
+                pad_mode=self.pad_mode,
+            )
 
     def _batches(self) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         batches = self._batch_indices()
         if self.num_workers <= 1:
             for idx in batches:
-                yield self._collate([self.dataset[int(i)] for i in idx])
+                yield self._collate([self._read(int(i)) for i in idx])
             return
         # Parallel block reads: per-sample futures submitted for a
         # sliding window of upcoming batches, so np.load + inflate of
@@ -267,7 +275,7 @@ class Loader:
                 idx = next(it, None)
                 if idx is not None:
                     window.append(
-                        [ex.submit(self.dataset.__getitem__, int(i)) for i in idx]
+                        [ex.submit(self._read, int(i)) for i in idx]
                     )
 
             for _ in range(ahead):
@@ -329,7 +337,8 @@ class Loader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("pointseg_torch.data.loader_next"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 yield item

@@ -81,6 +81,7 @@ import torch
 from pointseg_torch.data.s3dis import BLOCK_SIZE, NUM_S3DIS_CLASSES
 from pointseg_torch.ops.gather import gather_rows_flat
 from pointseg_torch.parallel.mesh import Mesh, all_reduce_
+from pointseg_torch.utils.trace import span
 
 
 class NotPackableError(ValueError):
@@ -576,9 +577,10 @@ class _DeviceStoreBase:
         """Batch number `step` of the epoch `order`, its uniforms drawn
         from `generator` (on the store's device). `step` is a Python int:
         slicing by it reads nothing back from the device."""
-        ids = order[step * batch_size:(step + 1) * batch_size]
-        u = torch.rand((batch_size, npoints), generator=generator, device=self.device)
-        return self.sample_from(ids, u)
+        with span("pointseg_torch.data.sample"):
+            ids = order[step * batch_size:(step + 1) * batch_size]
+            u = torch.rand((batch_size, npoints), generator=generator, device=self.device)
+            return self.sample_from(ids, u)
 
     def epoch_order(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         """Random block permutation for one epoch, padded with -1 fill
@@ -1016,11 +1018,12 @@ class DeviceEpochLoader:
         from (seed, epoch) alone and first draws the permutation, then
         one (B, npoints) block of uniforms per step, so every way of
         walking the epoch sees the same batches."""
-        mixed = np.random.SeedSequence([self.seed, self._epoch]).generate_state(1, np.uint64)
-        self._epoch += 1
-        generator = torch.Generator(device=self.store.device)
-        generator.manual_seed(int(mixed[0]))
-        return self.store.epoch_order(generator, self.batch_size), generator
+        with span("pointseg_torch.data.epoch_start"):
+            mixed = np.random.SeedSequence([self.seed, self._epoch]).generate_state(1, np.uint64)
+            self._epoch += 1
+            generator = torch.Generator(device=self.store.device)
+            generator.manual_seed(int(mixed[0]))
+            return self.store.epoch_order(generator, self.batch_size), generator
 
     def __iter__(self):
         order, generator = self._epoch_start()

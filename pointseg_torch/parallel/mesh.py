@@ -54,6 +54,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pointseg_torch.utils.trace import span
+
 # a collective that waits longer than this fails the run
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=30)
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
@@ -386,7 +388,8 @@ COLLECTIVES = {"calls": 0, "host_s": 0.0}
 def _all_reduce(t: torch.Tensor, group, size: int) -> torch.Tensor:
     if size > 1:
         t0 = time.perf_counter()
-        dist.all_reduce(t, group=group)
+        with span("pointseg_torch.collective.all_reduce"):
+            dist.all_reduce(t, group=group)
         COLLECTIVES["calls"] += 1
         COLLECTIVES["host_s"] += time.perf_counter() - t0
     return t
@@ -408,7 +411,8 @@ def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     place; returns it."""
     if mesh.world_size > 1:
         t0 = time.perf_counter()
-        dist.broadcast(t, src=mesh.axis("data").members[src], group=mesh.group)
+        with span("pointseg_torch.collective.broadcast"):
+            dist.broadcast(t, src=mesh.axis("data").members[src], group=mesh.group)
         COLLECTIVES["calls"] += 1
         COLLECTIVES["host_s"] += time.perf_counter() - t0
     return t
@@ -503,7 +507,9 @@ class ShardedLoader:
 
     def __iter__(self):
         for batch in self._loader:
-            yield shard_batch(self.mesh, batch)
+            with span("pointseg_torch.data.shard"):
+                batch = shard_batch(self.mesh, batch)
+            yield batch
 
 
 def _broadcast_generator_state(state: torch.Tensor, mesh: Mesh) -> torch.Tensor:

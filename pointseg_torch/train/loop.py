@@ -25,6 +25,7 @@ from pointseg_torch.parallel.mesh import barrier
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.logging import MetricsLogger
 from pointseg_torch.train.state import TrainState, eval_step, train_step, train_step_accum
+from pointseg_torch.utils.trace import span
 
 
 def to_device(batch, device: torch.device) -> tuple[torch.Tensor, ...]:
@@ -36,9 +37,10 @@ def to_device(batch, device: torch.device) -> tuple[torch.Tensor, ...]:
 
 
 def _log_train_metrics(logger: MetricsLogger, loss, accuracy, miou, step: int) -> None:
-    logger.add_scalar("Train/Loss", float(loss), step)
-    logger.add_scalar("Train/Accuracy", 100.0 * float(accuracy), step)
-    logger.add_scalar("Train/Mean_IoU", 100.0 * float(miou), step)
+    with span("pointseg_torch.loop.log_read"):
+        logger.add_scalar("Train/Loss", float(loss), step)
+        logger.add_scalar("Train/Accuracy", 100.0 * float(accuracy), step)
+        logger.add_scalar("Train/Mean_IoU", 100.0 * float(miou), step)
 
 
 def train_epoch(
@@ -84,23 +86,28 @@ def train_epoch(
     if scan_steps > 1 and isinstance(train_loader, DeviceEpochLoader):
         state, ms = train_loader.scan_epoch(state, scan_steps)
         n = int(ms["loss"].shape[0]) if ms else 0
-        if logger is not None and n:
-            # one fetch for the whole epoch's stacked metrics
-            loss_h, acc_h, miou_h = (ms[k].cpu().numpy() for k in ("loss", "accuracy", "miou"))
-            for i in range(0, n, log_interval):
-                _log_train_metrics(logger, loss_h[i], acc_h[i], miou_h[i], global_step + i)
-        total_loss = float(ms["loss"].mean()) if n else 0.0
+        with span("pointseg_torch.loop.epoch_close"):
+            if logger is not None and n:
+                # one fetch for the whole epoch's stacked metrics
+                loss_h, acc_h, miou_h = (ms[k].cpu().numpy()
+                                         for k in ("loss", "accuracy", "miou"))
+                for i in range(0, n, log_interval):
+                    _log_train_metrics(logger, loss_h[i], acc_h[i], miou_h[i], global_step + i)
+            total_loss = float(ms["loss"].mean()) if n else 0.0
         return state, total_loss, global_step + n
 
     losses = []
     for batch_index, batch in enumerate(train_loader):
-        metrics = train_step(state, *to_device(batch, state.device))
+        with span("pointseg_torch.loop.to_device"):
+            batch = to_device(batch, state.device)
+        metrics = train_step(state, *batch)
         if logger is not None and batch_index % log_interval == 0:
             _log_train_metrics(logger, metrics["loss"], metrics["accuracy"], metrics["miou"],
                                global_step)
         losses.append(metrics["loss"])
         global_step += 1
-    total_loss = float(torch.stack(losses).mean()) if losses else 0.0
+    with span("pointseg_torch.loop.epoch_close"):
+        total_loss = float(torch.stack(losses).mean()) if losses else 0.0
     return state, total_loss, global_step
 
 
@@ -123,8 +130,9 @@ def _train_epoch_accum(
 
     def flush():
         nonlocal global_step
-        stacked = (np.stack(parts) for parts in zip(*group))
-        metrics = train_step_accum(state, *to_device(stacked, state.device))
+        with span("pointseg_torch.loop.to_device"):
+            stacked = to_device((np.stack(parts) for parts in zip(*group)), state.device)
+        metrics = train_step_accum(state, *stacked)
         if logger is not None and global_step % log_interval == 0:
             _log_train_metrics(logger, metrics["loss"], metrics["accuracy"], metrics["miou"],
                                global_step)
@@ -138,7 +146,8 @@ def _train_epoch_accum(
             flush()
     if group:
         flush()
-    total_loss = float(torch.stack(losses).mean()) if losses else 0.0
+    with span("pointseg_torch.loop.epoch_close"):
+        total_loss = float(torch.stack(losses).mean()) if losses else 0.0
     return state, total_loss, global_step
 
 

@@ -18,6 +18,10 @@ ones untouched.
 
 Dropout draws from torch's default generator (seed it with
 `torch.manual_seed`); FPS draws from `TrainState.generator`.
+
+Under a profiler a train step is the span `pointseg_torch.step#<n>`
+(`n` = `TrainState.step` before the update) holding its forward,
+backward, update and metrics spans (`pointseg_torch/utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from pointseg_torch.parallel.mesh import Mesh, global_totals, reduce_gradients, 
 from pointseg_torch.parallel.tensor_parallel import global_sq_norm
 from pointseg_torch.train import metrics as M
 from pointseg_torch.train.loss import masked_onehot_cross_entropy
+from pointseg_torch.utils.trace import span
 
 
 class ScheduledAdam(torch.optim.Adam):
@@ -189,15 +194,19 @@ def train_step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
     global batch; the step computes what one process computes on the
     global batch (`parallel/mesh.py`): the gradients are summed over the
     ranks before the update and the metrics are the global batch's."""
-    with use(state.mesh):
+    with use(state.mesh), span("pointseg_torch.step", state.step):
         state.model.train()
-        logits = state.model(points, generator=state.generator)
-        loss = masked_onehot_cross_entropy(logits, labels, lengths)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        reduce_gradients(state.model, state.mesh)
-        _apply_update(state)
-        loss, accuracy, miou = _batch_metrics(loss, logits, labels, lengths, state.mesh)
+        with span("pointseg_torch.step.forward"):
+            logits = state.model(points, generator=state.generator)
+            loss = masked_onehot_cross_entropy(logits, labels, lengths)
+        with span("pointseg_torch.step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("pointseg_torch.step.update"):
+            reduce_gradients(state.model, state.mesh)
+            _apply_update(state)
+        with span("pointseg_torch.step.metrics"):
+            loss, accuracy, miou = _batch_metrics(loss, logits, labels, lengths, state.mesh)
     return {"loss": loss, "accuracy": accuracy, "miou": miou}
 
 
@@ -231,18 +240,22 @@ def train_step_accum(state: TrainState, points: torch.Tensor, labels: torch.Tens
     """
     k = points.shape[0]
     sums = None
-    with use(state.mesh):
+    with use(state.mesh), span("pointseg_torch.step", state.step):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         for i in range(k):
-            logits = state.model(points[i], generator=state.generator)
-            loss = masked_onehot_cross_entropy(logits, labels[i], lengths[i])
-            (loss / k).backward()
-            micro = torch.stack(_batch_metrics(loss, logits, labels[i], lengths[i],
-                                               state.mesh))
-            sums = micro if sums is None else sums + micro
-        reduce_gradients(state.model, state.mesh)
-        _apply_update(state)  # the clip, if any, sees the mean gradient
+            with span("pointseg_torch.step.forward"):
+                logits = state.model(points[i], generator=state.generator)
+                loss = masked_onehot_cross_entropy(logits, labels[i], lengths[i])
+            with span("pointseg_torch.step.backward"):
+                (loss / k).backward()
+            with span("pointseg_torch.step.metrics"):
+                micro = torch.stack(_batch_metrics(loss, logits, labels[i], lengths[i],
+                                                   state.mesh))
+                sums = micro if sums is None else sums + micro
+        with span("pointseg_torch.step.update"):
+            reduce_gradients(state.model, state.mesh)
+            _apply_update(state)  # the clip, if any, sees the mean gradient
     loss, accuracy, miou = (sums / k).unbind(0)
     return {"loss": loss, "accuracy": accuracy, "miou": miou}
 

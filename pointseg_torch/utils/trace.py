@@ -1,0 +1,50 @@
+"""Named spans of the program in `torch.profiler`'s trace.
+
+`span(name)` is `torch.profiler.record_function(name)` while a profiler
+records, and one shared null context otherwise: the profiler is the
+switch (`train --profile`, or any `torch.profiler.profile` around the
+program), and with none running a span costs a flag read. A recorded
+span is a host range (`user_annotation` in the Chrome trace) on the
+thread that opened it, stamped on the clock of the device events; the
+profiler keeps it in memory until its trace is exported.
+
+The gate is the profiler's process-wide flag, which every thread sees,
+and not `torch.autograd._profiler_enabled()`, which reads this thread's
+profiler state: a loader's reader threads have none, and a profiler
+that records every thread (`profile_all_threads`) sets none on any.
+The module imports no torch, so that the numpy data layer can open
+spans: where torch is not loaded, no profiler records.
+
+The names, each opened on the thread that does the work:
+
+- `pointseg_torch.step#<n>` (`n`: `TrainState.step` before the update)
+  around a train step, with `.step.forward` (the model and the loss),
+  `.step.backward` (`backward`, and `train_step`'s `zero_grad`; autograd
+  launches the backward kernels from its own thread while this one waits),
+  `.step.update` (the gradients' reduction over ranks, the rate, the
+  clip, Adam) and `.step.metrics` (the batch's loss, accuracy, mIoU);
+- `.loop.to_device`, `.loop.epoch_close` (the epoch's host read of its
+  mean loss), `.loop.log_read` (the logger's host reads);
+- `.data.epoch_start` (the device store's seeding and permutation),
+  `.data.sample` (one batch drawn from the store), `.data.loader_next`
+  (the consumer's wait on the host loader), `.data.loader_read` and
+  `.data.loader_collate` (a reader thread's block read and collate),
+  `.data.shard` (a rank's rows of a global batch);
+- `.collective.all_reduce`, `.collective.broadcast`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+NULL = contextlib.nullcontext()
+
+
+def span(name: str, index: int | None = None):
+    """A profiler range named `name` (`name#index` with an index, the
+    string built only while recording), or `NULL` with no profiler."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return NULL
+    return profiler.record_function(name if index is None else f"{name}#{index}")

@@ -164,3 +164,14 @@ def test_train_profile_writes_a_chrome_trace(tmp_path, capsys, monkeypatch):
     names = {event.get("name", "") for event in trace["traceEvents"]}
     assert any(name.startswith("aten::addmm") for name in names)
     assert "aten::amax" in names and "Optimizer.step#ScheduledAdam.step" in names
+    # the program's spans, the host loader's from its reader thread
+    spans = {(e["name"], e["tid"]) for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation" and e["name"].startswith("pointseg_torch.")}
+    assert {name for name, _ in spans} >= {
+        "pointseg_torch.step#0", "pointseg_torch.step.forward", "pointseg_torch.step.backward",
+        "pointseg_torch.step.update", "pointseg_torch.step.metrics",
+        "pointseg_torch.loop.to_device", "pointseg_torch.loop.epoch_close",
+        "pointseg_torch.loop.log_read", "pointseg_torch.data.loader_next",
+        "pointseg_torch.data.loader_read", "pointseg_torch.data.loader_collate"}
+    main = {tid for name, tid in spans if name == "pointseg_torch.step#0"}
+    assert {tid for name, tid in spans if name == "pointseg_torch.data.loader_read"} - main
