@@ -103,7 +103,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward bit-equal to `torch.gather`; backward (`index_add_`) equal
      to autograd of the plain version to rtol/atol 1e-4 (both add with
      atomics). Its `max_abs_err` is the larger of the forward's (0 when
-     bit-equal) and the backward's. Then SetAbstraction grouping at every
+     bit-equal) and the backward's; its times and bound are PointNet++'s
+     twelve gathers (the EdgeConv shapes are checked only: DGCNN's
+     forward reduces them in edge_reduce).
+   - EdgeConv's gather-reduce (kernel 9) at (8, 4096, k 20, C 64), three
+     times a DGCNN forward, and C 128 once, ties forced, against
+     `edge_reduce_plain`: max and min bit-equal, tie counts exact, the
+     sums and the gradient (autograd of the plain composition) within
+     1e-5 of their largest; the forward and the backward kernel timed
+     against the plain forward and backward, beside their bytes bound,
+     with device us a launch (profiler). Then SetAbstraction grouping at every
      SA table of PointNet++, MSG and PointNeXt in three forms (the
      concatenated table in one launch, two launches, the two-table
      kernel), rows bit-equal, forward and forward + backward, under CUDA
@@ -151,8 +160,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the port's kernels (its step time is printed beside the float32 work
    of its Linear layers, counted by hooks, and that work's least time at
    67 TFLOP/s); `train DeepGraphCnn` must launch knn (4 per step) and
-   gather_rows; `train PointNeXt` must launch fps 4, ball_query 9 and
-   three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
+   edge_reduce (4 + 4 per step), and no gather_rows; `train PointNeXt`
+   must launch fps 4, ball_query 9 and three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
    4 times. For both of these, three steps with
    `ball_select="two_level"` and three with "flat" from the same weights,
    batch and seeds: ball_query_2l must launch (9 or 8 a step) and
@@ -165,12 +174,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    For DeepGraphCnn three steps of DeepGraphCnn with
    `knn_select="two_level"` and three with "flat", from the same weights,
    batch and dropout seed: knn_2l must launch, the first losses must
-   agree to 1e-6 relative (same forward) and the later ones to 1e-3 (the
-   gather's backward adds with atomics). For each model the steady-state
+   agree to 1e-6 relative (same forward) and the later ones to 1e-3
+   (edge_reduce's backward adds with atomics). For each model the steady-state
    step time (CUDA events), points/s, peak memory, a profile and the
    device time per step of each of the port's own kernels; for
    DeepGraphCnn also the step time and peak memory with
-   `EdgeConv.remat`, which gathers again in the backward pass.
+   `EdgeConv.remat`, which runs edge_reduce's forward kernel again in
+   the backward pass (12 edge_reduce launches a step against 8).
    Then the device-resident store, through the same CLI:
    `train PointNet++ --device-data --device-store flat` (mode must be
    "device", two flat-gather launches a step), twice
@@ -182,8 +192,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    runs of one epoch drift apart, at Adam's 1e-3 by 2e-2 to 6e-2 in the
    twelfth loss on an H100), `--accum-steps 2` on the host loader (6
    updates from 12 batches) and `train DeepGraphCnn --device-data` (kNN,
-   both gathers). The first batch of the two stores from one seed must be
-   bit-identical, and `scan_epoch(4)` must see the same batches as
+   edge_reduce and the flat gather). The first batch of the two stores
+   from one seed must be bit-identical, and `scan_epoch(4)` must see the same batches as
    iterating the loader. Its losses are compared at a learning rate of
    1e-5, where that drift stays near 1e-4 over the epoch: the first loss
    to 1e-6, each later one to 1e-3 or, where that is more, to four times
@@ -217,8 +227,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    printed), for that PointNet++ checkpoint, for phase 4's DeepGraphCnn
    saved as one and for phase 4's PointNet with running and with batch
    statistics (`--bn-stats batch`): fps, ball_query, three_nn and
-   gather_rows must launch for PointNet++, knn for DeepGraphCnn, none of
-   the port's kernels for PointNet; one batch of the 16384 bucket on
+   gather_rows must launch for PointNet++, knn and edge_reduce for
+   DeepGraphCnn, none of the port's kernels for PointNet; one batch of the 16384 bucket on
    the card against the CPU. `evaluate --whole-rooms` with `--stream
    device` and `--stream host` over a synthetic area 6 of four rooms of
    1,000,000 points (fps and three_nn four times a forward: one a group
@@ -377,6 +387,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "knn_2l": ("pointseg_torch/csrc/knn.cu", "pointseg/ops/pallas/knn.py:101"),
     "gather_rows": ("pointseg_torch/csrc/gather.cu", "pointseg/ops/pallas/gather.py:111"),
     "gather_rows_flat": ("pointseg_torch/csrc/gather.cu", "pointseg/ops/pallas/gather.py:174"),
+    # on DGCNN's path kernel 7's gather, with EdgeConv's four reductions fused in
+    "edge_reduce": ("pointseg_torch/csrc/edgereduce.cu", "pointseg/ops/pallas/gather.py:111"),
 }
 S3DIS_ROWS = 273_000_000  # points in all of S3DIS
 SYNTHETIC_ROWS = 240_000  # points in the --synthetic dataset
@@ -1664,9 +1676,11 @@ def gather_kernels(device, record: Record) -> None:
     from pointseg_torch.ops.gather import gather_rows, gather_rows_plain
 
     rng = np.random.default_rng(2)
-    # (B, N, C, idx shape, how often one DGCNN forward runs it)
-    cases = [(8, 4096, 64, (4096, K_NEIGHBOURS), 3), (8, 4096, 128, (4096, K_NEIGHBOURS), 1)]
-    cases += [(8, N, C, shape, 0) for N, C, shape in POINTNETPP_GATHERS]
+    # (B, N, C, idx shape, how often one forward of the kernel's training
+    # path, PointNet++'s, runs it): DGCNN's EdgeConv shapes are checked
+    # only, since its forward reduces them in edge_reduce
+    cases = [(8, 4096, 64, (4096, K_NEIGHBOURS), 0), (8, 4096, 128, (4096, K_NEIGHBOURS), 0)]
+    cases += [(8, N, C, shape, 1) for N, C, shape in POINTNETPP_GATHERS]
     for B, N, C, shape, per_forward in cases:
         table = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(device)
         idx = torch.from_numpy(rng.integers(0, N, (B, *shape)).astype(np.int32)).to(device)
@@ -1692,6 +1706,96 @@ def gather_kernels(device, record: Record) -> None:
                     per_forward)
         print(f"{'':11s} backward (index_add_) against autograd of torch.gather: "
               f"max |diff| {grad_err:.3g}")
+
+
+# EdgeConv's gather-reduce in one DGCNN forward at B = 8, N = 4096, k =
+# 20: (C, how often)
+EDGE_REDUCES = [(64, 3), (128, 1)]
+
+
+def edge_reduce_kernels(device, record: Record) -> None:
+    """Kernel 9's pair against `edge_reduce_plain` at DGCNN's EdgeConv
+    shapes, ties forced (rows of small integers, the second half of the
+    table a copy of the first, a repeated index in every list): max and
+    min bit-equal, tie counts exact, the sums and the backward's gradient
+    (against autograd of the plain composition) within 1e-5 of their
+    largest. The forward and the backward kernel are timed and noted
+    each, so the record's row is a training step's pair; their bound is
+    the bytes (the compares and adds lie far below it)."""
+    from pointseg_torch.ops.edgereduce import (
+        _edge_reduce_backward_cuda,
+        _edge_reduce_cuda,
+        count_dtype,
+        edge_reduce,
+        edge_reduce_plain,
+    )
+    from pointseg_torch.ops.gather import gather_rows_plain
+
+    rng = np.random.default_rng(4)
+    B, N, k = 8, 4096, K_NEIGHBOURS
+    for C, per_forward in EDGE_REDUCES:
+        table_np = rng.integers(-3, 4, size=(B, N, C)).astype(np.float32)
+        table_np[:, N // 2:] = table_np[:, :N - N // 2]
+        idx_np = rng.integers(0, N, (B, N, k)).astype(np.int32)
+        idx_np[..., 1] = idx_np[..., 0]
+        table, idx = torch.from_numpy(table_np).to(device), torch.from_numpy(idx_np).to(device)
+        gen = torch.Generator(device).manual_seed(5)
+        grads = [torch.randn((B, N, C), device=device, generator=gen) for _ in range(4)]
+        vmax, vmin, s, q, cmax, cmin = _edge_reduce_cuda(table, idx, True, counts=True)
+        want = edge_reduce_plain(table, idx, True)
+        if not (torch.equal(vmax, want[0]) and torch.equal(vmin, want[1])):
+            raise AssertionError(f"edge_reduce {(B, N, k, C)}: max or min differ from the plain "
+                                 f"composition")
+        gp = gather_rows_plain(table, idx)
+        n_max, n_min = (gp == want[0][:, :, None]).sum(2), (gp == want[1][:, :, None]).sum(2)
+        del gp
+        if not (torch.equal(cmax.long(), n_max) and torch.equal(cmin.long(), n_min)):
+            raise AssertionError(f"edge_reduce {(B, N, k, C)}: tie counts differ")
+        if int(n_max.max()) < 2 or int(n_min.max()) < 2:
+            raise AssertionError(f"edge_reduce {(B, N, k, C)}: the inputs forced no tie")
+        err = 0.0
+        for label, got, w in (("s", s, want[2]), ("q", q, want[3])):
+            rel = float((got - w).abs().max()) / float(w.abs().max())
+            if rel > 1e-5:
+                raise AssertionError(f"edge_reduce {(B, N, k, C)}: {label} off by {rel:.3g} "
+                                     f"of its largest")
+            err = max(err, rel)
+        t1, t2 = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        torch.autograd.backward(edge_reduce(t1, idx, True), grads)
+        plain_out = edge_reduce_plain(t2, idx, True)
+        torch.autograd.backward(plain_out, grads, retain_graph=True)
+        grad_rel = float((t1.grad - t2.grad).abs().max()) / float(t2.grad.abs().max())
+        if grad_rel > 1e-5:
+            raise AssertionError(f"edge_reduce {(B, N, k, C)}: gradient off by {grad_rel:.3g} "
+                                 f"of its largest")
+        del t1
+
+        cb = torch.empty((), dtype=count_dtype(k)).element_size()
+        table_b, idx_b, out_b = 4 * B * N * C, 4 * B * N * k, B * N * C
+        # read: table, indices; written: max, min, s, q, two counts
+        fwd_bytes = table_b + idx_b + out_b * (4 + 4 + 4 + 4 + 2 * cb)
+        # read: table, indices, max, min, two counts, four gradients; written: the gradient
+        bwd_bytes = table_b + idx_b + out_b * (4 + 4 + 2 * cb + 16) + table_b
+        fwd = lambda: _edge_reduce_cuda(table, idx, True, counts=True)  # noqa: E731
+        bwd = lambda: _edge_reduce_backward_cuda(  # noqa: E731
+            table, idx, vmax, vmin, cmax, cmin, *grads)
+        ms, plain_ms = timed_pair(fwd, lambda: edge_reduce_plain(table, idx, True), 20, 5)
+        record.note("edge_reduce", (B, N, k, C, "forward"), ms, plain_ms, None, 0.0, fwd_bytes,
+                    0, err, per_forward)
+        ms, plain_ms = timed_pair(bwd, lambda: torch.autograd.grad(plain_out, t2, grads,
+                                                                   retain_graph=True), 20, 5)
+        record.note("edge_reduce", (B, N, k, C, "backward"), ms, plain_ms, None, 0.0, bwd_bytes,
+                    0, grad_rel, per_forward)
+        fwd_us = kernel_device_us(fwd, "edge_reduce_kernel")
+        bwd_us = kernel_device_us(bwd, "edge_reduce_backward_kernel")
+        print(f"{'':11s} device time a launch (profiler): edge_reduce_kernel {fwd_us:.1f} us "
+              f"({100 * fwd_bytes / PEAK_BYTES_PER_S / (fwd_us * 1e-6):.0f}% of its bytes "
+              f"bound), edge_reduce_backward_kernel {bwd_us:.1f} us "
+              f"({100 * bwd_bytes / PEAK_BYTES_PER_S / (bwd_us * 1e-6):.0f}%); max tie count "
+              f"{int(n_max.max())}; sums off by {err:.3g}, gradient by {grad_rel:.3g} of "
+              f"their largest", flush=True)
+        del table, idx, grads, vmax, vmin, s, q, cmax, cmin, want, t2, plain_out, n_max, n_min
+        torch.cuda.empty_cache()
 
 
 # SetAbstraction groupings of one forward pass at B = 8, N = 4096 (the
@@ -2365,10 +2469,13 @@ def remat_cost(state, batch, device) -> None:
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         step_ms = cuda_ms(lambda: train_step(run, *batch), 5)
-        gathers = read_launches()["gather_rows"] // 5
-        if not math.isfinite(loss) or gathers != (8 if remat else 4):
-            raise AssertionError(f"remat={remat}: loss {loss}, {gathers} gathers a step")
-        print(f"DeepGraphCnn remat={remat}: {step_ms:.3f} ms a step, {gathers} gathers a step, "
+        # edge_reduce's forward and backward kernel, 4 each; remat runs the forward twice
+        reduces = read_launches()["edge_reduce"] // 5
+        if not math.isfinite(loss) or reduces != (12 if remat else 8):
+            raise AssertionError(f"remat={remat}: loss {loss}, {reduces} edge_reduce launches "
+                                 f"a step")
+        print(f"DeepGraphCnn remat={remat}: {step_ms:.3f} ms a step, {reduces} edge_reduce "
+              f"launches a step, "
               f"peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
         del run, model
         torch.cuda.empty_cache()
@@ -2399,12 +2506,13 @@ def trainer_phase(device, workdir: str):
     matmul_floor(pn_state.model, batch, pn_perf, "PointNet")
 
     dg_state, dg_launches, _ = train_through_cli("DeepGraphCnn", workdir,
-                                                 ("knn", "gather_rows"))
+                                                 ("knn", "edge_reduce"))
     steps = dg_state.step
-    if dg_launches["knn"] < 4 * steps or dg_launches["gather_rows"] < 4 * steps:
+    if dg_launches["knn"] < 4 * steps or dg_launches["edge_reduce"] < 8 * steps:
         raise AssertionError(f"DeepGraphCnn: {steps} steps need at least {4 * steps} kNN and "
-                             f"gather launches, got {dg_launches}")
-    if dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]:
+                             f"{8 * steps} edge_reduce launches, got {dg_launches}")
+    if (dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]
+            or dg_launches["gather_rows"]):
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
     two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4, dg_state, batch,
                            device)
@@ -2448,8 +2556,8 @@ def trainer_phase(device, workdir: str):
                 "ball_query_2l": select2l["ball_query_2l"],
                 "three_nn": pp_launches["three_nn"], "knn": dg_launches["knn"],
                 "knn_2l": select2l["knn_2l"],
-                "gather_rows": dg_launches["gather_rows"],
-                "gather_rows_flat": flat_launches}
+                "gather_rows": pp_launches["gather_rows"],
+                "gather_rows_flat": flat_launches, "edge_reduce": dg_launches["edge_reduce"]}
     return states, launches, batch
 
 
@@ -2519,7 +2627,7 @@ def device_store_phase(device, workdir: str, pp_state) -> int:
         raise AssertionError(f"--accum-steps 2: {accum_state.step} updates from {steps} "
                              f"batches, launches {launches}")
     _, launches, _ = train_through_cli("DeepGraphCnn", workdir,
-                                       ("knn", "gather_rows", "gather_rows_flat"),
+                                       ("knn", "edge_reduce", "gather_rows_flat"),
                                        ("--device-data",), "device")
     if launches["gather_rows_flat"] != 2 * steps or launches["knn"] < 4 * steps:
         raise AssertionError(f"DeepGraphCnn --device-data: {launches}")
@@ -2902,7 +3010,7 @@ def bucketed_eval(device, workdir: str, smi: str, pp_dir: str, dg_dir: str,
     n_batches = sum(batches.values())
     for name, ckpt, needed, stats in (
             ("PointNet++", pp_dir, ("fps", "ball_query", "three_nn", "gather_rows"), "running"),
-            ("DeepGraphCnn", dg_dir, ("knn", "gather_rows"), "running"),
+            ("DeepGraphCnn", dg_dir, ("knn", "edge_reduce"), "running"),
             ("PointNet", pn_dir, (), "running"), ("PointNet", pn_dir, (), "batch")):
         args = cli.build_parser().parse_args(
             ["evaluate", "--model-path", ckpt, "--data-path", data, "--device", str(device),
@@ -3061,8 +3169,14 @@ def path_kernels(model_name: str) -> tuple[str, ...]:
     if model_name == "PointNet":
         return ()
     if model_name in cli.DGCNN_NAMES:
-        return ("knn", "gather_rows")
+        return ("knn", "edge_reduce")
     return ("fps", "ball_query", "three_nn", "gather_rows")
+
+
+def export_kernels(model_name: str) -> tuple[str, ...]:
+    """The operators of an exported graph: EdgeConv's gather-reduce is
+    exported as its plain composition, whose gather is `gather_rows`."""
+    return tuple("gather_rows" if k == "edge_reduce" else k for k in path_kernels(model_name))
 
 
 def benchmark_in_process(model_name: str, mode: str, smi: str, flags: tuple = ()) -> dict:
@@ -3620,7 +3734,7 @@ def enhanced_phase(device, workdir: str, rooms: str) -> None:
         raise AssertionError(f"create_dgcnn_trainer's defaults moved: {cfg}")
     torch.cuda.reset_peak_memory_stats()
     (state, records), _ = path_run("the enhanced DGCNN trainer (one epoch)",
-                                   ("knn_2l", "gather_rows"),
+                                   ("knn_2l", "edge_reduce"),
                                    lambda: train(*create_chunked_dataloaders(rooms, batch_size=2)))
     peak = torch.cuda.max_memory_allocated()
     if not math.isfinite(records["train_loss"][0]):
@@ -3665,14 +3779,15 @@ def export_phase(device, workdir: str) -> None:
         graph = str(torch.export.load(io.BytesIO(blob)).graph)
         operators = {k: graph.count(f"pointseg_torch.{k}.default") for k in KERNELS
                      if f"pointseg_torch.{k}.default" in graph}
-        if set(operators) != set(path_kernels(name)):
+        if set(operators) != set(export_kernels(name)):
             raise AssertionError(f"export {name}: the graph holds {operators}, its path is "
-                                 f"{path_kernels(name)}")
+                                 f"{export_kernels(name)}")
         forward = load_forward(blob)
         for state in states:
             model = state.model.eval()
             got, launches = path_run(f"export {name}: the loaded artifact's forward",
-                                     path_kernels(name), lambda: forward(model.state_dict(), x))
+                                     export_kernels(name),
+                                     lambda: forward(model.state_dict(), x))
             with torch.no_grad():
                 want = model(x)
             err = float((got - want).abs().max())
@@ -3795,7 +3910,7 @@ def remaining_entry_points_phase(device, workdir: str) -> None:
 DP_MODELS = {  # phase 10 (b, c): the model -> its path's kernels
     "PointNet++": ("fps", "ball_query", "three_nn", "gather_rows"),
     "PointNet": (),
-    "DeepGraphCnn": ("knn", "gather_rows"),
+    "DeepGraphCnn": ("knn", "edge_reduce"),
 }
 DP_RANK_TIMEOUT = 300  # seconds for one run of ranks
 DP_ROOM_POINTS = 20_000
@@ -4136,7 +4251,7 @@ def data_parallel_phase(device, workdir: str, smi: str, batch) -> dict:
 # run. Four ranks: gloo sharing the one card, or one NCCL rank a card on four.
 PLACEMENT_MODELS = {  # full width -> the kernels of its train step
     "PointNet++": ("fps", "ball_query", "three_nn", "gather_rows"),
-    "DeepGraphCnn": ("knn", "gather_rows"),
+    "DeepGraphCnn": ("knn", "edge_reduce"),
 }
 # the JAX package's `sharded_param_fraction` of each model on a model axis of
 # 2 (`pointseg.parallel.sharded_param_fraction` of the JAX model's params, on
@@ -4147,7 +4262,8 @@ PLACEMENT_SHAPE = (2, 2)
 POINT_CLOUD = 65_536  # the largest eval bucket
 STORE_BLOCK = 10_920  # points a block of the timing table: 25,000 blocks of all S3DIS
 PLACEMENT_TIMEOUT = 600  # seconds for one run of the ranks
-TP_KERNELS = ("fps", "ball_query", "three_nn", "knn", "gather_rows", "gather_rows_flat")
+TP_KERNELS = ("fps", "ball_query", "three_nn", "knn", "gather_rows", "gather_rows_flat",
+              "edge_reduce")
 
 
 def tp_side():
@@ -4400,6 +4516,7 @@ def main() -> int:
         against_parent(parent)
     knn_kernels(device, record)
     gather_kernels(device, record)
+    edge_reduce_kernels(device, record)
     gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
     launch_path_split(device)
@@ -4445,7 +4562,10 @@ def main() -> int:
           f"kernel's training path (its shapes summed; ball_query_2l: PointNeXt's nine "
           f"queries); launches are one epoch and its "
           f"evaluation (knn_2l and ball_query_2l: DeepGraphCnn and PointNeXt with "
-          f"POINTSEG_SELECT2L=1; gather_rows_flat: one PointNet++ epoch from the flat device store, two "
+          f"POINTSEG_SELECT2L=1; gather_rows: the PointNet++ epoch, its ms PointNet++'s "
+          f"12 gathers; edge_reduce: the DeepGraphCnn epoch, both kernels, its ms a training "
+          f"step's forward and backward kernel; gather_rows_flat: one "
+          f"PointNet++ epoch from the flat device store, two "
           f"launches a step, its ms the 36-byte and the 1-byte gather of a batch from "
           f"{SYNTHETIC_ROWS} rows); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")

@@ -263,12 +263,14 @@ class EdgeConv(torch.nn.Module):
     hence another Adam trajectory.
 
     `fused=True` (default) never forms the (B, N, k, out) edge tensor
-    e_ij = p_j + d_i. BatchNorm + LeakyReLU is a per-channel monotone
-    map, increasing or decreasing with the sign of the BatchNorm slope,
-    so max_j act(bn(p_j + d_i)) = act(bn(M_i + d_i)) with M_i the max or
-    the min of p_j over the neighbourhood, and the training statistics
-    over all B·N·k edges follow from the neighbour sums
-    s_i = sum_j p_j and q_i = sum_j p_j²:
+    e_ij = p_j + d_i, and on the card not the gathered rows p_j either
+    (`ops.edge_reduce`: one kernel for the max, the min and the sums over
+    the neighbours, one for their backward). BatchNorm + LeakyReLU is a
+    per-channel monotone map, increasing or decreasing with the sign of
+    the BatchNorm slope, so max_j act(bn(p_j + d_i)) = act(bn(M_i + d_i))
+    with M_i the max or the min of p_j over the neighbourhood, and the
+    training statistics over all B·N·k edges follow from the neighbour
+    sums s_i = sum_j p_j and q_i = sum_j p_j²:
         sum e  = sum_i (s_i + k d_i),
         sum e² = sum_i (q_i + 2 d_i s_i + k d_i²),
     with var = max(E[e²] - E[e]², 0), the JAX block's form. Inside a
@@ -280,14 +282,15 @@ class EdgeConv(torch.nn.Module):
     give the same output and running statistics up to reassociation.
 
     Under bfloat16 (`dtype`) `x` is cast first, so the kNN of layers 2-4
-    ranks bfloat16-rounded features (in float32), p, d and the gathered
-    rows are bfloat16, and the output is bfloat16. The sums s and q are
-    taken in float32, as flax's BatchNorm takes every other layer's
-    statistics: the JAX block sums them into bfloat16, where
+    ranks bfloat16-rounded features (in float32), p, d and the neighbour
+    maxima and minima are bfloat16, and the output is bfloat16. The sums
+    s and q are taken in float32, as flax's BatchNorm takes every other
+    layer's statistics: the JAX block sums them into bfloat16, where
     E[e²] - E[e]² cancels.
 
-    `remat=True` re-gathers in the backward pass
-    (`torch.utils.checkpoint`) instead of keeping the gathered
+    `remat=True` re-runs the gather-reduce in the backward pass
+    (`torch.utils.checkpoint`) instead of keeping what it saves: on the
+    card the table, max, min and tie counts, on the CPU the gathered
     (B, N, k, out) rows.
 
     forward(x (B, N, F)) -> (B, N, out_channels). `idx` (B, N, k) reuses
@@ -307,14 +310,6 @@ class EdgeConv(torch.nn.Module):
         self.w_edge = Linear(in_features, out_channels, bias=False, dtype=dtype)
         self.w_center = Linear(in_features, out_channels, bias=False, dtype=dtype)
         self.bn = BNStats(out_channels, dtype=dtype)
-
-    def _gather_reduce(self, p: torch.Tensor, idx: torch.Tensor):
-        gp = ops.gather_neighbors(p, idx)  # (B, N, k, out)
-        out = (gp.amax(dim=2), gp.amin(dim=2))
-        if self.bn.training:  # the sums in float32 (or wider)
-            g = gp.to(torch.promote_types(gp.dtype, torch.float32))
-            out += (g.sum(dim=2), (g * g).sum(dim=2))
-        return out
 
     def forward(self, x, knn_on=None, mask=None, idx=None):
         x = cast(x, self.dtype)
@@ -338,10 +333,12 @@ class EdgeConv(torch.nn.Module):
             edges = ops.gather_neighbors(p_table, idx) + d[:, :, None, :]
             return leaky_relu_02(self.bn(edges)).amax(dim=2)
 
+        # max and min over the neighbours, and in training the sums (float32)
         if self.remat:
-            reduced = checkpoint(self._gather_reduce, p_table, idx, use_reentrant=False)
+            reduced = checkpoint(ops.edge_reduce, p_table, idx, self.bn.training,
+                                 use_reentrant=False)
         else:
-            reduced = self._gather_reduce(p_table, idx)
+            reduced = ops.edge_reduce(p_table, idx, self.bn.training)
         g_max, g_min = reduced[0], reduced[1]
         mean = var = None
         if self.bn.training:  # batch statistics follow the BatchNorm's mode

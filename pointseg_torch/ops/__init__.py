@@ -1,7 +1,8 @@
 """Geometric primitives (port of `pointseg.ops`).
 
-FPS, ball query, 3-NN, kNN (flat and two-level) and the row gathers
-(batched and flat) launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
+FPS, ball query, 3-NN, kNN (flat and two-level), the row gathers
+(batched and flat) and EdgeConv's gather-reduce (`edge_reduce`, float32
+and bfloat16 rows) launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
 `_kernels`) and run plain PyTorch on CPU tensors. Pooling is plain
 PyTorch on both. Importing this package registers the kernels as
 PyTorch operators for `torch.export` (`library.py`).
@@ -19,6 +20,7 @@ from pointseg_torch.ops.gather import (  # noqa: F401
     gather_rows_flat,
     gather_rows_with_coords,
 )
+from pointseg_torch.ops.edgereduce import edge_reduce, edge_reduce_plain  # noqa: F401
 from pointseg_torch.ops.knn import (  # noqa: F401
     gather_neighbors,
     graph_feature,

@@ -58,7 +58,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fps.cu", "ballquery.cu", "threenn.cu", "knn.cu", "gather.cu")
+SOURCES = ("fps.cu", "ballquery.cu", "threenn.cu", "knn.cu", "gather.cu", "edgereduce.cu")
 HEADERS = ("launch.cuh",)  # included by every source
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pointseg_torch"
 NVCC_FLAGS = (
@@ -67,7 +67,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"fps": 0, "ball_query": 0, "ball_query_2l": 0, "three_nn": 0,
-            "knn": 0, "knn_2l": 0, "gather_rows": 0, "gather_rows_flat": 0}
+            "knn": 0, "knn_2l": 0, "gather_rows": 0, "gather_rows_flat": 0,
+            "edge_reduce": 0}  # edge_reduce: its forward and its backward kernel
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _SIGNATURES = {  # every entry point ends with (device index, stream)
@@ -90,6 +91,13 @@ _SIGNATURES = {  # every entry point ends with (device index, stream)
     "pointseg_gather_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
     # table, idx, out, R, M, row_bytes
     "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _I, _P),
+    # table, idx, out_max, out_min, out_sum, out_sq, count_max, count_min, B, M, N, K, C,
+    # dtype
+    "pointseg_edge_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # table, idx, max, min, count_max, count_min, g_max, g_min, g_sum, g_sq, grad, B, M,
+    # N, K, C, dtype
+    "pointseg_edge_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None

@@ -242,3 +242,94 @@ def test_shared_mlp_act_and_bias_options_match_jax(use_bias):
     x_neg = torch.tensor([-1.0, 0.0, 2.0])
     np.testing.assert_allclose(leaky_relu_02(x_neg).numpy(),
                                np.asarray(fnn.leaky_relu(jnp.asarray(x_neg.numpy()), 0.2)))
+
+
+def _old_gather_reduce(p, idx, training):
+    """The composition EdgeConv ran itself before `ops.edge_reduce`."""
+    gp = tops.gather_neighbors(p, idx)  # (B, N, k, out)
+    out = (gp.amax(dim=2), gp.amin(dim=2))
+    if training:  # the sums in float32 (or wider)
+        g = gp.to(torch.promote_types(gp.dtype, torch.float32))
+        out += (g.sum(dim=2), (g * g).sum(dim=2))
+    return out
+
+
+@pytest.mark.parametrize("rows", [N, 3 * N])  # M = N, and a table of more rows (point-sharded)
+@pytest.mark.parametrize("sums", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+def test_edge_reduce_plain_equals_the_old_composition(data, ties, dtype, sums, rows):
+    """Values and gradients of `edge_reduce_plain`, and of `edge_reduce` on
+    the CPU, bit-equal to the composition they replace; ties forced by
+    integer rows, duplicated rows and a repeated index in every list."""
+    _, idx = data
+    rng = np.random.default_rng(8)
+    if ties:
+        table = rng.integers(-2, 3, size=(B, rows, OUT)).astype(np.float32)
+        table[:, rows // 2:] = table[:, : rows - rows // 2]
+        idx = idx.copy()
+        idx[..., 1] = idx[..., 0]
+    else:
+        table = rng.normal(size=(B, rows, OUT)).astype(np.float32)
+    table = torch.from_numpy(table).to(dtype)
+    idx = torch.from_numpy(idx)
+    weights = [torch.from_numpy(rng.normal(size=(B, N, OUT)).astype(np.float32))
+               for _ in range(4)]
+    results = []
+    for fn in (_old_gather_reduce, tops.edge_reduce_plain, tops.edge_reduce):
+        t = table.clone().requires_grad_(True)
+        out = fn(t, idx, sums)
+        assert len(out) == (4 if sums else 2)
+        sum((o.double() * w.double()).sum() for o, w in zip(out, weights)).backward()
+        results.append(([o.detach() for o in out], t.grad))
+    (want, want_grad) = results[0]
+    assert want[0].dtype == dtype and (not sums or want[2].dtype == (
+        torch.float64 if dtype == torch.float64 else torch.float32))
+    for got, got_grad in results[1:]:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert torch.equal(got_grad, want_grad)
+
+
+@pytest.mark.parametrize("fused,train", [(True, True), (True, False), (False, True)])
+def test_edgeconv_reduces_through_ops_edge_reduce(data, monkeypatch, fused, train):
+    """The fused block's one call site: sums in training, none in eval;
+    the unfused block forms its edge tensor and never calls it."""
+    x, idx = data
+    seen = []
+    real = tops.edge_reduce
+
+    def spy(p_table, i, sums):
+        seen.append((tuple(p_table.shape), sums))
+        return real(p_table, i, sums)
+
+    monkeypatch.setattr(tops, "edge_reduce", spy)
+    block = _port_block(_jax_variables(9, negative_scale=True), fused=fused).train(train)
+    block(torch.from_numpy(x), idx=torch.from_numpy(idx)).sum().backward()
+    assert seen == ([((B, N, OUT), train)] if fused else [])
+
+
+@pytest.mark.parametrize("table_shape,idx_shape,table_dtype,idx_dtype", [
+    ((B, N), (B, N, K), torch.float32, torch.int32),        # no channel axis
+    ((B, N, OUT), (B, N, 0), torch.float32, torch.int32),   # no neighbour
+    ((B, N, OUT), (B + 1, N, K), torch.float32, torch.int32),  # batches differ
+    ((B, N, OUT), (B, N, K), torch.float32, torch.float32),    # float indices
+    ((B, N, OUT), (B, N, K), torch.float64, torch.int32),      # a dtype the kernel lacks
+    ((B, N, OUT), (B, N, K), torch.float32, torch.int32),      # sound, but not on the card
+])
+def test_edge_reduce_kernel_refuses_what_it_does_not_take(table_shape, idx_shape, table_dtype,
+                                                          idx_dtype):
+    """The launch's checks run before anything reaches the card."""
+    from pointseg_torch.ops.edgereduce import _edge_reduce_cuda
+
+    table = torch.zeros(table_shape, dtype=table_dtype)
+    idx = torch.zeros(idx_shape, dtype=idx_dtype)
+    with pytest.raises(ValueError):
+        _edge_reduce_cuda(table, idx, True, counts=True)
+
+
+def test_edge_reduce_counts_fit_k():
+    from pointseg_torch.ops.edgereduce import count_dtype
+
+    assert count_dtype(20) == count_dtype(255) == torch.uint8
+    assert count_dtype(256) == torch.int32

@@ -77,8 +77,10 @@ def test_cpu_tensors_never_count_as_launches():
         new(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     ops.ball_query(pts[:, :8], pts, 0.2, 8, select="two_level")
     assert _kernels.LAUNCHES == before
+    ops.edge_reduce(x[..., :4], torch.zeros((2, 6, 3), dtype=torch.int32), True)
+    assert _kernels.LAUNCHES == before
     assert set(before) == {"fps", "ball_query", "ball_query_2l", "three_nn", "knn", "knn_2l",
-                           "gather_rows", "gather_rows_flat"}
+                           "gather_rows", "gather_rows_flat", "edge_reduce"}
 
 
 def test_other_devices_are_refused():
@@ -96,6 +98,8 @@ def test_other_devices_are_refused():
         ops.gather_rows(pts, torch.zeros((1, 4), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.gather_rows_flat(pts[0], torch.zeros(4, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="cpu.*cuda"):
+        ops.edge_reduce(pts, torch.zeros((1, 4, 2), dtype=torch.int32, device="meta"), True)
 
 
 def test_wrapper_checks_refuse_cpu_and_wrong_tensors():
@@ -166,6 +170,7 @@ WRAPPERS = {  # ops module -> the C entry points its CUDA path launches
     "interpolate.py": ("pointseg_three_nn",),
     "knn.py": ("pointseg_knn", "pointseg_knn_2l"),
     "gather.py": ("pointseg_gather_rows", "pointseg_gather_rows_flat"),
+    "edgereduce.py": ("pointseg_edge_reduce", "pointseg_edge_reduce_backward"),
 }
 
 
@@ -217,6 +222,19 @@ def _cuda_path(module: str, function: str = r"_\w+_cuda") -> str:
 
 LIBRARY_IN_SOURCE = r"cublas|cutlass|thrust|cub::|torch/"
 LIBRARY_IN_WRAPPER = r"torch\.(topk|sort|cdist|matmul|bmm|gather|index_select|compile)|_plain\("
+
+
+def test_edge_reduce_source_holds_its_forward_and_backward_kernels():
+    """EdgeConv's gather-reduce is two `__global__` kernels of its own,
+    reaching for no library; its wrapper calls no PyTorch reduction or
+    gather on a CUDA tensor."""
+    source = (_kernels.CSRC / "edgereduce.cu").read_text()
+    assert re.findall(r"__global__ void (\w+)", source) == [
+        "edge_reduce_kernel", "edge_reduce_backward_kernel"]
+    assert not re.search(LIBRARY_IN_SOURCE, source)
+    for function in ("_edge_reduce_cuda", "_edge_reduce_backward_cuda"):
+        body = _cuda_path("edgereduce.py", function)
+        assert not re.search(LIBRARY_IN_WRAPPER + r"|amax|amin|\.sum\(|index_add", body)
 
 
 def test_knn_source_holds_two_selection_kernels_and_the_gather_one():
