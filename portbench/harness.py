@@ -12,6 +12,11 @@ is added by adding files:
   batch, points, feed (`loader` or `store`), workers, `scan_steps`,
   `accum_steps`, ranks, dtype, the data set (`portbench/data/<dataset>.json`)
   and the warm-up and traced steps;
+- `portbench/reference/archs/<arch>.py`: the plain reference of the
+  configuration's `arch`, its parameter specifications and its matmul
+  FLOPs (`portbench/reference/archs/__init__.py`);
+- `portbench/opwork/<op>.py`: the work of a traced op of
+  `pointseg_torch.ops` (`portbench/opwork/__init__.py`);
 - `portbench/metrics/<metric>.py`: a per-layer metric's reader,
   `read(readings) -> float | None`;
 - `portbench/limits/<cell>.json`: the numbers that decide the cell's
@@ -71,11 +76,32 @@ def load_module(path: Path, name: str):
     return module
 
 
+def _module(folder: Path, name: str, what: str):
+    path = folder / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {what} '{name}': expected {path.relative_to(REPO)}")
+    return load_module(path, f"portbench_{what}_" + name.replace(".", "_"))
+
+
 def metric_reader(name: str):
     """The module of per-layer metric `name` (`portbench/metrics/<name>.py`)."""
-    return load_module(ROOT / "metrics" / f"{name}.py",
-                       "portbench_metric_" + name.replace(".", "_"))
+    return _module(ROOT / "metrics", name, "metric")
 
 
 def loop_module(name: str):
-    return load_module(ROOT / "loops" / f"{name}.py", f"portbench_loop_{name}")
+    return _module(ROOT / "loops", name, "loop")
+
+
+def arch_module(name: str):
+    """The reference's architecture `name` (`portbench/reference/archs/<name>.py`)."""
+    return _module(ROOT / "reference" / "archs", name, "architecture")
+
+
+def op_module(name: str):
+    """The work count of traced op `name` (`portbench/opwork/<name>.py`)."""
+    return _module(ROOT / "opwork", name, "op")
+
+
+def traced_ops() -> list[str]:
+    """The ops that have a work count: each module of `portbench/opwork/`."""
+    return sorted(p.stem for p in (ROOT / "opwork").glob("*.py") if not p.stem.startswith("_"))

@@ -18,8 +18,9 @@ A run, in order:
    around the loader's `next()` and between hand-overs.
 4. With `--trace 1`: two profiled stretches of `trace_steps` steps a few
    steps into a fresh epoch, each opened by a spin kernel: the device
-   alone, then host and device with the port's public ops wrapped in
-   named ranges (`portbench.op#<call>.<op>`).
+   alone, then host and device with the port's public ops that have a
+   work count (`portbench/opwork/`) wrapped in named ranges
+   (`portbench.op#<call>.<op>`).
 5. The program's state freed, then the reference's three steps on the
    recorded batches and the comparison (`portbench/check.py`).
 """
@@ -37,15 +38,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import check, tracefile, work
+from portbench import check, harness, tracefile, work
 from portbench.data import rooms
-from portbench.reference.models import ARCHS, make_weights
+from portbench.reference.models import make_weights
 from portbench.reference.train import reference_steps
 
 WINDOW_RANGE = "portbench.window"
 OP_PREFIX = "portbench.op#"
-TRACED_OPS = ("farthest_point_sampling", "ball_query", "interpolate", "knn_indices",
-              "gather_rows", "gather_rows_with_coords", "gather_neighbors")
 RECORDED_STEPS = 3
 TRACE_SKIP = 5  # steps into the fresh epoch before the profiled stretch
 
@@ -147,8 +146,9 @@ class Feed:
 
 class OpRanges:
     """Wraps the public functions of `pointseg_torch.ops` that the blocks
-    call as `ops.<name>`, so that each forward call runs inside a named
-    profiler range and its argument shapes are kept for the work count."""
+    call as `ops.<name>` and that have a work count, so that each forward
+    call runs inside a named profiler range and its argument shapes are
+    kept for the count."""
 
     def __init__(self):
         import pointseg_torch.ops as ops
@@ -158,8 +158,10 @@ class OpRanges:
         self.saved = {}
 
     def __enter__(self):
-        for name in TRACED_OPS:
-            fn = getattr(self.ops, name)
+        for name in harness.traced_ops():
+            fn = getattr(self.ops, name, None)
+            if fn is None:  # an op the program does not have: nothing to read
+                continue
             self.saved[name] = fn
             setattr(self.ops, name, self._wrap(name, fn))
         return self
@@ -173,14 +175,37 @@ class OpRanges:
 
         def wrapped(*args, **kwargs):
             shapes = [(tuple(a.shape), a.element_size()) if isinstance(a, torch.Tensor) else a
-                      for a in args if isinstance(a, torch.Tensor)
-                      or (isinstance(a, int) and not isinstance(a, bool))]
+                      for a in args if isinstance(a, (torch.Tensor, int))]
             i = len(calls)
             calls.append((name, shapes))
             with torch.profiler.record_function(f"{OP_PREFIX}{i}.{name}"):
                 return fn(*args, **kwargs)
 
         return wrapped
+
+    def readings(self, win) -> dict:
+        """{op: {"calls", "device_s", "bound_s"}} over the host-traced
+        window `win`: the device time of what each forward call launched
+        inside its range, plus the kernels of the op's `BACKWARD_KERNELS`
+        wherever launched, and the bound times of the calls that ran on
+        the device (and of their backward passes, for such an op)."""
+        per_range = win.range_device_s(OP_PREFIX)
+        modules = {name: harness.op_module(name) for name in self.saved}
+        out = {}
+        for i, (name, args) in enumerate(self.calls):
+            r = out.setdefault(name, {"calls": 0, "device_s": 0.0, "bound_s": 0.0})
+            r["calls"] += 1
+            t = per_range.get(f"{OP_PREFIX}{i}.{name}", 0.0)
+            if t > 0:
+                r["device_s"] += t
+                r["bound_s"] += work.bound_seconds(*modules[name].work(args))
+                if hasattr(modules[name], "backward_work"):
+                    r["bound_s"] += work.bound_seconds(*modules[name].backward_work(args))
+        for name, r in out.items():
+            kernels = getattr(modules[name], "BACKWARD_KERNELS", ())
+            if kernels and r["device_s"] > 0:
+                r["device_s"] += win.kernel_s(*kernels)
+        return out
 
 
 class TrainRun:
@@ -235,7 +260,7 @@ class TrainRun:
 
         torch.backends.cuda.matmul.allow_tf32 = self.tf32
         torch.backends.cudnn.allow_tf32 = self.tf32
-        specs = ARCHS[self.arch][0](**self.config.get("arch_kwargs", {}))
+        specs = harness.arch_module(self.arch).specs(**self.config.get("arch_kwargs", {}))
         self.weights = make_weights(specs, self.seeds["weights"], self.device)
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.dtype]
         model = create_model(self.config["model"], num_classes=self.config["num_classes"],
@@ -402,17 +427,10 @@ class TrainRun:
         self._epochs()
         device_win = box["device"]
         host_win = self._read_trace(with_host, WINDOW_RANGE)
-        calls = box["ops"].calls
-        per_range = host_win.range_device_s(OP_PREFIX)
-        op_device = op_bound = 0.0
-        for i, (name, args) in enumerate(calls):
-            t = per_range.get(f"{OP_PREFIX}{i}.{name}", 0.0)
-            if t > 0:
-                op_device += t
-                op_bound += work.bound_seconds(*work.op_work(name, args))
+        ops = box["ops"]
         return {"window": device_win, "host_window": host_win, "steps": steps,
-                "launches": box["launches"], "op_calls": len(calls),
-                "op_device_s": op_device, "op_bound_s": op_bound}
+                "launches": box["launches"], "op_calls": len(ops.calls),
+                "ops": ops.readings(host_win)}
 
     @staticmethod
     def _read_trace(prof, name):

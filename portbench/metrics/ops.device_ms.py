@@ -2,10 +2,12 @@
 
 The kernels launched inside the forward calls of `pointseg_torch.ops`'
 FPS, ball query, interpolation, kNN and row gathers (each call in a named
-profiler range) over the traced stretch, divided by its steps.
+profiler range; `portbench/opmetrics.py` lists the seven) over the traced
+stretch, divided by its steps.
 """
+
+from portbench import opmetrics
 
 
 def read(r):
-    p = r["profile"]
-    return p["op_device_s"] / p["steps"] * 1e3 if r["cuda"] and p["op_device_s"] > 0 else None
+    return opmetrics.device_ms(r, *opmetrics.GEOMETRIC)

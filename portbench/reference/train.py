@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from portbench.reference.models import ARCHS
+from portbench import harness
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -34,12 +34,13 @@ def masked_cross_entropy(logits: torch.Tensor, onehot: torch.Tensor,
 
 def reference_steps(arch: str, weights: dict[str, torch.Tensor], batches, *, fps_seed: int,
                     dropout_seed: int, lr: float, device, model_kwargs: dict | None = None):
-    """Runs len(batches) Adam steps of `arch` from `weights`.
+    """Runs len(batches) Adam steps of `arch` (`portbench/reference/archs/`)
+    from `weights`.
 
     Returns {"losses": [float], "logits": first step's logits (CPU),
     "grads": first step's gradient per leaf (CPU), "params": the
     parameters after the last step (CPU)}."""
-    forward = ARCHS[arch][1]
+    forward = harness.arch_module(arch).forward
     kwargs = model_kwargs or {}
     names = list(weights)
     params = [weights[n].detach().to(device).clone().requires_grad_(True) for n in names]

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from portbench import run
-from portbench.tests.conftest import tiny_over
+from portbench.tests.conftest import cells, tiny_over
 
 SMALL = {"device": "cuda",
          "traffic": {"batch": 4, "points": 4096, "warmup_steps": 4, "trace_steps": 2},
@@ -26,12 +26,12 @@ def _result(cell, over, trace=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["dgcnn_k20.b32-store", "pointnet2_ssg.b128-store"])
+@pytest.mark.parametrize("cell", cells())
 @pytest.mark.parametrize("tf32", [False, True])
 def test_tf32_control_fails(cell, tf32):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    over = tiny_over(cell, json.loads(json.dumps(SMALL)))
+    over = tiny_over(cell, SMALL)
     over["traffic"]["tf32"] = tf32
     result = _result(cell, over, trace=int(not tf32))
     assert result["correct"] is (not tf32), result["checks"]

@@ -8,26 +8,28 @@ import sys
 import pytest
 
 from portbench import harness
-from portbench.tests.conftest import REPO, TINY, tiny_over
+from portbench.tests.conftest import REPO, cells, tiny_over
 
-CELLS = ("pointnet2_ssg.b128-store", "dgcnn_k20.b32-store")
-LOADER = {"traffic": dict(TINY["traffic"], feed="loader"), "data": TINY["data"]}
-DGCNN = {"traffic": dict(TINY["traffic"], points=256), "data": TINY["data"]}
+CELLS = cells()
 
 
-def _run(cwd, cell, trace, over=TINY):
-    over = tiny_over(cell, over)
+def _run(cwd, cell, trace, over=None):
+    over = tiny_over(cell) if over is None else over
     return subprocess.run(
         [sys.executable, "portbench/run.py", "--workload", cell, "--seed", "3000000007",
          "--seconds", "1", "--trace", str(trace), "--dry-run", json.dumps(over)],
         cwd=cwd, capture_output=True, text=True, timeout=600)
 
 
-@pytest.mark.parametrize("cell,trace,over", [(CELLS[0], 0, TINY), (CELLS[0], 1, TINY),
-                                             (CELLS[1], 0, DGCNN), (CELLS[0], 0, LOADER)])
-def test_last_line(cell, trace, over):
-    """The last case feeds the cell from the host `Loader` (the traffic key
-    `feed`), which no cell uses today."""
+@pytest.mark.parametrize("cell,trace,feed", [(c, t, None) for c in CELLS for t in (0, 1)]
+                         + [(CELLS[0], 0, "loader")])
+def test_last_line(cell, trace, feed):
+    """Each cell at its tiny sizes, untraced and traced; the last case feeds
+    the first cell from the host `Loader` (the traffic key `feed`), which
+    no cell uses today."""
+    over = tiny_over(cell)
+    if feed is not None:
+        over["traffic"]["feed"] = feed
     p = _run(REPO, cell, trace, over)
     assert p.returncode == 0, p.stderr[-3000:]
     result = json.loads(p.stdout.strip().splitlines()[-1])

@@ -9,9 +9,9 @@ from contextlib import redirect_stderr, redirect_stdout
 
 import pytest
 
-from portbench import run
+from portbench import harness, run
 from portbench.tests import faults
-from portbench.tests.conftest import tiny_over
+from portbench.tests.conftest import cells, tiny_over
 
 
 def _result(cell, over, plant=None):
@@ -24,19 +24,23 @@ def _result(cell, over, plant=None):
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-# DGCNN compares no widest logit gap (kNN near-ties swing it by up to 9% in sound
-# runs), so one altered logit stays inside its limits; an altered row does not
-CASES = [(cell, fault) for cell in ("pointnet2_ssg.b128-store", "dgcnn_k20.b32-store")
-         for fault in (None, "unchanged", "half", "alter_logit", "alter_row", "bf16")
-         if not (cell.startswith("dgcnn") and fault == "alter_logit")]
+# the compared number that alone catches a fault; the others are caught by numbers that
+# every cell compares (losses, rows, gradients)
+CAUGHT_BY = {"alter_logit": "logit_gap"}
 
 
-@pytest.mark.parametrize("cell,fault", CASES)
-def test_fault_fails(cell, fault, tiny):
-    if cell.startswith("dgcnn"):
-        tiny["traffic"]["points"] = 256
-    plant = faults.FAULTS.get(fault)
+@pytest.mark.parametrize("fault", [None, "unchanged", "half", "alter_logit", "alter_row",
+                                   "bf16"])
+@pytest.mark.parametrize("cell", cells())
+def test_fault_fails(cell, fault):
+    needs = CAUGHT_BY.get(fault)
+    if needs is not None and needs not in harness.Cell(harness.load_benchmark(), cell).limits[
+            "numbers"]:
+        # DGCNN's limits compare no widest logit gap (kNN near-ties swing it by up to 9%
+        # in sound runs), so one altered logit stays inside them; an altered row does not
+        pytest.skip(f"portbench/limits/{cell}.json compares no {needs}")
+    over = tiny_over(cell)
     if fault == "bf16":
-        tiny["traffic"]["dtype"] = "bfloat16"
-    result = _result(cell, tiny_over(cell, tiny), plant)
+        over["traffic"]["dtype"] = "bfloat16"
+    result = _result(cell, over, faults.FAULTS.get(fault))
     assert result["correct"] is (fault is None), result["checks"]

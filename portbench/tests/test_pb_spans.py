@@ -7,7 +7,7 @@ import json
 
 import pytest
 
-from portbench import harness, spans, tracefile
+from portbench import harness, spans, tracefile, work
 
 MAIN, AUTOGRAD = 1, 2
 WINDOW = "portbench.window"
@@ -15,16 +15,16 @@ WINDOW = "portbench.window"
 
 def _window(tmp_path, ranges, kernels):
     """`ranges`: (name, start, end) on the main thread; `kernels`: (launch
-    time, launching thread, start, end) on the device."""
+    time, launching thread, start, end[, name]) on the device."""
     events = [{"ph": "X", "cat": "user_annotation", "name": WINDOW, "ts": 0.0, "dur": 1000.0,
                "tid": MAIN}]
     events += [{"ph": "X", "cat": "user_annotation", "name": n, "ts": a, "dur": b - a,
                 "tid": MAIN} for n, a, b in ranges]
-    for i, (launch, tid, a, b) in enumerate(kernels):
+    for i, (launch, tid, a, b, *name) in enumerate(kernels):
         events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
                        "ts": launch, "dur": 1.0, "tid": tid, "args": {"correlation": i}})
-        events.append({"ph": "X", "cat": "kernel", "name": f"k{i}", "ts": a, "dur": b - a,
-                       "tid": 7, "args": {"correlation": i}})
+        events.append({"ph": "X", "cat": "kernel", "name": name[0] if name else f"k{i}",
+                       "ts": a, "dur": b - a, "tid": 7, "args": {"correlation": i}})
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     return tracefile.Window(str(path), WINDOW)
@@ -77,3 +77,36 @@ def test_a_program_without_spans_reads_nothing(tmp_path):
     for name in ("step.forward_ms", "step.backward_ms", "step.update_ms", "step.metrics_ms",
                  "data.sample_device_ms", "loop.epoch_idle_ms"):
         assert harness.metric_reader(name).read(_readings(win)) is None
+
+
+def test_an_op_reads_its_range_and_its_backward_kernel(tmp_path):
+    """`edge_reduce`'s forward kernel inside its call's range and its backward
+    kernel, launched by autograd's thread outside it, count toward
+    `ops.edge_reduce_*`; `ops.device_ms` and `ops_roofline` read the kNN
+    alone, as before the op was traced."""
+    win = _window(tmp_path, [("portbench.op#0.knn_indices", 10.0, 20.0),
+                             ("portbench.op#1.edge_reduce", 30.0, 40.0)], [
+        (15.0, MAIN, 100.0, 130.0, "knn_flat_kernel<true, 8>"),
+        (35.0, MAIN, 130.0, 170.0, "void edge_reduce_kernel<float, 4, unsigned char>"),
+        (50.0, AUTOGRAD, 200.0, 260.0, "void edge_reduce_backward_kernel<float, 4>"),
+        (60.0, AUTOGRAD, 260.0, 400.0, "sgemm"),  # the rest of the backward pass
+    ])
+    ranges = harness.loop_module("train").OpRanges()
+    knn = [((32, 4096, 3), 4), 20]
+    edge = [((32, 4096, 64), 4), ((32, 4096, 20), 4), True]
+    ranges.calls = [("knn_indices", knn), ("edge_reduce", edge)]
+    ranges.saved = {"knn_indices": None, "edge_reduce": None}
+    r = {"profile": {"ops": ranges.readings(win), "steps": 2}, "cuda": True}
+    assert r["profile"]["ops"]["edge_reduce"]["calls"] == 1
+    op = harness.op_module("edge_reduce")
+    bound = work.bound_seconds(*op.work(edge)) + work.bound_seconds(*op.backward_work(edge))
+    assert harness.metric_reader("ops.edge_reduce_ms").read(r) == pytest.approx(100e-6 / 2 * 1e3)
+    assert harness.metric_reader("ops.edge_reduce_roofline").read(r) == \
+        pytest.approx(100.0 * bound / 100e-6)
+    knn_bound = work.bound_seconds(*harness.op_module("knn_indices").work(knn))
+    assert harness.metric_reader("ops.device_ms").read(r) == pytest.approx(30e-6 / 2 * 1e3)
+    assert harness.metric_reader("ops_roofline").read(r) == pytest.approx(100.0 * knn_bound / 30e-6)
+    # a cell whose model calls no edge_reduce, and a CPU run, read nothing
+    r["profile"]["ops"].pop("edge_reduce")
+    assert harness.metric_reader("ops.edge_reduce_ms").read(r) is None
+    assert harness.metric_reader("ops.device_ms").read({**r, "cuda": False}) is None

@@ -92,6 +92,12 @@ class Window:
                 out[ranges[i][2]] += e["dur"] * 1e-6
         return dict(out)
 
+    def kernel_s(self, *names: str) -> float:
+        """Device seconds of the kernels whose name contains one of `names`,
+        wherever they were launched."""
+        return sum(e["dur"] for e in self.device
+                   if e.get("cat") == "kernel" and any(n in e["name"] for n in names)) * 1e-6
+
     def device_ops(self, top: int = 10) -> list:
         """[[kernel name, seconds], ...]: the device operations that took most time."""
         sums: dict[str, float] = defaultdict(float)
