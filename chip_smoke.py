@@ -117,7 +117,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      concatenated table in one launch, two launches, the two-table
      kernel), rows bit-equal, forward and forward + backward, under CUDA
      events and on the device (profiler), with the two-table call beside
-     two `torch.gather` calls.
+     two `torch.gather` calls. Then PointNeXt-XL's 19 groupings a forward
+     at B 32 x 4,096 (eight shapes: each stage's set abstraction and its
+     InvResMLPs, rows 128 to 1024 wide, K 32, the last level's 16 points
+     under balls of 32): each ball query one launch, equal to the plain
+     version with the repeat fill up to float64-verified ties, the slots
+     of a ball past its level's points slot 0 as non-members; each gather one
+     launch, rows bit-equal to `torch.gather`'s and the feature gradient
+     within 1e-5 of its largest from a float64 `torch.gather` gradient.
    - the flat row gather (the device store's sampler) bit-equal to
      `index_select` for rows of 1, 16 and 36 bytes (uint8, int32 x 4,
      float32 x 9) and an odd width (float32 x 35), at 8 x 4096 rows and
@@ -166,7 +173,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    `ball_select="two_level"` and three with "flat" from the same weights,
    batch and seeds: ball_query_2l must launch (9 or 8 a step) and
    ball_query never, first losses equal to 1e-6 relative. Three steps of
-   PointNeXt-L give its step time and peak memory. `train PointNeXt`
+   PointNeXt-L give its step time and peak memory. One PointNeXt-XL
+   train step at B 32 x 4,096, the counters set to 0 just before it,
+   must launch fps 4, ball_query 19, three_nn 4 and gather_rows 27 times
+   and nothing else; three more give its step time and peak memory.
+   `train PointNeXt`
    and `train DeepGraphCnn` again with POINTSEG_SELECT2L=1 (the JAX
    package's switch, read by the port's CLI): ball_query_2l (9 a step)
    and knn_2l (4 a step) must launch and the flat kernels never; the
@@ -1913,6 +1924,140 @@ def sa_grouping_forms(device) -> None:
               f"{lib_sum[model][1]:.4f}")
 
 
+# PointNeXt-XL's grouped layers of one forward at B 32 x 4,096, over its
+# clouds of 4096, 1024, 256, 64 and 16 points: per stage s, its set
+# abstraction (level s's centroids in level s - 1 at radius r_s) and its
+# InvResMLPs (level s around its own points at 2 r_s; 3, 6, 3, 3 of them),
+# each a ball of 32 and one `gather_rows_with_coords` of rows of the
+# stage's width. (centroid level, cloud level, radius, row width, calls a
+# forward); the last one's balls are wider than their 16-point level.
+XL_GROUPINGS = [(1, 0, 0.1, 128, 1), (1, 1, 0.2, 128, 3), (2, 1, 0.2, 256, 1),
+                (2, 2, 0.4, 256, 6), (3, 2, 0.4, 512, 1), (3, 3, 0.8, 512, 3),
+                (4, 3, 0.8, 1024, 1), (4, 4, 1.6, 1024, 3)]
+XL_K = 32
+# a PointNeXt-XL forward's launches (its backward launches none of the
+# port's kernels: the gathers' gradient is the library's scatter-add)
+XL_LAUNCHES = {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 27}
+
+
+def pointnext_xl_groupings(device) -> None:
+    """PointNeXt-XL's 19 ball queries and grouped-row gathers at B 32 x
+    4,096, on the clouds FPS makes from a block cloud: each ball query
+    (public `ops.ball_query`, repeat filler, one flat launch) against the
+    plain version with the repeat fill, picks equal up to float64-verified
+    ties, and slots 16..31 of the last level's K > N balls slot 0 as
+    non-members; each gather (one launch) bit-equal to two
+    `torch.gather` calls, and its feature gradient within 1e-5 of the
+    largest of a float64 `torch.gather` gradient (the scatter-add's order
+    differs). Kernel and plain times, each and summed over a forward."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.ballquery import ball_query, ball_query_plain
+    from pointseg_torch.ops.fps import farthest_point_sampling
+    from pointseg_torch.ops.gather import gather_rows, gather_rows_with_coords
+
+    def one_launch(fn, counter, what):
+        before = dict(_kernels.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        if (_kernels.LAUNCHES[counter] != before[counter] + 1
+                or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
+            raise AssertionError(f"{what}: one {counter} launch expected "
+                                 f"({before} -> {_kernels.LAUNCHES})")
+        return out
+
+    def plain_balls(cents, pts, r):
+        N = pts.shape[1]
+        idx, in_ball = ball_query_plain(cents, pts, r, min(XL_K, N))
+        idx = torch.where(in_ball, idx, idx[..., :1])
+        pad = (*idx.shape[:-1], XL_K - N)
+        if XL_K > N:
+            idx = torch.cat([idx, idx[..., :1].expand(pad)], dim=-1)
+            in_ball = torch.cat([in_ball, in_ball.new_zeros(pad)], dim=-1)
+        return idx, in_ball
+
+    rng = np.random.default_rng(20)
+    B = 32
+    levels = [torch.from_numpy(block_cloud(rng, B, 4096)).to(device)]
+    for n in (1024, 256, 64, 16):
+        levels.append(gather_rows(levels[-1], farthest_point_sampling(levels[-1], n)).contiguous())
+    sums = [0.0, 0.0, 0.0, 0.0]  # ball query kernel, plain; gather kernel, library
+    for c, p, r, h, calls in XL_GROUPINGS:
+        cents, pts = levels[c], levels[p]
+        C, N = cents.shape[1], pts.shape[1]
+        what = f"PointNeXt-XL ({B}, {C}, {N}, r={r}, K={XL_K}, rows {h})"
+        idx, in_ball = one_launch(lambda: ball_query(cents, pts, r, XL_K), "ball_query", what)
+        w_idx, w_in = plain_balls(cents, pts, r)
+        if not torch.equal(in_ball, w_in):
+            raise AssertionError(f"{what}: in_ball differs from the plain version")
+        flips, err = check_picks(cents, pts, idx, w_idx)
+        if XL_K > N and not (torch.equal(idx[..., N:], idx[..., :1].expand(-1, -1, XL_K - N))
+                             and not bool(in_ball[..., N:].any())):
+            raise AssertionError(f"{what}: the slots of a ball past its level's {N} points "
+                                 f"must repeat slot 0, as non-members")
+        bq_ms, bq_plain_ms = timed_pair(lambda: ball_query(cents, pts, r, XL_K),
+                                        lambda: plain_balls(cents, pts, r), 10)
+
+        feats = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(device)
+        feats.requires_grad_(True)
+        gf, gc = one_launch(lambda: gather_rows_with_coords(feats, pts, idx), "gather_rows",
+                            what)
+        if not (torch.equal(gf, rows(feats.detach(), idx)) and torch.equal(gc, rows(pts, idx))):
+            raise AssertionError(f"{what}: gathered rows differ from torch.gather's")
+        grad = torch.randn(gf.shape, device=device)
+        gf.backward(grad)
+        table = feats.detach().double().requires_grad_(True)
+        rows(table, idx).backward(grad.double())
+        g_err = float((feats.grad.double() - table.grad).abs().max()
+                      / table.grad.abs().max())
+        if not g_err <= 1e-5:
+            raise AssertionError(f"{what}: feature gradient {g_err:.3g} of its largest from the "
+                                 f"float64 torch.gather gradient")
+        del gf, gc, grad, table
+        g_ms, lib_ms = timed_pair(lambda: gather_rows_with_coords(feats.detach(), pts, idx),
+                                  lambda: (rows(feats.detach(), idx), rows(pts, idx)), 10)
+        for i, ms in enumerate((bq_ms, bq_plain_ms, g_ms, lib_ms)):
+            sums[i] += calls * ms
+        print(f"{what} x{calls} a forward: ball query {bq_ms:.4f} ms (plain {bq_plain_ms:.4f}), "
+              f"tie flips {flips}, max |err| {err:.3g}, in-ball share "
+              f"{float(in_ball.float().mean()):.3f}; gather {g_ms:.4f} ms (two torch.gather "
+              f"{lib_ms:.4f}), rows bit-equal, gradient {g_err:.3g} of its largest", flush=True)
+    print(f"PointNeXt-XL's 19 groupings a forward at B {B}: ball queries {sums[0]:.4f} ms "
+          f"(plain {sums[1]:.4f}), gathers {sums[2]:.4f} ms (two torch.gather {sums[3]:.4f})")
+
+
+def pointnext_xl_step(device) -> None:
+    """One PointNeXt-XL train step at B 32 x 4,096, the launch counters set
+    to 0 just before it: `XL_LAUNCHES` and no other kernel. Then its step
+    time and peak memory over three steps."""
+    from pointseg_torch.models import create_model
+    from pointseg_torch.train.state import create_train_state, train_step
+
+    rng = np.random.default_rng(21)
+    B, N = 32, 4096
+    x = np.concatenate([block_cloud(rng, B, N), rng.random((B, N, 6), dtype=np.float32)], -1)
+    labels = torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, 14, (B, N))), 14)
+    batch = (torch.from_numpy(x).to(device), labels.to(torch.uint8).to(device),
+             torch.full((B,), N, dtype=torch.int32, device=device))
+    torch.manual_seed(0)
+    run = create_train_state(create_model("PointNeXt-XL"), device=device, learning_rate=1e-3,
+                             seed=0)
+    train_step(run, *batch)  # builds and warms every kernel
+    torch.cuda.synchronize()
+    zero_launches()
+    loss = float(train_step(run, *batch)["loss"])
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches != XL_LAUNCHES or not math.isfinite(loss):
+        raise AssertionError(f"PointNeXt-XL train step: launches {launches}, want "
+                             f"{XL_LAUNCHES}; loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: train_step(run, *batch), 3)
+    print(f"PointNeXt-XL train step (B={B}, N={N}): launches {launches}, loss {loss:.4f}, "
+          f"{step_ms:.3f} ms (3 steps), peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del run, batch
+    torch.cuda.empty_cache()
+
+
 def sector_bytes(idx: torch.Tensor, row_bytes: int, table_bytes: int) -> int:
     """Bytes of the distinct 32-byte sectors that the rows `idx` of a
     table of `row_bytes`-wide rows touch: what these indices make the
@@ -2537,6 +2682,7 @@ def trainer_phase(device, workdir: str):
             device)
         states[name] = (state, {**steady_state(state, batch, name), "cli_launches": got})
     few_steps("PointNeXt-L", batch, device)
+    pointnext_xl_step(device)
     # the two-level kernels from a command a user can type: the JAX
     # package's switch, read by the port's CLI
     select2l = {}
@@ -4522,6 +4668,7 @@ def main() -> int:
     launch_path_split(device)
     gather_call_split(device)
     sa_grouping_forms(device)
+    pointnext_xl_groupings(device)
     streams_and_graphs(device)
 
     phase("4. trainers")

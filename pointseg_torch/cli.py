@@ -61,9 +61,9 @@ import torch
 
 from pointseg_torch.data.s3dis import NUM_S3DIS_CLASSES, S3DIS_CLASSES, S3DIS_CLASSES_13
 
-# the JAX package's model names (pointseg_torch.models.MODELS)
+# pointseg_torch.models.MODELS: the JAX package's model names and the port's PointNeXt-XL
 MODEL_CHOICES = ["PointNet", "PointNet++", "PointNet++MSG", "PointNeXt",
-                 "PointNeXt-B", "PointNeXt-L", "DeepGraphCnn", "DGCNN"]
+                 "PointNeXt-B", "PointNeXt-L", "PointNeXt-XL", "DeepGraphCnn", "DGCNN"]
 DGCNN_NAMES = ("DeepGraphCnn", "DGCNN")
 
 EVAL_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
@@ -850,7 +850,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="pointseg_torch",
         description="pointseg's PyTorch / CUDA port: trains, evaluates, exports and "
-                    "benchmarks PointNet, PointNet++ (SSG and MSG), PointNeXt (-B, -L) and "
+                    "benchmarks PointNet, PointNet++ (SSG and MSG), PointNeXt (-B, -L, -XL) and "
                     "the DGCNNs.")
     sub = parser.add_subparsers(dest="command", required=True)
     train = sub.add_parser("train", help="Train a model on block data.")

@@ -1,7 +1,9 @@
 """Model registry (port of `pointseg.models`): all eight of the JAX
-package's names. `PointNetCls` is exported and, as in the JAX package,
-not registered: the registry is the segmentation CLI's ((B, N, C)
-logits), and it emits per-cloud (B, C) logits."""
+package's names, and `PointNeXt-XL`, which only the port has
+(`models/pointnext.py::PointNeXtXL`, the published layout). `PointNetCls`
+is exported and, as in the JAX package, not registered: the registry is
+the segmentation CLI's ((B, N, C) logits), and it emits per-cloud (B, C)
+logits."""
 
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ from pointseg_torch.models.pointnet import (  # noqa: F401
     PointNetSeg,
 )
 from pointseg_torch.models.pointnetpp import PointNetPP, PointNetPPMSG
-from pointseg_torch.models.pointnext import PointNeXt
+from pointseg_torch.models.pointnext import PointNeXt, PointNeXtXL
 
-# CLI names as in the JAX package's registry
+# CLI names as in the JAX package's registry, and the port's own PointNeXt-XL
 MODELS = {
     "PointNet": PointNetSeg,
     "PointNet++": PointNetPP,
@@ -27,6 +29,7 @@ MODELS = {
     "PointNeXt": PointNeXt,
     "PointNeXt-B": partial(PointNeXt, blocks=(2, 3, 2, 2)),
     "PointNeXt-L": partial(PointNeXt, blocks=(3, 5, 3, 3)),
+    "PointNeXt-XL": PointNeXtXL,
     "DeepGraphCnn": DGCNNWithColor,
     "DGCNN": DGCNN,
 }

@@ -36,6 +36,7 @@ from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu
 from pointseg_torch.parallel import points as pts
 from pointseg_torch.parallel import tensor_parallel as tp_ops
 from pointseg_torch.parallel.mesh import active, all_reduce_sum
+from pointseg_torch.utils.trace import span
 
 
 class GroupedFirstLayer(SharedMLP):
@@ -48,7 +49,8 @@ class GroupedFirstLayer(SharedMLP):
     of once per (centroid, neighbour) after it; `pointseg/nn/blocks.py`
     explains the saving. W_r and W_f are column slices of the one weight
     `conv.0.weight` (out, 3 + D), the reference's layout, so the gradient
-    is that of the unsplit layer. W_r carries the bias.
+    is that of the unsplit layer. W_r carries the bias; `bias=False` makes
+    every layer bias-free (openpoints' convolutions before a BatchNorm).
 
     Where the JAX GroupedFirstLayer is that first layer alone and
     SetAbstraction adds a SharedMLP for the rest, this module carries all
@@ -62,8 +64,9 @@ class GroupedFirstLayer(SharedMLP):
 
     def __init__(self, in_features: int, widths: Sequence[int], radius: float,
                  K: int, normalize: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
-        super().__init__(3 + in_features, widths, dtype=dtype)
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
+        super().__init__(3 + in_features, widths, use_bias=bias, dtype=dtype)
         self.radius = radius
         self.K = K
         self.normalize = normalize
@@ -91,7 +94,7 @@ class GroupedFirstLayer(SharedMLP):
         if self.normalize:
             rel = rel / self.radius
         rel = cast(rel, dtype)  # float32 up to here, as in the JAX block
-        x = gfeat + F.linear(rel, w_rel, cast(first.bias, dtype))
+        x = gfeat + F.linear(rel, w_rel, None if first.bias is None else cast(first.bias, dtype))
         if plan is not None and plan.mode == "column":
             x = tp_ops.gather(x, plan)
         x = F.relu(self.batch[0](x))
@@ -103,37 +106,48 @@ class GroupedFirstLayer(SharedMLP):
 class SetAbstraction(torch.nn.Module):
     """FPS -> ball-query regions -> shared MLP -> max/avg pool.
 
+    `num_centroids` is C; with `stride` (and `num_centroids` None) C is
+    each level's N // stride, openpoints' strided stages. `bias=False`
+    makes the region MLP bias-free.
+
     forward(coords (B, N, 3), features (B, N, D)) ->
     (centroids (B, C, 3), features (B, C, mlps[-1])).
     """
 
-    def __init__(self, num_centroids: int, radius: float, in_features: int,
+    def __init__(self, num_centroids: int | None, radius: float, in_features: int,
                  mlps: Sequence[int], K: int = 32, pooling: str = "max",
                  grouping_norm: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32,
+                 stride: int | None = None, bias: bool = True):
         super().__init__()
+        if (num_centroids is None) == (stride is None):
+            raise ValueError("give num_centroids or stride, not both or neither")
         self.num_centroids = num_centroids
+        self.stride = stride
         self.pooling = pooling
         self.point_net = GroupedFirstLayer(in_features, mlps, radius, K,
                                            normalize=grouping_norm, ball_select=ball_select,
-                                           filler=filler, dtype=dtype)
+                                           filler=filler, dtype=dtype, bias=bias)
 
     def forward(self, coords, features, mask=None, generator=None):
         centroids, coords, features, mask = _centroids(self.num_centroids, coords, features,
-                                                       mask, generator)
+                                                       mask, generator, self.stride)
         regions = self.point_net(centroids, coords, features, mask=mask)
         return centroids, ops.reduce(regions, self.pooling, dim=2)
 
 
-def _centroids(num_centroids, coords, features, mask, generator):
-    """FPS and its centroids. Point-sharded (`parallel/points.py`): on
-    the whole level, gathered, the centroids this rank's share; returns
-    (centroids, coords, features, mask) with the level whole."""
+def _centroids(num_centroids, coords, features, mask, generator, stride=None):
+    """FPS and its centroids (`num_centroids`, or the whole level's
+    N // `stride`). Point-sharded (`parallel/points.py`): on the whole
+    level, gathered, the centroids this rank's share; returns (centroids,
+    coords, features, mask) with the level whole."""
     split = pts.point_split()
     if split is not None:
         if mask is not None:
             raise ValueError("the point-sharded forward takes no mask")
         coords, features = pts.gather(split, coords, features)
+    if stride is not None:
+        num_centroids = coords.shape[1] // stride
     idx = ops.farthest_point_sampling(coords, num_centroids, generator=generator, mask=mask)
     centroids = ops.gather_rows(coords, idx)
     if split is not None:
@@ -177,13 +191,13 @@ class FeaturePropagation(torch.nn.Module):
     """3-NN inverse-distance upsampling + skip concat + per-point MLP.
 
     forward(coords_tgt, coords_src, skip, features) follows the JAX
-    block's argument order.
+    block's argument order. `bias=False` makes the MLP bias-free.
     """
 
     def __init__(self, in_features: int, mlps: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__()
-        self.point_net = SharedMLP(in_features, mlps, dtype=dtype)
+        self.point_net = SharedMLP(in_features, mlps, use_bias=bias, dtype=dtype)
 
     def forward(self, coords_tgt, coords_src, skip, features):
         split = pts.point_split()
@@ -201,28 +215,40 @@ class InvResMLP(torch.nn.Module):
     radius) -> one grouped layer -> pool -> point MLP (4m -> m) ->
     residual add.
 
+    By default both point layers end in ReLU and the sum has none (the
+    reference repo's block). `residual_act=True` is the published order
+    (Qian et al. 2022; openpoints' `InvResMLP`): the second point layer
+    ends at its BatchNorm and ReLU follows the residual add.
+    `bias=False` makes every layer bias-free. Each forward runs inside the
+    span `pointseg_torch.model.invres` (`utils/trace.py`).
+
     forward(coords (B, N, 3), features (B, N, m)) -> (coords, (B, N, m)).
     The submodule names are the reference torch model's.
     """
 
     def __init__(self, radius: float, mlp_size: int, K: int, pooling: str = "max",
                  ball_select: str = "flat", filler: str = "repeat",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, residual_act: bool = False,
+                 bias: bool = True):
         super().__init__()
         self.pooling = pooling
+        self.residual_act = residual_act
         self.neighbour_features_mlp = GroupedFirstLayer(
             mlp_size, [mlp_size], radius, K, normalize=True,
-            ball_select=ball_select, filler=filler, dtype=dtype)
-        self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size], dtype=dtype)
+            ball_select=ball_select, filler=filler, dtype=dtype, bias=bias)
+        self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size],
+                                            use_bias=bias, dtype=dtype,
+                                            last_act=not residual_act)
 
     def forward(self, coords, features, mask=None):
-        table, table_features = coords, features
-        split = pts.point_split()
-        if split is not None:  # this rank's points against the whole level
-            table, table_features = pts.gather(split, coords, features)
-        h = self.neighbour_features_mlp(coords, table, table_features, mask=mask)  # (B, N, K, m)
-        h = self.point_features_mlp(ops.reduce(h, self.pooling, dim=2))
-        return coords, h + features
+        with span("pointseg_torch.model.invres"):
+            table, table_features = coords, features
+            split = pts.point_split()
+            if split is not None:  # this rank's points against the whole level
+                table, table_features = pts.gather(split, coords, features)
+            h = self.neighbour_features_mlp(coords, table, table_features, mask=mask)
+            h = self.point_features_mlp(ops.reduce(h, self.pooling, dim=2)) + features
+            return coords, F.relu(h) if self.residual_act else h
 
 
 class BNStats(BatchNorm):

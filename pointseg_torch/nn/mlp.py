@@ -225,17 +225,20 @@ class SharedMLP(nn.Module):
 
     `act` defaults to ReLU and `use_bias` to True, as in the reference's
     PointNet++ MLPs; its DGCNN convolutions are bias-free with
-    `leaky_relu_02`. The submodules are named `conv.i` and `batch.i`, the
+    `leaky_relu_02`. `last_act=False` ends the last layer at its
+    BatchNorm. The submodules are named `conv.i` and `batch.i`, the
     key layout of the reference's torch MLPs that
     `pointseg/io/torch_import.py` reads.
     """
 
     def __init__(self, in_features: int, widths: Sequence[int],
                  act: Callable[[torch.Tensor], torch.Tensor] = F.relu,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 last_act: bool = True):
         super().__init__()
         self.act = act
         self.dtype = dtype
+        self.last_act = last_act
         self.conv = nn.ModuleList()
         self.batch = nn.ModuleList()
         for width in widths:
@@ -245,6 +248,8 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = cast(x, self.dtype)
-        for conv, bn in zip(self.conv, self.batch):
-            x = self.act(bn(conv(x)))
+        for i, (conv, bn) in enumerate(zip(self.conv, self.batch)):
+            x = bn(conv(x))
+            if self.last_act or i < len(self.conv) - 1:
+                x = self.act(x)
         return x

@@ -215,7 +215,9 @@ def ball_query(
         centroids: (B, C, 3) query centres.
         coords: (B, N, 3) all points.
         radius: ball radius r; a point is in the ball when d² <= r².
-        K: neighbours per ball.
+        K: neighbours per ball. K > N (a ball wider than its level, as
+            PointNeXt-XL's last stage at N = 4096) selects all N points
+            and fills slots N..K-1 with slot 0, under either filler.
         mask: optional (B, N) bool; False points are never members.
         filler: 'repeat' or 'index' (module docstring).
         select: 'flat' or 'two_level', the CUDA kernel to launch
@@ -227,7 +229,13 @@ def ball_query(
     """
     if filler not in FILLERS:
         raise ValueError(f"filler must be one of {FILLERS}, got {filler!r}")
-    return _select(centroids, coords, radius, K, mask, select, repeat=filler == "repeat")
+    N = coords.shape[1]
+    if K <= N or N == 0:
+        return _select(centroids, coords, radius, K, mask, select, repeat=filler == "repeat")
+    idx, in_ball = _select(centroids, coords, radius, N, mask, select, repeat=filler == "repeat")
+    pad = (*idx.shape[:-1], K - N)
+    return (torch.cat([idx, idx[..., :1].expand(pad)], dim=-1),
+            torch.cat([in_ball, in_ball.new_zeros(pad)], dim=-1))
 
 
 def group(

@@ -23,6 +23,9 @@ The names, each opened on the thread that does the work:
   launches the backward kernels from its own thread while this one waits),
   `.step.update` (the gradients' reduction over ranks, the rate, the
   clip, Adam) and `.step.metrics` (the batch's loss, accuracy, mIoU);
+- `.model.invres` around each PointNeXt InvResMLP block's forward
+  (`nn/blocks.py`: ball query, grouped layer, max, point MLP, residual
+  add), inside `.step.forward` in a train step;
 - `.loop.to_device`, `.loop.epoch_close` (the epoch's host read of its
   mean loss), `.loop.log_read` (the logger's host reads);
 - `.data.epoch_start` (the device store's seeding and permutation),

@@ -44,6 +44,7 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 
 from pointseg import ops as jops
 from pointseg.data.datasets import create_chunked_dataloaders as jax_chunked_loaders
+from pointseg.models import MODEL_REGISTRY as JAX_MODELS
 from pointseg.models import create_model as jax_create_model
 from pointseg.train import legacy as jax_legacy
 from pointseg.train import enhanced as jax_enhanced
@@ -53,7 +54,7 @@ from pointseg_torch.data import synthetic
 from pointseg_torch.data.datasets import create_chunked_dataloaders
 from pointseg_torch.data.s3dis import S3DIS_CLASSES, S3DIS_CLASSES_13
 from pointseg_torch.io import from_jax_variables
-from pointseg_torch.models import MODELS, create_model
+from pointseg_torch.models import create_model
 from pointseg_torch.train import enhanced, legacy
 from pointseg_torch.train.state import create_train_state
 
@@ -84,7 +85,7 @@ def _random_variables(model, x, seed):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", sorted(JAX_MODELS))  # PointNeXt-XL: test_torch_pointnext_xl.py
 def test_every_model_takes_the_rooms_input_width_as_jax_does(name):
     rng = np.random.default_rng(INPUT_SEED)
     x = np.zeros((B, N, 6), np.float32)

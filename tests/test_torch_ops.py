@@ -181,7 +181,12 @@ def test_ball_query_rejects_bad_filler_and_k():
     with pytest.raises(ValueError):
         tops.ball_query(pts, pts, 0.2, 4, filler="nearest")
     with pytest.raises(ValueError):
-        tops.ball_query(pts, pts, 0.2, 21)
+        tops.ball_query(pts, pts, 0.2, 0)
+    # K > N is a ball wider than its level: all N points, then slot 0 as a non-member
+    idx, in_ball = tops.ball_query(pts, pts, 0.2, 21)
+    want_idx, want_in = tops.ball_query(pts, pts, 0.2, 20)
+    assert torch.equal(idx, torch.cat([want_idx, want_idx[..., :1]], dim=-1))
+    assert torch.equal(in_ball, torch.cat([want_in, torch.zeros_like(want_in[..., :1])], dim=-1))
     with pytest.raises(ValueError, match="select"):
         tops.ball_query(pts, pts, 0.2, 4, select="strided")
 
