@@ -173,10 +173,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    `ball_select="two_level"` and three with "flat" from the same weights,
    batch and seeds: ball_query_2l must launch (9 or 8 a step) and
    ball_query never, first losses equal to 1e-6 relative. Three steps of
-   PointNeXt-L give its step time and peak memory. One PointNeXt-XL
-   train step at B 32 x 4,096, the counters set to 0 just before it,
-   must launch fps 4, ball_query 19, three_nn 4 and gather_rows 27 times
-   and nothing else; three more give its step time and peak memory.
+   PointNeXt-L give its step time and peak memory. The train steps
+   replay a CUDA graph after their state's first two (eager, then
+   captured), so every count a step here is over the steps that launched
+   from Python (`train/state.py::STEP_GRAPHS`, `launched_steps`). One
+   PointNeXt-XL train step at B 32 x 4,096, the captured one, the
+   counters set to 0 just before it, must launch fps 4, ball_query 19,
+   three_nn 4 and gather_rows 27 times and nothing else; three replayed
+   ones give its step time and peak memory, and three more replayed
+   steps against three eager steps of a copy of the state must be
+   counted as replays, with the first loss bit-equal and the others
+   within 1e-5.
    `train PointNeXt`
    and `train DeepGraphCnn` again with POINTSEG_SELECT2L=1 (the JAX
    package's switch, read by the port's CLI): ball_query_2l (9 a step)
@@ -363,6 +370,7 @@ The next-to-last line of output is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import glob
 import io
@@ -2027,8 +2035,13 @@ def pointnext_xl_groupings(device) -> None:
 
 def pointnext_xl_step(device) -> None:
     """One PointNeXt-XL train step at B 32 x 4,096, the launch counters set
-    to 0 just before it: `XL_LAUNCHES` and no other kernel. Then its step
-    time and peak memory over three steps."""
+    to 0 just before it: `XL_LAUNCHES` and no other kernel. The step is
+    the state's second, the one captured into its CUDA graph (it launches
+    from Python once; a replay launches nothing from Python). Then its
+    step time and peak memory over three replayed steps, and three steps
+    replayed against three eager steps from a copy of the same state and
+    generators: replays counted, the first loss bit-equal, the others
+    within 1e-5."""
     from pointseg_torch.models import create_model
     from pointseg_torch.train.state import create_train_state, train_step
 
@@ -2041,21 +2054,68 @@ def pointnext_xl_step(device) -> None:
     torch.manual_seed(0)
     run = create_train_state(create_model("PointNeXt-XL"), device=device, learning_rate=1e-3,
                              seed=0)
-    train_step(run, *batch)  # builds and warms every kernel
+    train_step(run, *batch)  # builds and warms every kernel; makes Adam's moments
     torch.cuda.synchronize()
     zero_launches()
+    before = step_counts()
     loss = float(train_step(run, *batch)["loss"])
     launches = {k: v for k, v in read_launches().items() if v}
-    if launches != XL_LAUNCHES or not math.isfinite(loss):
+    captured = step_counts()["captured"] - before["captured"]
+    if launches != XL_LAUNCHES or captured != 1 or not math.isfinite(loss):
         raise AssertionError(f"PointNeXt-XL train step: launches {launches}, want "
-                             f"{XL_LAUNCHES}; loss {loss}")
+                             f"{XL_LAUNCHES}; captured {captured}, want 1; loss {loss}")
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: train_step(run, *batch), 3)
-    print(f"PointNeXt-XL train step (B={B}, N={N}): launches {launches}, loss {loss:.4f}, "
-          f"{step_ms:.3f} ms (3 steps), peak allocated "
+    print(f"PointNeXt-XL train step (B={B}, N={N}): launches {launches} (the captured step), "
+          f"loss {loss:.4f}, {step_ms:.3f} ms (3 replayed steps), peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    graphed_against_eager(run, batch, "PointNeXt-XL")
     del run, batch
     torch.cuda.empty_cache()
+
+
+def copy_train_state(state):
+    """A copy of a `TrainState` sharing no tensor with it: model, Adam's
+    moments and step counts, rate tensors, FPS generator state, step."""
+    from pointseg_torch.train.state import TrainState
+
+    model = copy.deepcopy(state.model)
+    optimizer = type(state.optimizer)(model.parameters(), state.optimizer.learning_rate,
+                                      state.optimizer.schedule, state.optimizer.total_steps,
+                                      state.optimizer.warmup_steps, state.optimizer.grad_clip)
+    optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    generator = torch.Generator(device=state.generator.device)
+    generator.set_state(state.generator.get_state())
+    return TrainState(model, optimizer, generator, step=state.step)
+
+
+def graphed_against_eager(run, batch, label: str, steps: int = 3) -> None:
+    """`steps` train steps of `run` (replays of its graph) against the same
+    steps of a copy kept eager by a forward hook, from one dropout
+    generator state: every step of `run` replayed, the first loss
+    bit-equal (its forward has no atomics), the others within 1e-5
+    (the backward's `index_add_` adds in another order each run)."""
+    from pointseg_torch.train.state import train_step
+
+    eager = copy_train_state(run)
+    hook = eager.model.register_forward_hook(lambda *a: None)
+    rng = torch.cuda.get_rng_state()
+    losses = {}
+    for name, state in (("graphed", run), ("eager", eager)):
+        torch.cuda.set_rng_state(rng)
+        before = step_counts()
+        losses[name] = [float(train_step(state, *batch)["loss"]) for _ in range(steps)]
+        counts = {k: v - before[k] for k, v in step_counts().items()}
+        want = ({"captured": 0, "replayed": steps, "eager": 0} if name == "graphed"
+                else {"captured": 0, "replayed": 0, "eager": steps})
+        if counts != want:
+            raise AssertionError(f"{label} {name} steps: {counts}, want {want}")
+    hook.remove()
+    a, b = losses["graphed"], losses["eager"]
+    if a[0] != b[0] or any(abs(x - y) > 1e-5 * abs(y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: replayed losses {a} against eager {b}")
+    print(f"{label}: {steps} replayed steps against {steps} eager steps from a copy of the "
+          f"state: losses {a} / {b} (the first bit-equal)", flush=True)
 
 
 def sector_bytes(idx: torch.Tensor, row_bytes: int, table_bytes: int) -> int:
@@ -2416,6 +2476,22 @@ def read_launches() -> dict:
     return dict(_kernels.LAUNCHES)
 
 
+def step_counts() -> dict:
+    """`train/state.py::STEP_GRAPHS` as it stands: train steps captured,
+    replayed and run eagerly."""
+    from pointseg_torch.train.state import STEP_GRAPHS
+
+    return dict(STEP_GRAPHS)
+
+
+def launched_steps(before: dict) -> int:
+    """Train steps since `before` (a `step_counts()`) that launched their
+    kernels from Python: the eager and the captured ones. A replayed step
+    launches none, so a launch count covers these steps alone."""
+    now = step_counts()
+    return now["eager"] - before["eager"] + now["captured"] - before["captured"]
+
+
 def own_kernel_names() -> set:
     """The `__global__` functions of the port's CUDA sources."""
     from pointseg_torch.ops import _kernels
@@ -2496,8 +2572,11 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
                       env: dict | None = None):
     """One epoch and its evaluation through the CLI, with `flags` added
     and the environment variables `env` set for the run; returns (state,
-    launches, records). Raises unless every kernel in `needed` was
-    launched and the train split came by way of `mode`."""
+    launches, records), `records["launched_steps"]` the train steps that
+    launched from Python (`launched_steps`: the launches count these and
+    the evaluation's forwards, not the replayed steps). Raises unless every
+    kernel in `needed` was launched and the train split came by way of
+    `mode`."""
     from pointseg_torch import cli
 
     argv = ["train", model_name, "--synthetic", "--data-dir", f"{workdir}/data",
@@ -2510,9 +2589,12 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
     os.environ.update(env)
     try:
         zero_launches()
+        before = step_counts()
         t0 = time.time()
         state, records = cli.train_from_args(args)
         launches = read_launches()
+        records["launched_steps"] = launched_steps(before)
+        steps = {k: v - before[k] for k, v in step_counts().items()}
     finally:
         for name, value in saved.items():
             if value is None:
@@ -2521,7 +2603,7 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
                 os.environ[name] = value
     shown = " ".join([*(f"{k}={v}" for k, v in env.items()), *flags])
     print(f"{model_name} {shown}: {time.time() - t0:.1f} s for one epoch ({state.step} "
-          f"steps) and its evaluation; launches {launches}")
+          f"steps; `train_step` calls {steps}) and its evaluation; launches {launches}")
     if records["config"]["data_mode"] != mode:
         raise AssertionError(f"train {model_name} {flags}: the train split came by way of "
                              f"{records['config']['data_mode']!r}, not {mode!r}")
@@ -2547,21 +2629,25 @@ def two_level_against_flat(model_name: str, option: str, flat: str, two_level: s
     from pointseg_torch.train.state import create_train_state, train_step
 
     weights = {k: v.clone() for k, v in state.model.state_dict().items()}
-    losses, launches = {}, {}
+    losses, launches, launched = {}, {}, {}
     for select in ("two_level", "flat"):
         model = create_model(model_name, **{option: select})
         model.load_state_dict(weights)
         run = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
         torch.manual_seed(1234)  # the same dropout masks in both runs
         zero_launches()
+        before = step_counts()
         losses[select] = [float(train_step(run, *batch)["loss"]) for _ in range(3)]
         launches[select] = read_launches()
+        launched[select] = launched_steps(before)  # eager, then captured; the third replays
     print(f"{model_name} two-level: losses {losses['two_level']} launches {launches['two_level']}")
     print(f"{model_name} flat:      losses {losses['flat']} launches {launches['flat']}")
     for select, used, unused in (("two_level", two_level, flat), ("flat", flat, two_level)):
-        if launches[select][used] != 3 * per_step or launches[select][unused] != 0:
+        if (launched[select] != 2 or launches[select][used] != 2 * per_step
+                or launches[select][unused] != 0):
             raise AssertionError(f"{model_name} {option}={select!r} must launch {used} "
-                                 f"{per_step} times a step and {unused} never: "
+                                 f"{per_step} times in each of the 2 steps launched from "
+                                 f"Python ({launched[select]}) and {unused} never: "
                                  f"{launches[select]}")
     for step, (a, b) in enumerate(zip(losses["two_level"], losses["flat"])):
         rel = 1e-6 if step == 0 else 1e-3
@@ -2573,32 +2659,37 @@ def two_level_against_flat(model_name: str, option: str, flat: str, two_level: s
 
 def few_steps(model_name: str, batch, device) -> None:
     """Step time and peak memory of three train steps of `model_name` from
-    fresh weights, after two warm-up steps."""
+    fresh weights, after two warm-up steps (eager, then captured: the
+    launches a step are theirs; the three timed steps replay)."""
     from pointseg_torch.models import create_model
     from pointseg_torch.train.state import create_train_state, train_step
 
     torch.manual_seed(0)
     run = create_train_state(create_model(model_name), device=device, learning_rate=1e-3, seed=0)
-    loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    before = step_counts()
+    loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
+    launches, launched = read_launches(), launched_steps(before)
+    torch.cuda.reset_peak_memory_stats()
+    before = step_counts()
     step_ms = cuda_ms(lambda: train_step(run, *batch), 3)
-    launches = read_launches()
-    if not math.isfinite(loss) or launches["ball_query"] == 0:
-        raise AssertionError(f"{model_name}: loss {loss}, launches {launches}")
+    replayed = step_counts()["replayed"] - before["replayed"]
+    if not math.isfinite(loss) or launches["ball_query"] == 0 or launched != 2 or replayed != 3:
+        raise AssertionError(f"{model_name}: loss {loss}, launches {launches} in {launched} "
+                             f"steps launched from Python, then {replayed} of 3 replayed")
     points = batch[0].shape[0] * batch[0].shape[1]
-    print(f"{model_name} train step (3 steps): {step_ms:.3f} ms, "
+    print(f"{model_name} train step (3 steps, replayed): {step_ms:.3f} ms, "
           f"{points / (step_ms / 1e3):.0f} points/s, peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches a step "
-          f"{ {k: v // 3 for k, v in launches.items() if v} }")
+          f"{ {k: v // 2 for k, v in launches.items() if v} }")
     del run
     torch.cuda.empty_cache()
 
 
 def remat_cost(state, batch, device) -> None:
     """Step time and peak memory of DeepGraphCnn with and without
-    `EdgeConv.remat`, from the same weights and batch."""
+    `EdgeConv.remat`, from the same weights and batch: the launches of its
+    two steps launched from Python, the time of five replayed ones."""
     from pointseg_torch.models import create_model
     from pointseg_torch.train.state import create_train_state, train_step
 
@@ -2609,13 +2700,14 @@ def remat_cost(state, batch, device) -> None:
         for conv in (model.conv1, model.conv2, model.conv3, model.conv4):
             conv.remat = remat
         run = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
-        loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         zero_launches()
-        step_ms = cuda_ms(lambda: train_step(run, *batch), 5)
-        # edge_reduce's forward and backward kernel, 4 each; remat runs the forward twice
-        reduces = read_launches()["edge_reduce"] // 5
+        before = step_counts()
+        loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
+        # the two steps launched from Python (eager, captured): edge_reduce's forward and
+        # backward kernel, 4 each a step; remat runs the forward twice
+        reduces = read_launches()["edge_reduce"] // launched_steps(before)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: train_step(run, *batch), 5)  # replays
         if not math.isfinite(loss) or reduces != (12 if remat else 8):
             raise AssertionError(f"remat={remat}: loss {loss}, {reduces} edge_reduce launches "
                                  f"a step")
@@ -2630,13 +2722,13 @@ def trainer_phase(device, workdir: str):
     from pointseg_torch.data.datasets import create_block_dataloaders
     from pointseg_torch.train.loop import to_device
 
-    pp_state, pp_launches, _ = train_through_cli(
+    pp_state, pp_launches, pp_rec = train_through_cli(
         "PointNet++", workdir, ("fps", "ball_query", "three_nn", "gather_rows"))
     if (pp_launches["knn"] or pp_launches["knn_2l"] or pp_launches["ball_query_2l"]
             or pp_launches["gather_rows_flat"]):
         raise AssertionError(f"PointNet++ launched kernels off its path: {pp_launches}")
-    forwards = pp_launches["fps"] // 4  # train steps and eval batches
-    if forwards <= pp_state.step or any(pp_launches[k] != 4 * forwards
+    forwards = pp_launches["fps"] // 4  # train steps launched from Python and eval batches
+    if forwards <= pp_rec["launched_steps"] or any(pp_launches[k] != 4 * forwards
                                         for k in ("fps", "ball_query", "three_nn")):
         raise AssertionError(f"PointNet++: every forward pass must launch fps, ball_query and "
                              f"three_nn 4 times each, got {pp_launches}")
@@ -2650,12 +2742,13 @@ def trainer_phase(device, workdir: str):
     pn_perf = {**steady_state(pn_state, batch, "PointNet"), "cli_launches": pn_launches}
     matmul_floor(pn_state.model, batch, pn_perf, "PointNet")
 
-    dg_state, dg_launches, _ = train_through_cli("DeepGraphCnn", workdir,
-                                                 ("knn", "edge_reduce"))
-    steps = dg_state.step
+    dg_state, dg_launches, dg_rec = train_through_cli("DeepGraphCnn", workdir,
+                                                      ("knn", "edge_reduce"))
+    steps = dg_rec["launched_steps"]  # a replayed step launches nothing from Python
     if dg_launches["knn"] < 4 * steps or dg_launches["edge_reduce"] < 8 * steps:
-        raise AssertionError(f"DeepGraphCnn: {steps} steps need at least {4 * steps} kNN and "
-                             f"{8 * steps} edge_reduce launches, got {dg_launches}")
+        raise AssertionError(f"DeepGraphCnn: {steps} steps launched from Python need at least "
+                             f"{4 * steps} kNN and {8 * steps} edge_reduce launches, got "
+                             f"{dg_launches}")
     if (dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]
             or dg_launches["gather_rows"]):
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
@@ -2668,13 +2761,14 @@ def trainer_phase(device, workdir: str):
 
     # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
     for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
-        state, got, _ = train_through_cli(name, workdir,
-                                          ("fps", "ball_query", "three_nn", "gather_rows"))
+        state, got, rec = train_through_cli(name, workdir,
+                                            ("fps", "ball_query", "three_nn", "gather_rows"))
         forwards = got["fps"] // per_forward[0]
         want = {"fps": per_forward[0] * forwards, "ball_query": per_forward[1] * forwards,
                 "three_nn": per_forward[2] * forwards, "ball_query_2l": 0, "knn": 0, "knn_2l": 0}
-        if forwards <= state.step or any(got[k] != v for k, v in want.items()):
-            raise AssertionError(f"{name}: {state.step} steps and their evaluation must launch "
+        if forwards <= rec["launched_steps"] or any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: {rec['launched_steps']} steps launched from Python "
+                                 f"and their evaluation must launch "
                                  f"{per_forward} (fps, ball_query, three_nn) per forward pass "
                                  f"and no other selection kernel, got {got}")
         two_level_against_flat(
@@ -2688,10 +2782,11 @@ def trainer_phase(device, workdir: str):
     select2l = {}
     for name, used, unused, per_step in (("PointNeXt", "ball_query_2l", "ball_query", 9),
                                          ("DeepGraphCnn", "knn_2l", "knn", 4)):
-        state, got, _ = train_through_cli(name, workdir, (used,),
-                                          env={"POINTSEG_SELECT2L": "1"})
-        if got[unused] or got[used] < per_step * state.step:
-            raise AssertionError(f"POINTSEG_SELECT2L=1 train {name}: {state.step} steps must "
+        state, got, rec = train_through_cli(name, workdir, (used,),
+                                            env={"POINTSEG_SELECT2L": "1"})
+        if got[unused] or got[used] < per_step * rec["launched_steps"]:
+            raise AssertionError(f"POINTSEG_SELECT2L=1 train {name}: {rec['launched_steps']} "
+                                 f"steps launched from Python must "
                                  f"launch {used} at least {per_step} times a step and {unused} "
                                  f"never, got {got}")
         select2l[used] = got[used]
@@ -2772,10 +2867,12 @@ def device_store_phase(device, workdir: str, pp_state) -> int:
     if accum_state.step != (steps + 1) // 2 or launches["gather_rows_flat"]:
         raise AssertionError(f"--accum-steps 2: {accum_state.step} updates from {steps} "
                              f"batches, launches {launches}")
-    _, launches, _ = train_through_cli("DeepGraphCnn", workdir,
-                                       ("knn", "edge_reduce", "gather_rows_flat"),
-                                       ("--device-data",), "device")
-    if launches["gather_rows_flat"] != 2 * steps or launches["knn"] < 4 * steps:
+    _, launches, rec = train_through_cli("DeepGraphCnn", workdir,
+                                         ("knn", "edge_reduce", "gather_rows_flat"),
+                                         ("--device-data",), "device")
+    # the store samples every batch from Python; the model launches in the steps that do
+    if (launches["gather_rows_flat"] != 2 * steps
+            or launches["knn"] < 4 * rec["launched_steps"]):
         raise AssertionError(f"DeepGraphCnn --device-data: {launches}")
 
     # the two stores by themselves
@@ -3327,11 +3424,14 @@ def export_kernels(model_name: str) -> tuple[str, ...]:
 
 def benchmark_in_process(model_name: str, mode: str, smi: str, flags: tuple = ()) -> dict:
     """`benchmark` through `cli.main` with `flags` added, its line printed
-    and checked, the launches of each kernel counted over its calls."""
+    and checked, the launches of each kernel counted over its calls that
+    launched from Python: every forward, and the train steps that ran
+    eagerly or were captured (the first two; the others replay)."""
     from pointseg_torch import cli
 
     out = io.StringIO()
     zero_launches()
+    before = step_counts()
     with contextlib.redirect_stdout(out):
         code = cli.main(["benchmark", "--model", model_name, "--mode", mode, *BENCH_ARGS,
                          *flags])
@@ -3340,7 +3440,7 @@ def benchmark_in_process(model_name: str, mode: str, smi: str, flags: tuple = ()
     print(line)
     result = json.loads(line)
     needed = path_kernels(model_name)
-    calls = BENCH_RUNS + BENCH_WARMUP
+    calls = launched_steps(before) if mode == "train" else BENCH_RUNS + BENCH_WARMUP
     per_call = {k: v / calls for k, v in launches.items() if v}
     print(f"benchmark {model_name} {mode} {' '.join(flags)} ({smi}): "
           f"{1e3 * result['mean_s']:.3f} ms a call, "
@@ -3839,9 +3939,11 @@ def legacy_phase(device, workdir: str, rooms: str) -> None:
     args = cli.build_parser().parse_args(
         ["train-legacy", "PointNet++", "--data-dir", rooms, "--epochs", "1",
          "--records-dir", f"{workdir}/legacy_records"])
+    before = step_counts()
     (state, records), launches = path_run("train-legacy PointNet++ (one epoch)",
                                           path_kernels("PointNet++"),
                                           lambda: cli.train_legacy_from_args(args))
+    forwards = launched_steps(before) + 1  # the steps launched from Python, one eval batch
     if not all(math.isfinite(records[k][0]) for k in ("train_loss", "val_loss")):
         raise AssertionError(f"train-legacy PointNet++: {records}")
     steps = state.step  # the epoch's; its evaluation is one batch of the two area-6 rooms
@@ -3854,7 +3956,7 @@ def legacy_phase(device, workdir: str, rooms: str) -> None:
     print(f"train-legacy PointNet++ (B=2, N=1000, 6 features, SA1 C=1024): {steps} steps, "
           f"loss {records['train_loss'][0]:.4f}, val {records['val_loss'][0]:.4f}; "
           f"{step_ms:.3f} ms a step (CUDA events, 10 steps); launches a forward "
-          f"{ {k: v / (steps + 1) for k, v in launches.items() if v} }", flush=True)
+          f"{ {k: v / forwards for k, v in launches.items() if v} }", flush=True)
     model = state.model.eval()
     with torch.no_grad():
         got = model(batch[0]).cpu()

@@ -280,7 +280,7 @@ def _train(args: argparse.Namespace, device: torch.device, mesh):
     from pointseg_torch.runtime import is_oom_error, oom_advice
     from pointseg_torch.train.logging import rank_logger, save_records
     from pointseg_torch.train.loop import train_model
-    from pointseg_torch.train.state import create_train_state
+    from pointseg_torch.train.state import STEP_GRAPHS, create_train_state
 
     main = mesh is None or mesh.rank == 0
     say = print if main else _quiet
@@ -374,6 +374,7 @@ def _train(args: argparse.Namespace, device: torch.device, mesh):
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
         print(f"Profiler trace written to {args.profile}")
+    print("Train steps: " + ", ".join(f"{n} {kind}" for kind, n in STEP_GRAPHS.items()))
     save_records(log_path, "records", records)
     print(f"View logs under: {log_path} (metrics.csv / metrics.jsonl)")
     print(f"Model checkpoints saved to: {ckpt_dir}.")

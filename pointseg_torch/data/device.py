@@ -1038,12 +1038,13 @@ class DeviceEpochLoader:
 
         The JAX package fuses `scan_steps` iterations into one
         `lax.scan` program and dispatches `ceil(len / scan_steps)` of
-        them. Eager PyTorch has no program to fuse, so a chunk here is
-        just its iterations in a row and `scan_steps` (checked, >= 1)
-        changes nothing that can be observed; what the path buys is that
-        the host never waits for the card and so runs ahead of it.
-        Capturing a chunk of `scan_steps` iterations in a CUDA graph (one
-        launch per chunk) is a later optimisation and not done here.
+        them. Here a chunk is just its iterations in a row and
+        `scan_steps` (checked, >= 1) changes nothing that can be
+        observed; what the path buys is that the host never waits for
+        the card and so runs ahead of it. Each iteration's train step is
+        `train_step`'s: on the card a replay of the step's CUDA graph
+        (one launch a step; the sampling stays eager), captured on the
+        first batch of its shape.
 
         Returns (state, metrics) with metrics a dict of (num_steps,)
         device tensors (loss/accuracy/miou per step), one fetch an epoch.

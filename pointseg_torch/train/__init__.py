@@ -6,6 +6,7 @@ from pointseg_torch.train.loss import (  # noqa: F401
     masked_onehot_cross_entropy,
 )
 from pointseg_torch.train.state import (  # noqa: F401
+    STEP_GRAPHS,
     TrainState,
     bn_adapted_model,
     bn_batch_apply,

@@ -34,6 +34,16 @@ The names, each opened on the thread that does the work:
   `.data.loader_collate` (a reader thread's block read and collate),
   `.data.shard` (a rank's rows of a global batch);
 - `.collective.all_reduce`, `.collective.broadcast`.
+
+While a profiler records, `train_step` runs eagerly, so that every span
+and op range above sees the launches it holds (`recording`). Counters,
+kept whether or not a profiler runs:
+
+- `ops/_kernels.py::LAUNCHES`: the port's kernel launches from Python,
+  per kernel (a replayed CUDA graph launches none from Python);
+- `train/state.py::STEP_GRAPHS`: train steps captured into a CUDA graph,
+  replayed from one, and run eagerly;
+- `parallel/mesh.py::COLLECTIVES`: collective calls and their host time.
 """
 
 from __future__ import annotations
@@ -44,10 +54,16 @@ import sys
 NULL = contextlib.nullcontext()
 
 
+def recording() -> bool:
+    """Whether a profiler records: the process-wide flag `span` reads."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and profiler._is_profiler_enabled
+
+
 def span(name: str, index: int | None = None):
     """A profiler range named `name` (`name#index` with an index, the
     string built only while recording), or `NULL` with no profiler."""
-    profiler = sys.modules.get("torch.autograd.profiler")
-    if profiler is None or not profiler._is_profiler_enabled:
+    if not recording():
         return NULL
+    profiler = sys.modules["torch.autograd.profiler"]
     return profiler.record_function(name if index is None else f"{name}#{index}")

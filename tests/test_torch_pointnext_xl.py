@@ -314,7 +314,9 @@ def test_cli_trains_pointnext_xl_one_step(five_blocks, tmp_path, capsys, monkeyp
 def test_one_forward_launches_on_the_card(monkeypatch):
     """One forward at B 2 x 4,096: 4 FPS, 19 ball queries, 4 three-NN, and
     27 row gathers: the 19 grouped layers' coordinate gathers, 4 centroid
-    gathers and 4 interpolation gathers."""
+    gathers and 4 interpolation gathers. A forward called directly, not a
+    train step, so every launch is from Python (a replayed train step's
+    are not counted; `chip_smoke.py` counts the captured one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
