@@ -1,21 +1,19 @@
 #!/usr/bin/env python3
-"""Smoke run of pointseg_torch on one CUDA card.
+"""Smoke run of pointseg_torch on one CUDA card: every kernel against its
+plain PyTorch version, and every entry point of the port on the card.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py
 
-With `--parent DIR`, DIR an unpacked checkout of an earlier commit (`git
-archive <commit> | tar -x -C DIR`), the ball queries, 3-NN and the
-two-level kNN of both trees are also timed in one call (see phase 3).
-`--kernel-times TREE OUT` is the helper process that does so for one tree.
-
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero. The
+bounds printed beside the kernels' times are the benchmark's: the peaks
+of `portbench/work.py` and each op's operations and bytes from its
+module in `portbench/opwork/` (a row with no such module says why it
+counts its own).
 
 1. Device: a CUDA device must be present; prints the torch and CUDA
    versions and `nvidia-smi --query-gpu=name,power.limit`.
 2. Build: compiles the CUDA kernels from `pointseg_torch/csrc/` (one
-   nvcc per source, all at once) and, beside them, `knn.cu` and
-   `ballquery.cu` once more with `-Xptxas -v`: the registers and spill
-   bytes of every instance of kernels 4, 5, 2 and 6.
+   nvcc per source, all at once).
 3. Kernels, each against its plain PyTorch version on the card:
    - FPS, ball query and 3-NN at the PointNet++ training shapes (B=8,
      N=4096 -> 1024 -> 256 -> 64 -> 16), a ragged shape with repeated
@@ -23,11 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal and 3-NN distances equal to rtol 1e-5 / atol 1e-6. FPS also
      gives its device time a launch (profiler) and the kernel instance
      that ran at each shape; at the four SA stages the register path at
-     each block size (128, 256, 512, 1024 threads), equal to the plain
-     version, and the row's latency floor (every step of the four stages
-     at the per-step time of the same kernel with one point a thread);
-     at (2, 16384, 1024) the register path (16 points a thread) against
-     the default kernel.
+     each block size (32 to 1024 threads), equal to the plain version,
+     and the row's latency floor (every step of the four stages at the
+     per-step time of the same kernel with one point a thread); at (2,
+     16384, 1024) the register path (16 points a thread) against the
+     default kernel.
    - the flat ball query (kernel 2) and 3-NN (kernel 3) at every shape of
      PointNet++ SSG (four SA and four FP stages), MSG (eight queries) and
      PointNeXt (nine), and at the evaluation buckets (N = 16384 and 65536;
@@ -38,64 +36,41 @@ Phases, in order; any failure raises and the script exits non-zero:
      x 128 lanes at the boost clock), and each model's row of launches
      under CUDA events; every split of the two kernels (centroids or
      targets a warp, warps a block, warps a centroid) at the training
-     stages and the buckets, equal to plain, device us a launch; that
-     `ball_query(filler="repeat")` runs one device kernel; the host time
-     of a ball-query and of a 3-NN call split into its parts and the steps
-     it no longer takes, beside `torch.topk` over a `baddbmm`. With
-     `--parent DIR`: the same per-shape device times and rows, and the
-     device time a train step of PointNet++, PointNeXt, PointNet++MSG and
-     DeepGraphCnn, for DIR's package and this one, each in a process of
-     its own, in turns (parent, this, this, parent), and both kernels'
-     outputs on NaN coordinates, which must equal the parent's bit for bit;
-     likewise kernels 6 and 5 (two-level ball query at PointNeXt's and
-     MSG's queries and the buckets, two-level kNN at the three kNN shapes,
-     NaN coordinates and NaN activations), and the device time a step of
-     PointNeXt and DeepGraphCnn on the two-level kernels (what
-     POINTSEG_SELECT2L=1 selects).
-   - the two-level ball query against the plain version and against the
-     flat kernel, index for index and `in_ball` for `in_ball`, at every
-     ball-query shape of PointNeXt (four SA stages and five InvResMLP
-     blocks, where the centroids are the cloud itself) and of PointNet++
-     MSG (two radii per stage) at B=8, N=4096, at the ragged shape with
-     repeated points (also with a mask and at stack depth 1, where every
-     pick refills a lane) and at two evaluation shapes (N = 16384 and
-     65536). Its bound is the flat kernel's at the same shape; the flat
-     kernel is timed beside it in turns (flat, two-level, two-level, flat).
-     Both kernels' device time per launch is also read from the profiler,
-     in the same turns, beside the exact-arithmetic floor: at the small
-     stages a loop of launches under CUDA events measures the host's call
-     rate, not the kernel. The aims are printed as met or missed (two-level
-     over flat device time: <= 1.25x for PointNeXt's nine and MSG's eight
-     queries, <= 1.1x at the buckets). Then K = 48 and 64 at SA1 and at
-     (2, 1024, 16384), where `select="flat"` runs the two-level kernel:
-     one launch of it, equal to the plain version raw and with the repeat
-     filler, with a mask and at depth 1; and every split of the two-level
-     kernel in BALL_2L_SPLITS at SA1, PointNeXt's first InvResMLP query and
-     the buckets, equal to plain, device us a launch.
-   - kNN, flat and two-level, at the DGCNN EdgeConv shapes (8, 4096, 3)
-     and (8, 4096, 64) (LeakyReLU'd normal features), a cloud with
-     repeated points and (2, 16384, 64); the two kernels must also equal
-     each other. On the cloud with repeated points also with a mask,
-     without the point itself, and both (ragged evaluation), where the
-     kernels must equal the plain version slot for slot. Beside the
-     CUDA-event time of each shape: both kernels' device time per launch
-     from the profiler, and the flat kernel's floor (its arithmetic is
-     exact, so a product costs two float32 instructions, not one fused
-     one: twice the operation bound). Then 19 small shapes that the flat
-     kernel's tiles can get wrong (N = 37, 4099, 1100; F = 1 to 132 on the
-     16-byte and the 4-byte path; k = 1 and 32; one cloud; a view that is
-     not 16-byte aligned), each with and without the mask and the point
-     itself, flat and two-level equal to plain slot for slot. The
-     two-level kernel's aims against the flat one's device time are
-     printed as met or missed ((8, 4096, 3): <= 1x; (8, 4096, 64) and
-     (2, 16384, 64): <= 1.25x; its row under CUDA events <= 4.5 ms). Then
-     k = 33, 48 and 64 at (8, 4096, 64) and F = 640 and 1024 at (2, 4096,
-     F), where `select="flat"` runs the two-level kernel: one launch of it,
-     equal to plain with and without the mask and the point itself and at
-     depth 1, device us beside the bound and the floor; and the two-level
-     kernel at depths 1, 4 and 5 at the three timed shapes (four query rows a
-     warp) and at (1, 4096, 64) (two: a batch too small for 256 blocks of
-     four), equal to the flat kernel, device us a launch.
+     stages and the buckets, equal to plain, device us a launch; and that
+     `ball_query(filler="repeat")` runs one device kernel.
+   - the two-level ball query (kernel 6), which the shape rule runs only
+     past K = 32, forced through the private route at every ball-query
+     shape of PointNeXt (four SA stages and five InvResMLP blocks, where
+     the centroids are the cloud itself) and of PointNet++ MSG at B=8,
+     N=4096, at the ragged shape with repeated points (also with a mask
+     and at stack depth 1, where every pick refills a lane) and at two
+     evaluation shapes (N = 16384 and 65536): equal to the plain version
+     and to the flat kernel, index for index and `in_ball` for `in_ball`;
+     both kernels' device time a launch (profiler, in turns). Then K = 48
+     and 64 at SA1 and at (2, 1024, 16384), where the shape rule runs
+     kernel 6: one launch of it, equal to the plain version raw and with
+     the repeat filler, with a mask and at depth 1; and every split of
+     kernel 6 in BALL_2L_SPLITS at SA1, PointNeXt's first InvResMLP query
+     and the buckets, equal to plain, device us a launch.
+   - kNN, flat and two-level (kernel 5 forced through the private route),
+     at the DGCNN EdgeConv shapes (8, 4096, 3) and (8, 4096, 64)
+     (LeakyReLU'd normal features), a cloud with repeated points and (2,
+     16384, 64); the two kernels must also equal each other. On the cloud
+     with repeated points also with a mask, without the point itself, and
+     both (ragged evaluation), where the kernels must equal the plain
+     version slot for slot. Beside the CUDA-event time of each shape: both
+     kernels' device time per launch from the profiler, and the flat
+     kernel's floor (its arithmetic is exact, so a product costs two
+     float32 instructions, not one fused one: twice the operation bound).
+     Then 19 small shapes that the flat kernel's tiles can get wrong (N =
+     37, 4099, 1100; F = 1 to 132 on the 16-byte and the 4-byte path; k =
+     1 and 32; one cloud; a view that is not 16-byte aligned), each with
+     and without the mask and the point itself, flat and two-level equal
+     to plain slot for slot. Then k = 33, 48 and 64 at (8, 4096, 64) and F
+     = 640 and 1024 at (2, 4096, F), where the shape rule runs kernel 5:
+     one launch of it, equal to plain with and without the mask and the
+     point itself and at depth 1, device us beside the bound and the
+     floor.
    - the row gather at the EdgeConv shapes (8, 4096, 64 and 128) x
      81,920 rows and at the tables of a PointNet++ step (centroid
      coordinates, the FP interpolation sources, and the concatenated SA
@@ -112,19 +87,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      sums and the gradient (autograd of the plain composition) within
      1e-5 of their largest; the forward and the backward kernel timed
      against the plain forward and backward, beside their bytes bound,
-     with device us a launch (profiler). Then SetAbstraction grouping at every
-     SA table of PointNet++, MSG and PointNeXt in three forms (the
-     concatenated table in one launch, two launches, the two-table
-     kernel), rows bit-equal, forward and forward + backward, under CUDA
-     events and on the device (profiler), with the two-table call beside
-     two `torch.gather` calls. Then PointNeXt-XL's 19 groupings a forward
-     at B 32 x 4,096 (eight shapes: each stage's set abstraction and its
-     InvResMLPs, rows 128 to 1024 wide, K 32, the last level's 16 points
-     under balls of 32): each ball query one launch, equal to the plain
-     version with the repeat fill up to float64-verified ties, the slots
-     of a ball past its level's points slot 0 as non-members; each gather one
-     launch, rows bit-equal to `torch.gather`'s and the feature gradient
-     within 1e-5 of its largest from a float64 `torch.gather` gradient.
+     with device us a launch (profiler). Then PointNeXt-XL's 19
+     groupings a forward at B 32 x 4,096 (eight shapes: each stage's set
+     abstraction and its InvResMLPs, rows 128 to 1024 wide, K 32, the
+     last level's 16 points under balls of 32): each ball query one
+     launch, equal to the plain version with the repeat fill up to
+     float64-verified ties, the slots of a ball past its level's points
+     slot 0 as non-members; each gather one launch, rows bit-equal to
+     `torch.gather`'s and the feature gradient within 1e-5 of its largest
+     from a float64 `torch.gather` gradient.
    - the flat row gather (the device store's sampler) bit-equal to
      `index_select` for rows of 1, 16 and 36 bytes (uint8, int32 x 4,
      float32 x 9) and an odd width (float32 x 35), at 8 x 4096 rows and
@@ -138,11 +109,6 @@ Phases, in order; any failure raises and the script exits non-zero:
      Per case a line says whether the kernel's call or `index_select`'s
      is faster under CUDA events, timed in turns (the check never fails
      on a time).
-   - the host time of one flat-gather call and of one batched-gather
-     call, each split into its parts and into the steps it no longer
-     takes, beside `index_select` or `torch.gather` and an empty Python
-     function (microseconds a call over 10,000 calls, host clock, no
-     synchronisation inside the loop).
    - the flat gather and the flat kNN on a stream that is not the default
      one (the input written behind a long wait on that stream) and inside
      a captured CUDA graph replayed twice on new input, equal to the
@@ -156,49 +122,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    for 3-NN and kNN, `torch.gather` and `index_select` for the gathers;
    FPS and the ball queries have none). The port never calls these. Each kernel's bound is the
    least time the card could take: the larger of its bytes (inputs read
-   once, outputs written once) over 3.35 TB/s and its float32
-   operations over 67 TFLOP/s.
+   once, outputs written once) over the peak bandwidth and its float32
+   operations over the peak float32 rate.
 4. Trainers, through `pointseg_torch.cli` at the reference configuration
    (batch 8 x 4096 points x 9 features, 14 classes, Adam 1e-3) on a
    synthetic S3DIS-shaped block dataset, one epoch (12 steps) and its
    evaluation pass each, with the launch counters set to 0 just before
    and read just after: `train PointNet++` must launch fps, ball_query
    and three_nn 4 times each per forward pass; `train PointNet` none of
-   the port's kernels (its step time is printed beside the float32 work
-   of its Linear layers, counted by hooks, and that work's least time at
-   67 TFLOP/s); `train DeepGraphCnn` must launch knn (4 per step) and
-   edge_reduce (4 + 4 per step), and no gather_rows; `train PointNeXt`
-   must launch fps 4, ball_query 9 and three_nn 4 times per forward pass and `train PointNet++MSG` 4, 8 and
-   4 times. For both of these, three steps with
-   `ball_select="two_level"` and three with "flat" from the same weights,
-   batch and seeds: ball_query_2l must launch (9 or 8 a step) and
-   ball_query never, first losses equal to 1e-6 relative. Three steps of
-   PointNeXt-L give its step time and peak memory. The train steps
-   replay a CUDA graph after their state's first two (eager, then
-   captured), so every count a step here is over the steps that launched
-   from Python (`train/state.py::STEP_GRAPHS`, `launched_steps`). One
-   PointNeXt-XL train step at B 32 x 4,096, the captured one, the
-   counters set to 0 just before it, must launch fps 4, ball_query 19,
-   three_nn 4 and gather_rows 27 times and nothing else; three replayed
-   ones give its step time and peak memory, and three more replayed
-   steps against three eager steps of a copy of the state must be
-   counted as replays, with the first loss bit-equal and the others
-   within 1e-5.
-   `train PointNeXt`
-   and `train DeepGraphCnn` again with POINTSEG_SELECT2L=1 (the JAX
-   package's switch, read by the port's CLI): ball_query_2l (9 a step)
-   and knn_2l (4 a step) must launch and the flat kernels never; the
-   kernel record's launches of the two-level kernels are these runs'.
-   For DeepGraphCnn three steps of DeepGraphCnn with
-   `knn_select="two_level"` and three with "flat", from the same weights,
-   batch and dropout seed: knn_2l must launch, the first losses must
-   agree to 1e-6 relative (same forward) and the later ones to 1e-3
-   (edge_reduce's backward adds with atomics). For each model the steady-state
-   step time (CUDA events), points/s, peak memory, a profile and the
-   device time per step of each of the port's own kernels; for
-   DeepGraphCnn also the step time and peak memory with
-   `EdgeConv.remat`, which runs edge_reduce's forward kernel again in
-   the backward pass (12 edge_reduce launches a step against 8).
+   the port's kernels; `train DeepGraphCnn` must launch knn (4 per step)
+   and edge_reduce (4 + 4 per step), and no gather_rows; `train PointNeXt`
+   must launch fps 4, ball_query 9 and three_nn 4 times per forward pass
+   and `train PointNet++MSG` 4, 8 and 4 times, and neither a two-level
+   kernel. Three steps of PointNeXt-L give its step time and peak memory.
+   The train steps replay a CUDA graph after their state's first two
+   (eager, then captured), so every count a step here is over the steps
+   that launched from Python (`train/state.py::STEP_GRAPHS`,
+   `launched_steps`). One PointNeXt-XL train step at B 32 x 4,096, the
+   captured one, the counters set to 0 just before it, must launch fps
+   4, ball_query 19, three_nn 4 and gather_rows 27 times and nothing
+   else; three replayed ones give its step time and peak memory, and
+   three more replayed steps against three eager steps of a copy of the
+   state must be counted as replays, with the first loss bit-equal and
+   the others within 1e-5. For each model the steady-state step time
+   (CUDA events), points/s, peak memory, a profile and the device time
+   per step of each of the port's own kernels.
    Then the device-resident store, through the same CLI:
    `train PointNet++ --device-data --device-store flat` (mode must be
    "device", two flat-gather launches a step), twice
@@ -276,10 +224,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    PointNet++, DeepGraphCnn, PointNeXt and PointNet (the sidecar says
    bf16, parameters float32, the launches equal the float32 epoch's of
    phase 4, one batch's loss from the trained weights within 2e-2 of
-   the float32 loss of the same weights and batch); step ms (CUDA
-   events, in turns), device ms a step (profiler) and peak memory of
-   PointNet, PointNet++, MSG, PointNeXt and DeepGraphCnn in float32 and
-   in bf16 from the same weights and batch; `evaluate` of the bf16
+   the float32 loss of the same weights and batch); `evaluate` of the bf16
    PointNet++ checkpoint with no flag (bf16 from its sidecar) on the
    phase 6 blocks and whole rooms, both streams; `benchmark --bf16` for
    every registry model in both modes; bf16 eval logits of PointNet++,
@@ -290,22 +235,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    `F.batch_norm(training=True)`'s (F6).
 9. The remaining entry points: FPS with more centroids than points ((2,
    1000) -> 1024, (8, 100) -> 128) and kernel 5 at the enhanced trainer's
-   k = 40 ((2, 8192, 3) and (2, 8192, 64); device us beside k = 20)
+   k = 40 ((2, 8192, 3) and (2, 8192, 64); device us beside the bound)
    against their plain versions; `train-legacy PointNet++` at its
    defaults (cut 1000, batch 2, 13 classes, SA1 at C = 1024 > N = 1000)
    one epoch on synthetic chunked rooms of 20,000 points (kernels 1, 2, 3
    and 7 launch; ms a step; card against CPU logits at rtol/atol 1e-4);
    `create_dgcnn_trainer` at its reference defaults (k = 40, emb 1024,
    cut 8192, sampling 0.5, batch 2) one epoch on the same rooms (kernel 5
-   and the gather launch, the flat kNN never; ms a step, peak MiB,
+   and edge_reduce launch, the flat kNN never: the record's knn_2l
+   launches are this epoch's; ms a step, peak MiB,
    `format_memory_usage()`); `export` of PointNet++, DeepGraphCnn and
    PointNet at (1, 4096, 9) through the CLI (the graph's operators, the
    loaded artifact launching the kernels, its logits equal to the eager
    model's for two checkpoints, its size and forward ms against eager);
    `import-torch` of a reference-layout `.pt`, then `evaluate` of it;
    `prepare --stage all` on a small raw tree; a real
-   `torch.cuda.OutOfMemoryError` through `is_oom_error`; host us a call
-   of the ball query and 3-NN with the operators registered. Each path
+   `torch.cuda.OutOfMemoryError` through `is_oom_error`. Each path
    runs with the launch counts set to 0 before it and read after it. The
    script's whole time is printed before the two JSON lines.
 
@@ -388,12 +333,13 @@ import time
 import numpy as np
 import torch
 
+from portbench import harness
+from portbench.work import PEAK_BYTES_PER_S, PEAK_F32_FLOPS
+
 SLICE_FPS = [(8, 4096, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16)]
 FPS_THREADS = (32, 64, 128, 256, 512, 1024)  # the register path's block sizes
 RADII = {4096: 0.1, 1024: 0.2, 256: 0.4, 64: 0.8}
 TIE_M2 = 1e-6  # an index may differ where the two picks' d^2 differ by less
-PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 K_NEIGHBOURS = 20  # DGCNN's k
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -416,6 +362,17 @@ SAMPLED_ROWS = 8 * 4096  # rows one training batch gathers
 
 def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
+
+
+def opwork(op: str, *args) -> tuple[float, float]:
+    """(operations, bytes) of one call of `pointseg_torch.ops.<op>` with
+    the positional `args`, by the benchmark's count
+    (`portbench/opwork/<op>.py`): tensors as (shape, itemsize), integers
+    and booleans as they are, floats left out, as its traced run sees
+    them."""
+    shapes = [(tuple(a.shape), a.element_size()) if isinstance(a, torch.Tensor) else a
+              for a in args if isinstance(a, (torch.Tensor, int))]
+    return harness.op_module(op).work(shapes)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -498,64 +455,6 @@ def device_us_in_turns(first_fn, first_kernel: str, second_fn, second_kernel: st
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-# the kernels whose registers and spills phase 2 prints, per source
-PTXAS_SOURCES = {"knn.cu": ("knn_flat_kernel", "knn_two_level_kernel"),
-                 "ballquery.cu": ("ball_query_kernel", "ball_query_two_level_kernel")}
-
-
-def ptxas_start() -> dict:
-    """`nvcc -Xptxas -v` of the kNN and ball-query sources, started in the
-    background beside the build (the same flags, no output file)."""
-    from pointseg_torch.ops import _kernels
-
-    return {name: subprocess.Popen(
-        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
-         str(_kernels.CSRC / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in PTXAS_SOURCES}
-
-
-def instance(name: str, kernel: str) -> str:
-    """`kernel<1, 4, 4>` from a demangled name such as `(anonymous
-    namespace)::kernel<(bool)1, (int)4, (int)4>(const float *, ...)`."""
-    tail = name[name.index(kernel):]
-    tail = tail[:tail.index(">(") + 1] if ">(" in tail else tail.split("(")[0]
-    return tail.replace("(bool)", "").replace("(int)", "")
-
-
-def ptxas_report(procs: dict) -> None:
-    """Registers and spill bytes of every instance of kernels 4, 5, 2 and
-    6, as ptxas reports them (names demangled by cu++filt when it is
-    there)."""
-    from pointseg_torch.ops import _kernels
-
-    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(_kernels._nvcc()),
-                                                    "cu++filt")
-    for source, proc in procs.items():
-        log = proc.communicate(timeout=600)[0]
-        if proc.returncode != 0:
-            raise AssertionError(f"nvcc -Xptxas -v {source} exited {proc.returncode}:\n{log}")
-        entries, name, spill = [], None, ("?", "?")
-        for line in log.splitlines():
-            if m := re.search(r"Compiling entry function '(\S+)'", line):
-                name = m.group(1)
-            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-                spill = m.groups()
-            elif (m := re.search(r"Used (\d+) registers", line)) and name:
-                entries.append((name, int(m.group(1)), spill))
-                name = None
-        names = [e[0] for e in entries]
-        if os.path.exists(filt):
-            out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
-                                 timeout=60).stdout.splitlines()
-            if len(out) == len(names):
-                names = out
-        for wanted in PTXAS_SOURCES[source]:
-            rows = [f"{instance(n, wanted)} {regs} registers, spill {st}/{ld} bytes"
-                    for n, (_, regs, (st, ld)) in zip(names, entries)
-                    if wanted in n and (wanted + "<" in n or wanted + "I" in n or wanted == n)]
-            print(f"-Xptxas -v {source} {wanted}: " + "; ".join(rows), flush=True)
-
-
 class Record:
     """Per kernel: times summed over the shapes of one forward pass of
     its training path, the bound for the same work, the worst error."""
@@ -565,10 +464,11 @@ class Record:
                             "bytes_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "flips": 0}
                      for name in KERNELS}
 
-    def note(self, name, shape, ms, plain_ms, library_ms, flops, nbytes, flips, err,
-             per_forward: int):
-        """`per_forward`: how often one forward pass runs this shape (0:
-        the shape is checked and printed only)."""
+    def note(self, name, shape, ms, plain_ms, library_ms, work, flips, err, per_forward: int):
+        """`work`: (operations, bytes) of one call; `per_forward`: how often
+        one forward pass runs this shape (0: the shape is checked and
+        printed only)."""
+        flops, nbytes = work
         ops_ms = flops / PEAK_F32_FLOPS * 1e3
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         r = self.rows[name]
@@ -761,9 +661,8 @@ def pointnetpp_kernels(device, record: Record) -> list:
         reps = 20 if N <= 4096 else 5
         ms, plain_ms = timed_pair(lambda: farthest_point_sampling(pts, C),
                                   lambda: farthest_point_sampling_plain(pts, C, zero), reps)
-        # C rounds of N distances (3 sub, 3 mul, 2 add) and a running min
-        record.note("fps", (B, N, C), ms, plain_ms, None, 9.0 * B * C * N,
-                    12 * B * N + 4 * B + 4 * B * C, flips, err, per_forward)
+        record.note("fps", (B, N, C), ms, plain_ms, None,
+                    opwork("farthest_point_sampling", pts, C), flips, err, per_forward)
         us, name = fps_device(lambda: farthest_point_sampling(pts, C), reps=10 if N <= 4096 else 3)
         print(f"{'':11s} device time a launch (profiler): {us:.1f} us, {name}")
 
@@ -776,9 +675,8 @@ def pointnetpp_kernels(device, record: Record) -> list:
         flips, err = check_picks(cents, pts, g_idx, w_idx)
         ms, plain_ms = timed_pair(lambda: ball_query_raw(cents, pts, r, 32),
                                   lambda: ball_query_plain(cents, pts, r, 32), 20)
-        # per pair: the Gram form (3 mul, 2 add, scale, sub, add, clamp) and the test
-        record.note("ball_query", (B, C, N, r), ms, plain_ms, None, 10.0 * B * C * N,
-                    12 * B * C + 12 * B * N + 5 * B * C * 32, flips, err, per_forward)
+        record.note("ball_query", (B, C, N, r), ms, plain_ms, None,
+                    opwork("ball_query", cents, pts, r, 32), flips, err, per_forward)
         print(f"{'':11s} share of in-ball slots {float(g_in.float().mean()):.3f}")
 
         if N <= 16384:  # 3-NN upsamples each stage's centroids back onto its input
@@ -790,8 +688,11 @@ def pointnetpp_kernels(device, record: Record) -> list:
             ms, plain_ms = timed_pair(lambda: three_nn(pts, cents),
                                       lambda: three_nn_plain(pts, cents), 20)
             lib_ms = timed(lambda: three_nn_library(pts, cents), 20)
-            record.note("three_nn", (B, N, C), ms, plain_ms, lib_ms, 10.0 * B * N * C,
-                        12 * B * N + 12 * B * C + 24 * B * N, flips, err, per_forward)
+            # no module of portbench/opwork/ counts three_nn alone (its
+            # `interpolate` adds the weighted sum): distances, then (d2, idx) out
+            record.note("three_nn", (B, N, C), ms, plain_ms, lib_ms,
+                        (10.0 * B * N * C, 12 * B * N + 12 * B * C + 24 * B * N), flips, err,
+                        per_forward)
         if per_forward:
             levels.append(cents.contiguous())
     fps_block_sizes(device, levels)
@@ -808,24 +709,29 @@ MSG_QUERIES = [(1, 0, 0.05, 16), (1, 0, 0.1, 32), (2, 1, 0.1, 16), (2, 1, 0.2, 3
 
 
 def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
-    """The two-level ball query against the plain version and the flat
-    kernel. Its record sums PointNeXt's nine queries; the flat kernel's
-    sum over the same nine and all four sums over MSG's eight are printed."""
+    """Kernel 6, forced at K <= 32 through the private route, against the
+    plain version and the flat kernel at every ball query of PointNeXt and
+    MSG, the ragged shape (also with a mask and at depth 1) and the
+    evaluation buckets. Its record row sums PointNeXt's nine queries; each
+    shape prints both kernels' device time a launch (profiler, in turns)."""
     from pointseg_torch.ops import _kernels
-    from pointseg_torch.ops.ballquery import (_ball_query_cuda, _radius_sq, ball_query_plain,
-                                              ball_query_raw)
+    from pointseg_torch.ops.ballquery import (_ball_query_cuda, _radius_sq, _select,
+                                              ball_query_plain, ball_query_raw)
+
+    def two_level(cents, pts, r, K, mask=None):
+        return _select(cents, pts, r, K, mask, "two_level", False)
 
     def check(cents, pts, r, K, what, depth=None, mask=None):
         before = dict(_kernels.LAUNCHES)
         if depth is None:
-            g_idx, g_in = ball_query_raw(cents, pts, r, K, mask=mask, select="two_level")
+            g_idx, g_in = two_level(cents, pts, r, K, mask)
         else:
             g_idx, g_in = _ball_query_cuda(cents, pts, _radius_sq(r), K, mask, "two_level", depth)
         if (_kernels.LAUNCHES["ball_query_2l"] != before["ball_query_2l"] + 1
                 or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
             raise AssertionError(f"two-level ball query {what}: not exactly one launch of its "
                                  f"kernel ({before} -> {_kernels.LAUNCHES})")
-        f_idx, f_in = ball_query_raw(cents, pts, r, K, mask=mask, select="flat")
+        f_idx, f_in = ball_query_raw(cents, pts, r, K, mask=mask)
         w_idx, w_in = ball_query_plain(cents, pts, r, K, mask=mask)
         torch.cuda.synchronize()
         if not (torch.equal(g_idx, f_idx) and torch.equal(g_in, f_in)):
@@ -836,43 +742,31 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
         return (*check_picks(cents, pts, g_idx, w_idx), float(g_in.float().mean()))
 
     rng = np.random.default_rng(5)
-    buckets = {}
-    sums = {which: {"two_level": 0.0, "flat": 0.0, "plain": 0.0, "bound": 0.0,
-                    "two_level_us": 0.0, "flat_us": 0.0} for which in ("PointNeXt", "MSG")}
     extra = [  # (B, N, C, repeat_from, radius, K, kernel reps)
         (8, 3000, 1000, 2300, 0.1, 32, 20), (2, 16384, 1024, 12000, 0.1, 32, 10),
         (1, 65536, 1024, None, 0.1, 32, 5)]
-    # (centroids, cloud, radius, K, times per PointNeXt forward, one of MSG's, kernel reps)
-    cases = [(levels[q[0]], levels[q[1]], q[2], q[3], int(q in POINTNEXT_QUERIES),
-              q in MSG_QUERIES, 20) for q in dict.fromkeys(POINTNEXT_QUERIES + MSG_QUERIES)]
+    # (centroids, cloud, radius, K, times per PointNeXt forward, kernel reps)
+    cases = [(levels[q[0]], levels[q[1]], q[2], q[3], int(q in POINTNEXT_QUERIES), 20)
+             for q in dict.fromkeys(POINTNEXT_QUERIES + MSG_QUERIES)]
     for B, N, C, repeat_from, r, K, reps in extra:
         pts = torch.from_numpy(block_cloud(rng, B, N, repeat_from)).to(device)
-        cases.append((pts[:, :C].contiguous(), pts, r, K, 0, False, reps))
-    for cents, pts, r, K, per_forward, in_msg, reps in cases:
+        cases.append((pts[:, :C].contiguous(), pts, r, K, 0, reps))
+    for cents, pts, r, K, per_forward, reps in cases:
         B, C, N = cents.shape[0], cents.shape[1], pts.shape[1]
         shape = (B, C, N, r, K)
         flips, err, share = check(cents, pts, r, K, shape)
-        ms, flat_ms = timed_pair(lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
-                                 lambda: ball_query_raw(cents, pts, r, K, select="flat"), reps)
-        plain_ms = timed(lambda: ball_query_plain(cents, pts, r, K), max(2, reps // 4))
-        flops, nbytes = 10.0 * B * C * N, 12 * B * C + 12 * B * N + 5 * B * C * K
-        record.note("ball_query_2l", shape, ms, plain_ms, None, flops, nbytes, flips, err,
-                    per_forward)
+        ms, plain_ms = timed_pair(lambda: two_level(cents, pts, r, K),
+                                  lambda: ball_query_plain(cents, pts, r, K), reps,
+                                  max(2, reps // 4))
+        record.note("ball_query_2l", shape, ms, plain_ms, None,
+                    opwork("ball_query", cents, pts, r, K), flips, err, per_forward)
         flat_us, us = device_us_in_turns(
-            lambda: ball_query_raw(cents, pts, r, K, select="flat"), "ball_query_kernel",
-            lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
-            "ball_query_two_level_kernel", 10 if N <= 4096 else 5)
-        print(f"{'':11s} flat kernel {flat_ms:9.4f} ms  device time a launch (profiler, in turns "
-              f"flat, two-level, two-level, flat): two-level {us:.1f} us, flat {flat_us:.1f} us "
-              f"({us / flat_us:.2f}x), floor {floor_us(B * C * N):.1f} us; share of in-ball "
-              f"slots {share:.3f}")
-        if per_forward == 0:
-            buckets[shape] = (us, flat_us)
-        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        for which, count in (("PointNeXt", per_forward), ("MSG", int(in_msg))):
-            for key, value in (("two_level", ms), ("flat", flat_ms), ("plain", plain_ms),
-                               ("bound", bound), ("two_level_us", us), ("flat_us", flat_us)):
-                sums[which][key] += count * value
+            lambda: ball_query_raw(cents, pts, r, K), "ball_query_kernel",
+            lambda: two_level(cents, pts, r, K), "ball_query_two_level_kernel",
+            10 if N <= 4096 else 5)
+        print(f"{'':11s} device time a launch (profiler, in turns flat, two-level, two-level, "
+              f"flat): two-level {us:.1f} us, flat {flat_us:.1f} us ({us / flat_us:.2f}x); "
+              f"share of in-ball slots {share:.3f}")
         if N == 3000:  # the ragged shape: a mask, and depth 1 (a refill after every pick)
             mask = torch.rand((B, N), device=device,
                               generator=torch.Generator(device).manual_seed(6)) < 0.7
@@ -880,18 +774,6 @@ def ball_query_2l_kernels(device, record: Record, levels: list) -> None:
             for depth, m in ((None, mask), (1, None), (1, mask)):
                 check(cents, pts, r, K, f"{shape} depth {depth} mask {m is not None}", depth, m)
             print(f"{'':11s} with a mask, at depth 1, and both: two-level equals flat and plain")
-    for which, n in (("PointNeXt", "nine"), ("MSG", "eight")):
-        t = sums[which]
-        ratio = t["two_level_us"] / t["flat_us"]
-        print(f"{'':11s} {which}'s {n} queries summed: two-level {t['two_level']:.4f} ms, flat "
-              f"{t['flat']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound']:.5f} ms; device "
-              f"time (profiler): two-level {t['two_level_us']:.1f} us, flat {t['flat_us']:.1f} us "
-              f"({ratio:.2f}x; aim <= 1.25x: {'met' if ratio <= 1.25 else 'missed'})")
-    for shape, (us, flat_us) in buckets.items():
-        if shape[0] * shape[1] < 8192 and shape[2] >= 16384:  # the evaluation buckets
-            print(f"{'':11s} bucket {shape}: two-level {us:.1f} us, flat {flat_us:.1f} us "
-                  f"({us / flat_us:.2f}x; aim <= 1.1x: "
-                  f"{'met' if us <= 1.1 * flat_us else 'missed'})")
     ball_query_2l_past_32(device, levels)
     ball_query_2l_splits(device, levels)
 
@@ -907,7 +789,7 @@ BALL_2L_SPLITS = [(1, 8, 1), (2, 8, 1), (2, 16, 1), (1, 16, 1), (1, 8, 2), (1, 8
 
 
 def ball_query_2l_past_32(device, levels) -> None:
-    """K = 48 and 64, where `select="flat"` runs kernel 6: one launch of it,
+    """K = 48 and 64, where the shape rule runs kernel 6: one launch of it,
     equal to the plain version raw and with the repeat filler, with a mask,
     and at depth 1 (a rescan after every pick past a lane's first); device
     us a launch beside the flat kernel at K = 32 and the floor."""
@@ -935,7 +817,7 @@ def ball_query_2l_past_32(device, levels) -> None:
                                                         depth, repeat)
                     if (_kernels.LAUNCHES["ball_query_2l"] != before["ball_query_2l"] + 1
                             or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
-                        raise AssertionError(f"ball query K={K}: select='flat' must launch the "
+                        raise AssertionError(f"ball query K={K}: the shape rule must launch the "
                                              f"two-level kernel once")
                     if not (torch.equal(idx, want_rep if repeat else want_idx)
                             and torch.equal(in_ball, want_in)):
@@ -946,7 +828,7 @@ def ball_query_2l_past_32(device, levels) -> None:
             lambda: ball_query_raw(cents, pts, r, 32), "ball_query_kernel",
             lambda: ball_query_raw(cents, pts, r, K), "ball_query_two_level_kernel",
             10 if N <= 4096 else 5)
-        print(f"{'':11s} ball_query {(B, C, N, r, K)}: select='flat' runs the two-level kernel, "
+        print(f"{'':11s} ball_query {(B, C, N, r, K)}: the shape rule runs the two-level kernel, "
               f"equal to plain (raw, repeat, mask, depth 1); {us:.1f} us a launch on the device "
               f"(the flat kernel at K = 32: {flat_us:.1f} us; floor {floor_us(B * C * N):.1f} us)"
               f"; share of in-ball slots {float(want_in.float().mean()):.3f}", flush=True)
@@ -1057,33 +939,16 @@ def three_nn_cases(device, levels) -> list:
     return cases
 
 
-def nan_inputs(device):
-    """A cloud with NaN coordinates (a point, a whole point) for both
-    kernels: the outputs must not change from the parent's."""
-    pts = torch.from_numpy(block_cloud(np.random.default_rng(17), 2, 2048)).to(device)
-    pts[0, 7, 1] = float("nan")
-    pts[1, 300] = float("nan")
-    pts[1, 1500, 2] = float("nan")
-    return pts
-
-
-def selection_times(device, out_path: str | None = None, two_level: bool = False) -> dict:
-    """Kernels 2 and 3 of the package on the path at every shape of the
-    three PointNet++-family models and at the evaluation buckets: each
-    equal to its plain version (ball query raw and with the repeat
-    filler, 3-NN indices and distance bits), device us a launch
-    (profiler), and each model's row under CUDA events. Runs on the
-    parent's package too (`--kernel-times`), so it uses the public calls
-    only; with `out_path` it saves the outputs on NaN inputs there. With
-    `two_level`, kernels 6 and 5 too: device us a launch at every ball
-    query of PointNeXt and MSG and the buckets, and at the three kNN
-    shapes (each equal to the plain version)."""
+def selection_times(device) -> None:
+    """Kernels 2 and 3 at every shape of the three PointNet++-family models
+    and at the evaluation buckets: each equal to its plain version (ball
+    query raw and with the repeat filler, 3-NN indices and distance bits),
+    device us a launch (profiler), and each model's row under CUDA
+    events."""
     from pointseg_torch.ops.ballquery import ball_query, ball_query_plain, ball_query_raw
     from pointseg_torch.ops.interpolate import three_nn, three_nn_plain
-    from pointseg_torch.ops.knn import knn_indices
 
     levels = training_levels(device)
-    res = {"ball_query_us": {}, "three_nn_us": {}, "rows_ms": {}}
     rows = {"ball_query raw, SSG's four": 0.0, "ball_query repeat, SSG's four": 0.0,
             "ball_query repeat, MSG's eight": 0.0, "ball_query repeat, PointNeXt's nine": 0.0,
             "three_nn, the four FP stages": 0.0}
@@ -1098,8 +963,7 @@ def selection_times(device, out_path: str | None = None, two_level: bool = False
             raise AssertionError(f"ball query {label}: differs from plain "
                                  f"({int((idx != want_idx).sum())} slots)")
         reps = 10 if pts.shape[1] <= 4096 else 5
-        res["ball_query_us"][label] = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K),
-                                                       "ball_query_kernel", reps)
+        us = kernel_device_us(lambda: ball_query_raw(cents, pts, r, K), "ball_query_kernel", reps)
         if ssg or msg or pnext:
             raw_ms = timed(lambda: ball_query_raw(cents, pts, r, K), 50)
             rep_ms = timed(lambda: ball_query(cents, pts, r, K), 50)
@@ -1107,7 +971,7 @@ def selection_times(device, out_path: str | None = None, two_level: bool = False
             rows["ball_query repeat, SSG's four"] += ssg * rep_ms
             rows["ball_query repeat, MSG's eight"] += msg * rep_ms
             rows["ball_query repeat, PointNeXt's nine"] += pnext * rep_ms
-        print(f"{'':11s} ball_query {label}: {res['ball_query_us'][label]:.1f} us a launch on "
+        print(f"{'':11s} ball_query {label}: {us:.1f} us a launch on "
               f"the device, floor {floor_us(cents.shape[0] * cents.shape[1] * pts.shape[1]):.1f}"
               f" us; share of in-ball slots {float(want_in.float().mean()):.3f}", flush=True)
     for label, tgt, src, per_forward in three_nn_cases(device, levels):
@@ -1118,114 +982,14 @@ def selection_times(device, out_path: str | None = None, two_level: bool = False
                 and torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))):
             raise AssertionError(f"three_nn {label}: differs from plain")
         reps = 10 if tgt.shape[1] <= 4096 else 5
-        res["three_nn_us"][label] = kernel_device_us(lambda: three_nn(tgt, src),
-                                                     "three_nn_kernel", reps)
+        us = kernel_device_us(lambda: three_nn(tgt, src), "three_nn_kernel", reps)
         if per_forward:
             rows["three_nn, the four FP stages"] += timed(lambda: three_nn(tgt, src), 50)
-        print(f"{'':11s} three_nn {label}: {res['three_nn_us'][label]:.1f} us a launch on the "
+        print(f"{'':11s} three_nn {label}: {us:.1f} us a launch on the "
               f"device, floor {floor_us(tgt.shape[0] * tgt.shape[1] * src.shape[1]):.1f} us",
               flush=True)
-    res["rows_ms"] = rows
     print(f"{'':11s} rows under CUDA events, ms: "
           + "; ".join(f"{k} {v:.4f}" for k, v in rows.items()))
-    if two_level:
-        res.update(two_level_times(device, levels))
-    if out_path:
-        pts = nan_inputs(device)
-        x = knn_nan_inputs(device)
-        saved = {"ball_query": ball_query_raw(pts[:, :512], pts, 0.2, 32),
-                 "three_nn": three_nn(pts, pts[:, :512])}
-        if two_level:
-            saved["ball_query_2l"] = ball_query_raw(pts[:, :512], pts, 0.2, 32,
-                                                    select="two_level")
-            saved["knn_2l"] = (knn_indices(x, 20, select="two_level"),)
-        torch.save(saved, out_path)
-    return res
-
-
-def knn_nan_inputs(device):
-    """Activations with NaN in a whole row and in one feature of another."""
-    x = torch.from_numpy(activations(np.random.default_rng(26), 2, 1000, 64)).to(device)
-    x[0, 7] = float("nan")
-    x[1, 999, 3] = float("nan")
-    return x
-
-
-def two_level_times(device, levels) -> dict:
-    """Kernels 6 and 5 through the public calls (`select="two_level"`):
-    device us a launch at every ball query of PointNeXt and MSG and at the
-    buckets, and at the kNN shapes of a DGCNN step and its bucket; each
-    equal to the plain version first."""
-    from pointseg_torch.ops.ballquery import ball_query_plain, ball_query_raw
-    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
-
-    res = {"ball_query_2l_us": {}, "knn_2l_us": {}}
-    for label, cents, pts, r, K, ssg, msg, pnext in ball_cases(device, levels):
-        if not (msg or pnext or label.startswith("eval")):
-            continue
-        want_idx, want_in = ball_query_plain(cents, pts, r, K)
-        idx, in_ball = ball_query_raw(cents, pts, r, K, select="two_level")
-        if not (torch.equal(idx, want_idx) and torch.equal(in_ball, want_in)):
-            raise AssertionError(f"two-level ball query {label}: differs from plain")
-        res["ball_query_2l_us"][label] = kernel_device_us(
-            lambda: ball_query_raw(cents, pts, r, K, select="two_level"),
-            "ball_query_two_level_kernel", 10 if pts.shape[1] <= 4096 else 5)
-        print(f"{'':11s} ball_query_2l {label}: {res['ball_query_2l_us'][label]:.1f} us a launch "
-              f"on the device", flush=True)
-    rng = np.random.default_rng(27)
-    for B, N, F in ((8, 4096, 3), (8, 4096, 64), (2, 16384, 64)):
-        x = torch.from_numpy(activations(rng, B, N, F)).to(device)
-        if not torch.equal(knn_indices(x, K_NEIGHBOURS, select="two_level"),
-                           knn_indices_plain(x, K_NEIGHBOURS)):
-            raise AssertionError(f"two-level kNN {(B, N, F)}: differs from plain")
-        label = f"({B}, {N}, {F}) k={K_NEIGHBOURS}"
-        res["knn_2l_us"][label] = kernel_device_us(
-            lambda: knn_indices(x, K_NEIGHBOURS, select="two_level"), "knn_two_level_kernel", 5)
-        print(f"{'':11s} knn_2l {label}: {res['knn_2l_us'][label]:.1f} us a launch on the "
-              f"device", flush=True)
-    return res
-
-
-def model_step_times(device) -> dict:
-    """Device ms a train step (profiler, 3 steps) and step ms (CUDA
-    events, 10 steps) of PointNet, the three PointNet++-family models and
-    DeepGraphCnn at the reference batch, random data from a seed, and of
-    PointNeXt and DeepGraphCnn on the two-level kernels."""
-    from torch.autograd import DeviceType
-
-    from pointseg_torch.models import create_model
-    from pointseg_torch.train.state import create_train_state, train_step
-
-    gen = torch.Generator(device).manual_seed(21)
-    points = torch.rand((8, 4096, 9), device=device, generator=gen)
-    labels = torch.nn.functional.one_hot(
-        torch.randint(0, 14, (8, 4096), device=device, generator=gen), 14).float()
-    lengths = torch.full((8,), 4096, dtype=torch.int32, device=device)
-    out = {}
-    # the last two: the model arguments POINTSEG_SELECT2L=1 sets through the CLI
-    for label, name, kwargs in (("PointNet", "PointNet", {}),
-                                ("PointNet++", "PointNet++", {}), ("PointNeXt", "PointNeXt", {}),
-                                ("PointNet++MSG", "PointNet++MSG", {}),
-                                ("DeepGraphCnn", "DeepGraphCnn", {}),
-                                ("PointNeXt, POINTSEG_SELECT2L=1", "PointNeXt",
-                                 {"ball_select": "two_level"}),
-                                ("DeepGraphCnn, POINTSEG_SELECT2L=1", "DeepGraphCnn",
-                                 {"knn_select": "two_level"})):
-        torch.manual_seed(0)
-        run = create_train_state(create_model(name, **kwargs), device=device, learning_rate=1e-3,
-                                 seed=0)
-        for _ in range(3):
-            train_step(run, points, labels, lengths)
-        step_ms = cuda_ms(lambda: train_step(run, points, labels, lengths), 10)
-        rows = profiled(lambda: train_step(run, points, labels, lengths), 3)
-        dev_ms = sum(device_time_us(e) for e in rows if e.device_type == DeviceType.CUDA
-                     and not e.is_user_annotation) / 3 / 1e3
-        out[label] = {"device_ms": dev_ms, "step_ms": step_ms}
-        print(f"{'':11s} {label}: device {dev_ms:.3f} ms a step (profiler), step {step_ms:.3f} ms "
-              f"(CUDA events)", flush=True)
-        del run
-        torch.cuda.empty_cache()
-    return out
 
 
 def selection_splits(device) -> None:
@@ -1284,200 +1048,15 @@ def one_kernel_a_repeat_call(device) -> None:
     print(f"{'':11s} ball_query(filler='repeat') at SA1: one device kernel, {rows[0].key}")
 
 
-def against_parent(parent: str) -> None:
-    """Kernels 2, 3, 6 and 5 of this tree and of `parent` (an unpacked checkout
-    of the commit before this change) in one call, in turns parent, this,
-    this, parent, each a `--kernel-times` process that imports its own
-    package and builds its own kernels: device us a launch at every shape,
-    the rows under CUDA events, the device time a step of four models; and
-    the outputs on NaN inputs, which must be equal bit for bit."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = {"parent": [], "this": []}
-    outs = {}
-    tmp = tempfile.mkdtemp(prefix="pointseg_parent_")
-    try:
-        for n, (who, tree) in enumerate((("parent", parent), ("this", here), ("this", here),
-                                         ("parent", parent))):
-            path = os.path.join(tmp, f"{n}.pt")
-            proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
-                                   "--kernel-times", tree, path], capture_output=True, text=True,
-                                  timeout=600)
-            print(proc.stdout[-6000:], proc.stderr[-3000:], sep="\n", flush=True)
-            if proc.returncode != 0:
-                raise AssertionError(f"--kernel-times {tree} exited {proc.returncode}")
-            runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-            outs.setdefault(who, torch.load(path))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for key in ("ball_query", "three_nn", "ball_query_2l", "knn_2l"):
-        for a, b in zip(outs["this"][key], outs["parent"][key]):
-            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-                raise AssertionError(f"{key} on NaN inputs differs from the parent's kernel")
-    print(f"{'':11s} on NaN inputs kernels 2, 3, 6 and 5 equal the parent's bit for bit")
-
-    def mean(who, *keys):
-        values = [r for r in runs[who]]
-        for k in keys:
-            values = [v[k] for v in values]
-        return sum(values) / len(values)
-
-    for key in ("ball_query_us", "three_nn_us", "ball_query_2l_us", "knn_2l_us"):
-        for label in runs["this"][0][key]:
-            p, t = mean("parent", key, label), mean("this", key, label)
-            print(f"{'':11s} {key[:-3]} {label}: parent {p:.1f} us, this {t:.1f} us a launch on "
-                  f"the device ({p / t:.2f}x)")
-    for label in runs["this"][0]["rows_ms"]:
-        print(f"{'':11s} row under CUDA events, {label}: parent "
-              f"{[round(r['rows_ms'][label], 4) for r in runs['parent']]} ms, this "
-              f"{[round(r['rows_ms'][label], 4) for r in runs['this']]} ms")
-    for name in runs["this"][0]["steps"]:
-        print(f"{'':11s} {name}: device ms a step parent "
-              f"{[round(r['steps'][name]['device_ms'], 3) for r in runs['parent']]}, this "
-              f"{[round(r['steps'][name]['device_ms'], 3) for r in runs['this']]}; step ms "
-              f"parent {[round(r['steps'][name]['step_ms'], 3) for r in runs['parent']]}, this "
-              f"{[round(r['steps'][name]['step_ms'], 3) for r in runs['this']]}")
-
-
-def kernel_times_main(tree: str, out_path: str) -> int:
-    """`chip_smoke.py --kernel-times TREE OUT`: `selection_times` and
-    `model_step_times` with the package of the checkout at TREE; the last
-    line is their JSON."""
-    sys.path.insert(0, os.path.abspath(tree))
-    import pointseg_torch
-
-    if not os.path.abspath(pointseg_torch.__file__).startswith(os.path.abspath(tree)):
-        raise AssertionError(f"imported {pointseg_torch.__file__}, not the package of {tree}")
-    device = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from pointseg_torch.ops import _kernels
-
-    _kernels.library()
-    print(f"kernel times of {tree}:")
-    res = selection_times(device, out_path, two_level=True)
-    res["steps"] = model_step_times(device)
-    print(json.dumps(res))
-    return 0
-
-
-def selection_call_split(device) -> None:
-    """Where the host time of one `ball_query(filler="repeat")` call and
-    of one `three_nn` call goes (four of each a PointNet++ step), at SA3
-    (8, 64, 256) and FP3 (8, 256) <- 64, whose kernels take a few us, so
-    that 10,000 calls in a row never wait for the card: each part timed by
-    itself, then the steps the calls no longer take, beside the whole
-    call, an empty Python function and, for 3-NN, `torch.topk` over a
-    `baddbmm`."""
-    from pointseg_torch.ops import _kernels
-    from pointseg_torch.ops.ballquery import FILLERS, MAX_K, _radius_sq, ball_query
-    from pointseg_torch.ops.interpolate import three_nn
-    from pointseg_torch.ops.knn import SELECTS
-
-    levels = training_levels(device)
-    cents, pts, tgt = levels[3], levels[2], levels[2]
-    _kernels.library()
-    index = device.index
-    stream = _kernels._raw_stream(index)
-    idx = pts.new_empty((8, 64, 32), dtype=torch.int32)
-    in_ball = pts.new_empty((8, 64, 32), dtype=torch.bool)
-    d2 = pts.new_empty((8, 256, 3))
-    nn = pts.new_empty((8, 256, 3), dtype=torch.int32)
-    bq_entry = _kernels._ENTRY_POINTS["pointseg_ball_query"]
-    bq_args = (cents.data_ptr(), pts.data_ptr(), None, idx.data_ptr(), in_ball.data_ptr(), 8,
-               64, 256, 32, _radius_sq(0.4), 1, 0, 0, 0)
-    nn_entry = _kernels._ENTRY_POINTS["pointseg_three_nn"]
-    nn_args = (tgt.data_ptr(), cents.data_ptr(), None, d2.data_ptr(), nn.data_ptr(), 8, 256,
-               64, 0, 0)
-
-    def count():
-        _kernels.LAUNCHES["ball_query"] += 0
-
-    def layout(a, b):
-        return (a.dtype != torch.float32 or not a.is_contiguous(),
-                b.dtype != torch.float32 or not b.is_contiguous())
-
-    def shapes(a, b):
-        return (a.dim() != 3 or b.dim() != 3 or a.shape[2] != 3 or b.shape[2] != 3
-                or b.shape[0] != a.shape[0] or a.device != b.device)
-
-    calls = {
-        "ball_query(filler='repeat') at SA3": (
-            lambda: ball_query(cents, pts, 0.4, 32),
-            [("filler, select and K tests, device dispatch",
-              lambda: ("repeat" not in FILLERS, "flat" not in SELECTS, not 1 <= 32 <= 256,
-                       _kernels.on_cuda(pts))),
-             ("K and depth limits", lambda: (32 > MAX_K, 4 not in (1, 4))),
-             ("dtype and contiguity tests", lambda: layout(cents, pts)),
-             ("shape and device checks", lambda: shapes(cents, pts)),
-             ("two new_empty outputs", lambda: (
-                 pts.new_empty((8, 64, 32), dtype=torch.int32),
-                 pts.new_empty((8, 64, 32), dtype=torch.bool))),
-             ("pointers, sizes, r^2", lambda: (cents.data_ptr(), pts.data_ptr(), idx.data_ptr(),
-                                              in_ball.data_ptr(), _radius_sq(0.4))),
-             ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
-             ("the ctypes call (launches the kernel)", lambda: bq_entry(*bq_args, index, stream)),
-             ("launch counter", count)],
-            [("detach().to(float32).contiguous() of both inputs",
-              lambda: (cents.detach().to(torch.float32).contiguous(),
-                       pts.detach().to(torch.float32).contiguous())),
-             ("two _kernels.check calls", lambda: (
-                 _kernels.check(cents, "centroids", torch.float32, (8, 64, 3)),
-                 _kernels.check(pts, "coords", torch.float32, (8, 256, 3)))),
-             ("two torch.empty(shape, dtype=, device=), less new_empty's time", lambda: (
-                 torch.empty((8, 64, 32), dtype=torch.int32, device=pts.device),
-                 torch.empty((8, 64, 32), dtype=torch.bool, device=pts.device))),
-             ("the repeat filler: torch.where(in_ball, idx, idx[..., :1])",
-              lambda: torch.where(in_ball, idx, idx[..., :1]))],
-            None),
-        "three_nn at FP3": (
-            lambda: three_nn(tgt, cents),
-            [("k test, device dispatch", lambda: (not 1 <= 3 <= 64, _kernels.on_cuda(cents),
-                                                  3 != 3)),
-             ("dtype and contiguity tests", lambda: layout(tgt, cents)),
-             ("shape and device checks", lambda: shapes(tgt, cents)),
-             ("two new_empty outputs", lambda: (
-                 cents.new_empty((8, 256, 3)),
-                 cents.new_empty((8, 256, 3), dtype=torch.int32))),
-             ("pointers, sizes", lambda: (tgt.data_ptr(), cents.data_ptr(), d2.data_ptr(),
-                                          nn.data_ptr(), tgt.shape, cents.shape[1])),
-             ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
-             ("the ctypes call (launches the kernel)", lambda: nn_entry(*nn_args, index, stream)),
-             ("launch counter", count)],
-            [("detach().to(float32).contiguous() of both inputs",
-              lambda: (tgt.detach().to(torch.float32).contiguous(),
-                       cents.detach().to(torch.float32).contiguous())),
-             ("two _kernels.check calls", lambda: (
-                 _kernels.check(tgt, "coords_tgt", torch.float32, (8, 256, 3)),
-                 _kernels.check(cents, "coords_src", torch.float32, (8, 64, 3)))),
-             ("two torch.empty(shape, dtype=, device=), less new_empty's time", lambda: (
-                 torch.empty((8, 256, 3), dtype=torch.float32, device=pts.device),
-                 torch.empty((8, 256, 3), dtype=torch.int32, device=pts.device)))],
-            lambda: three_nn_library(tgt, cents)),
-    }
-    nothing = host_us(lambda: None)
-    for what, (whole_fn, now, before, library) in calls.items():
-        whole = host_us(whole_fn)
-        lib = f"; torch.topk over a baddbmm {host_us(library, 2000):.2f}" if library else ""
-        print(f"host time of one {what} call, us a call over 10,000 calls, host clock, no "
-              f"synchronisation: whole call {whole:.2f}{lib}; an empty Python function "
-              f"{nothing:.3f}")
-        parts = {name: host_us(fn) for name, fn in now}
-        for name, us in parts.items():
-            print(f"  part of the call: {name:45s} {us:7.2f}")
-        print(f"  parts summed {sum(parts.values()):.2f} (each part pays an empty call's "
-              f"{nothing:.3f} again)")
-        gone = 0.0
-        for name, fn in before:
-            us = host_us(fn)
-            if name.startswith("two torch.empty"):
-                us -= parts["two new_empty outputs"]
-            gone += us
-            print(f"  no longer in the call: {name:45s} {us:7.2f}")
-        print(f"  steps no longer taken, summed {gone:.2f}")
-
-
 def knn_kernels(device, record: Record) -> None:
-    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+    """The flat kNN kernel (kernel 4) and kernel 5, forced at k <= 32
+    through the private route, at DGCNN's EdgeConv shapes, repeated points
+    and an evaluation bucket: equal to each other and to the plain version
+    beyond float64-verified ties."""
+    from pointseg_torch.ops.knn import _knn_cuda, default_depth, knn_indices, knn_indices_plain
+
+    def two_level(x, k):
+        return _knn_cuda(x, k, "two_level", default_depth(k))
 
     rng = np.random.default_rng(1)
     k = K_NEIGHBOURS
@@ -1491,8 +1070,8 @@ def knn_kernels(device, record: Record) -> None:
         x = torch.from_numpy(x_np).to(device)
         B, N, F = x.shape
         want = knn_indices_plain(x, k)
-        flat = knn_indices(x, k, select="flat")
-        two = knn_indices(x, k, select="two_level")
+        flat = knn_indices(x, k)
+        two = two_level(x, k)
         torch.cuda.synchronize()
         if not torch.equal(flat, two):
             raise AssertionError(f"kNN {tuple(x.shape)} {what}: flat and two-level differ at "
@@ -1501,25 +1080,20 @@ def knn_kernels(device, record: Record) -> None:
         if what == "repeated points":
             check_knn_options(x, k)
         lib_ms = timed(lambda: knn_library(x, k), reps)
-        flops, nbytes = 2.0 * B * N * N * F, 4 * B * N * F + 4 * B * N * k
+        work = opwork("knn_indices", x, k)
         times = {}
-        for name, select in (("knn", "flat"), ("knn_2l", "two_level")):
-            ms, plain_ms = timed_pair(lambda: knn_indices(x, k, select=select),
-                                      lambda: knn_indices_plain(x, k), reps, plain_reps)
-            record.note(name, (B, N, F, what), ms, plain_ms, lib_ms, flops, nbytes,
-                        flips, err, per_forward)
+        for name, fn in (("knn", knn_indices), ("knn_2l", two_level)):
+            ms, plain_ms = timed_pair(lambda: fn(x, k), lambda: knn_indices_plain(x, k), reps,
+                                      plain_reps)
+            record.note(name, (B, N, F, what), ms, plain_ms, lib_ms, work, flips, err,
+                        per_forward)
             times[name] = ms
         # The kernels round every product and add it by itself: two float32
         # instructions where the bound above counts one fused multiply-add,
         # so an exact kernel's floor is twice the operation bound.
-        floor_ms = 2 * flops / PEAK_F32_FLOPS * 1e3
-        us, us_2l = device_us_in_turns(
-            lambda: knn_indices(x, k), "knn_flat_kernel",
-            lambda: knn_indices(x, k, select="two_level"), "knn_two_level_kernel", 5)
-        aim = {"xyz": 1.0, "activations": 1.25, "eval bucket": 1.25}.get(what)
-        if aim:
-            print(f"{'':11s} knn_two_level_kernel {(B, N, F)}: {us_2l / us:.2f}x the flat kernel "
-                  f"on the device (aim <= {aim}x: {'met' if us_2l <= aim * us else 'missed'})")
+        floor_ms = 2 * work[0] / PEAK_F32_FLOPS * 1e3
+        us, us_2l = device_us_in_turns(lambda: knn_indices(x, k), "knn_flat_kernel",
+                                       lambda: two_level(x, k), "knn_two_level_kernel", 5)
         norms_us = kernel_device_us(lambda: knn_indices(x, k), "row_sqnorm_kernel", reps=5)
         # with k = 1 a row's list takes some ln(N) insertions instead of
         # k ln(N / k) + k: nearly the score pass and the tile votes alone
@@ -1532,15 +1106,11 @@ def knn_kernels(device, record: Record) -> None:
               f"{times['knn'] / floor_ms:.2f}x under CUDA events; at k = 1 (nearly no "
               f"insertions) {k1_us:.1f} us, so the insertions of k = {k} cost "
               f"{us - k1_us:.1f} us")
-    row = record.rows["knn_2l"]["ms"]
-    print(f"{'':11s} knn_2l row under CUDA events {row:.4f} ms (aim <= 4.5: "
-          f"{'met' if row <= 4.5 else 'missed'})")
     print(f"{'':11s} SM clock right after the timed loops: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     knn_edge_cases(device)
     knn_2l_past_the_flat_limits(device)
-    knn_2l_depths(device)
 
 
 def knn_edge_cases(device) -> None:
@@ -1552,7 +1122,7 @@ def knn_edge_cases(device) -> None:
     6, 9, 67) and past one 64-feature chunk (67, 128, 132), k = 1 and 32,
     one cloud, a view that is not 16-byte aligned, and batches small
     enough that a warp takes four or two query rows instead of eight."""
-    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+    from pointseg_torch.ops.knn import _knn_cuda, default_depth, knn_indices, knn_indices_plain
 
     rng = np.random.default_rng(14)
     cases = [  # (B, N, F, k)
@@ -1564,8 +1134,8 @@ def knn_edge_cases(device) -> None:
     for B, N, F, k in cases:
         x = torch.from_numpy(activations(rng, B, N, F, repeat_from=N - N // 4)).to(device)
         want = knn_indices_plain(x, k)
-        for select in ("flat", "two_level"):
-            got = knn_indices(x, k, select=select)
+        for select, got in (("flat", knn_indices(x, k)),
+                            ("two_level", _knn_cuda(x, k, "two_level", default_depth(k)))):
             if not torch.equal(got, want):
                 raise AssertionError(f"kNN {select} {(B, N, F, k)}: {int((got != want).sum())} "
                                      f"slots differ from plain")
@@ -1583,7 +1153,7 @@ def knn_edge_cases(device) -> None:
 
 def knn_2l_past_the_flat_limits(device) -> None:
     """k = 33, 48, 64 at (8, 4096, 64) and F = 640, 1024 at (2, 4096, F),
-    where `select="flat"` runs kernel 5: one launch of it, equal to the
+    where the shape rule runs kernel 5: one launch of it, equal to the
     plain version slot for slot with and without the mask and the point
     itself, and at depth 1; device us a launch beside the flat kernel at k
     = 20 (where it runs), the bound and the exact-arithmetic floor."""
@@ -1607,7 +1177,7 @@ def knn_2l_past_the_flat_limits(device) -> None:
             got = knn_indices(x, k, **kwargs)
             if (_kernels.LAUNCHES["knn_2l"] != before["knn_2l"] + 1
                     or sum(_kernels.LAUNCHES.values()) != sum(before.values()) + 1):
-                raise AssertionError(f"kNN {(B, N, F)} k={k}: select='flat' must launch the "
+                raise AssertionError(f"kNN {(B, N, F)} k={k}: the shape rule must launch the "
                                      f"two-level kernel once")
             if not torch.equal(got, want):
                 raise AssertionError(f"kNN {(B, N, F)} k={k} {sorted(kwargs)}: "
@@ -1615,8 +1185,8 @@ def knn_2l_past_the_flat_limits(device) -> None:
             if not torch.equal(_knn_cuda(x, k, "two_level", 1, **kwargs), want):
                 raise AssertionError(f"kNN {(B, N, F)} k={k} {sorted(kwargs)} at depth 1 "
                                      f"differs from plain")
-        flops = 2.0 * B * N * N * F
-        bound = max(flops / PEAK_F32_FLOPS, (4 * B * N * F + 4 * B * N * k) / PEAK_BYTES_PER_S)
+        flops, nbytes = opwork("knn_indices", x, k)
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S)
         if F <= 512:
             flat_us, us = device_us_in_turns(lambda: knn_indices(x, 20), "knn_flat_kernel",
                                              lambda: knn_indices(x, k), "knn_two_level_kernel", 5)
@@ -1624,43 +1194,18 @@ def knn_2l_past_the_flat_limits(device) -> None:
         else:
             us = kernel_device_us(lambda: knn_indices(x, k), "knn_two_level_kernel", 5)
             beside = "the flat kernel does not stage rows this wide"
-        print(f"{'':11s} knn {(B, N, F)} k={k}: select='flat' runs the two-level kernel, equal "
+        print(f"{'':11s} knn {(B, N, F)} k={k}: the shape rule runs the two-level kernel, equal "
               f"to plain (mask, without self, both, depth 1); {us:.1f} us a launch on the "
               f"device ({beside}); bound {bound * 1e6:.1f} us, exact-arithmetic floor "
               f"{2 * flops / PEAK_F32_FLOPS * 1e6:.1f} us", flush=True)
 
 
-def knn_2l_depths(device) -> None:
-    """Kernel 5 at stack depths 1, 4 and 5 at the three timed shapes (four
-    query rows a warp) and at (1, 4096, 64), whose 128 blocks of four rows
-    would not fill the card (two): equal to the flat kernel slot for slot,
-    device us a launch."""
-    from pointseg_torch.ops.knn import _knn_cuda, knn_indices
-
-    rng = np.random.default_rng(25)
-    for B, N, F in ((8, 4096, 3), (8, 4096, 64), (2, 16384, 64), (1, 4096, 64)):
-        x = torch.from_numpy(activations(rng, B, N, F)).to(device)
-        want = knn_indices(x, K_NEIGHBOURS)
-        times = []
-        for depth in (1, 4, 5):
-            def call():
-                return _knn_cuda(x, K_NEIGHBOURS, "two_level", depth)
-            if not torch.equal(call(), want):
-                raise AssertionError(f"kNN two-level {(B, N, F)} depth {depth} differs from the "
-                                     f"flat kernel")
-            us = kernel_device_us(call, "knn_two_level_kernel", 3)
-            times.append(f"depth {depth} {us:.1f}")
-        rows = 4 if B * -(-N // 32) >= 256 else 2
-        print(f"{'':11s} knn_two_level_kernel {(B, N, F)} k={K_NEIGHBOURS}, {rows} query rows a "
-              f"warp, device us a launch, each equal to the flat kernel: " + ", ".join(times),
-              flush=True)
-
-
 def check_knn_options(x, k: int, quiet: bool = False) -> None:
-    """`mask` and `include_self=False` run in both kernels and give the
-    plain version's lists, slot for slot."""
+    """`mask` and `include_self=False` run in both kernels (the second
+    forced through the private route) and give the plain version's lists,
+    slot for slot."""
     from pointseg_torch.ops import _kernels
-    from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
+    from pointseg_torch.ops.knn import _knn, knn_indices_plain
 
     B, N, _ = x.shape
     mask = torch.rand((B, N), device=x.device,
@@ -1671,7 +1216,7 @@ def check_knn_options(x, k: int, quiet: bool = False) -> None:
         want = knn_indices_plain(x, k, **kwargs)
         for select, counter in (("flat", "knn"), ("two_level", "knn_2l")):
             before = _kernels.LAUNCHES[counter]
-            got = knn_indices(x, k, select=select, **kwargs)
+            got = _knn(x, k, kwargs.get("mask"), kwargs.get("include_self", True), select)
             if _kernels.LAUNCHES[counter] != before + 1:
                 raise AssertionError(f"kNN {select} with {sorted(kwargs)} launched no kernel")
             if not torch.equal(got, want):
@@ -1720,9 +1265,8 @@ def gather_kernels(device, record: Record) -> None:
         # the plain version is the library call: one torch.gather
         ms, plain_ms = timed_pair(lambda: gather_rows(table, idx),
                                   lambda: gather_rows_plain(table, idx), 20)
-        record.note("gather_rows", (B, N, C, M), ms, plain_ms, plain_ms, 0.0,
-                    4 * B * N * C + 4 * B * M + 4 * B * M * C, 0, max(err, grad_err),
-                    per_forward)
+        record.note("gather_rows", (B, N, C, M), ms, plain_ms, plain_ms,
+                    opwork("gather_rows", table, idx), 0, max(err, grad_err), per_forward)
         print(f"{'':11s} backward (index_add_) against autograd of torch.gather: "
               f"max |diff| {grad_err:.3g}")
 
@@ -1744,7 +1288,6 @@ def edge_reduce_kernels(device, record: Record) -> None:
     from pointseg_torch.ops.edgereduce import (
         _edge_reduce_backward_cuda,
         _edge_reduce_cuda,
-        count_dtype,
         edge_reduce,
         edge_reduce_plain,
     )
@@ -1789,21 +1332,19 @@ def edge_reduce_kernels(device, record: Record) -> None:
                                  f"of its largest")
         del t1
 
-        cb = torch.empty((), dtype=count_dtype(k)).element_size()
-        table_b, idx_b, out_b = 4 * B * N * C, 4 * B * N * k, B * N * C
-        # read: table, indices; written: max, min, s, q, two counts
-        fwd_bytes = table_b + idx_b + out_b * (4 + 4 + 4 + 4 + 2 * cb)
-        # read: table, indices, max, min, two counts, four gradients; written: the gradient
-        bwd_bytes = table_b + idx_b + out_b * (4 + 4 + 2 * cb + 16) + table_b
+        shapes = [(tuple(table.shape), 4), (tuple(idx.shape), 4), True]
+        fwd_work = harness.op_module("edge_reduce").work(shapes)
+        bwd_work = harness.op_module("edge_reduce").backward_work(shapes)
+        fwd_bytes, bwd_bytes = fwd_work[1], bwd_work[1]
         fwd = lambda: _edge_reduce_cuda(table, idx, True, counts=True)  # noqa: E731
         bwd = lambda: _edge_reduce_backward_cuda(  # noqa: E731
             table, idx, vmax, vmin, cmax, cmin, *grads)
         ms, plain_ms = timed_pair(fwd, lambda: edge_reduce_plain(table, idx, True), 20, 5)
-        record.note("edge_reduce", (B, N, k, C, "forward"), ms, plain_ms, None, 0.0, fwd_bytes,
+        record.note("edge_reduce", (B, N, k, C, "forward"), ms, plain_ms, None, fwd_work,
                     0, err, per_forward)
         ms, plain_ms = timed_pair(bwd, lambda: torch.autograd.grad(plain_out, t2, grads,
                                                                    retain_graph=True), 20, 5)
-        record.note("edge_reduce", (B, N, k, C, "backward"), ms, plain_ms, None, 0.0, bwd_bytes,
+        record.note("edge_reduce", (B, N, k, C, "backward"), ms, plain_ms, None, bwd_work,
                     0, grad_rel, per_forward)
         fwd_us = kernel_device_us(fwd, "edge_reduce_kernel")
         bwd_us = kernel_device_us(bwd, "edge_reduce_backward_kernel")
@@ -1815,121 +1356,6 @@ def edge_reduce_kernels(device, record: Record) -> None:
               f"their largest", flush=True)
         del table, idx, grads, vmax, vmin, s, q, cmax, cmin, want, t2, plain_out, n_max, n_min
         torch.cuda.empty_cache()
-
-
-# SetAbstraction groupings of one forward pass at B = 8, N = 4096 (the
-# feature table's points, its width h, centroids, K), per model: one
-# `gather_rows_with_coords` each, feature rows of h floats and coordinate
-# rows of 3; the first stage's coordinates are a view of the (8, 4096, 9)
-# input, as in the models.
-SA_GROUPINGS = {
-    "PointNet++": [(4096, 32, 1024, 32), (1024, 64, 256, 32), (256, 128, 64, 32),
-                   (64, 256, 16, 32)],
-    "PointNet++MSG": [(4096, 16, 1024, 16), (4096, 32, 1024, 32), (1024, 64, 256, 16),
-                      (1024, 64, 256, 32), (256, 128, 64, 16), (256, 128, 64, 32),
-                      (64, 256, 16, 16), (64, 256, 16, 32)],
-    "PointNeXt": [(4096, 32, 1024, 32), (1024, 64, 1024, 32), (1024, 64, 256, 32),
-                  (256, 128, 256, 32), (256, 128, 256, 32), (256, 128, 64, 32),
-                  (64, 256, 64, 32), (64, 256, 16, 16), (16, 512, 16, 16)],
-}
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Device milliseconds a call of `fn`: every kernel and copy it runs
-    (profiler), none of the host's gaps between them."""
-    from torch.autograd import DeviceType
-
-    fn()  # warm-up
-    return sum(device_time_us(e) for e in profiled(fn, reps)
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / reps / 1e3
-
-
-def sa_grouping_forms(device) -> None:
-    """Three forms of SetAbstraction grouping at every SA table of
-    PointNet++, MSG and PointNeXt, forward (as in training: the features
-    need a gradient) and forward + backward (eight forwards and one
-    backward call over them, as a step has one; times per grouping): the
-    concatenated table with
-    one launch (the JAX package's form, and the port's before the
-    two-table kernel), two
-    launches, and the two-table kernel (`gather_rows_with_coords`). Rows
-    bit-equal across the three, and the two-table call beside the library
-    (two `torch.gather` calls). CUDA events (host and device) and device
-    time (profiler), in turns."""
-    from pointseg_torch.ops.gather import gather_rows, gather_rows_with_coords
-
-    def concat(f, c, idx):
-        rows = gather_rows(torch.cat([f, c], dim=-1), idx)
-        return rows[..., :f.shape[-1]], rows[..., f.shape[-1]:]
-
-    def two_launches(f, c, idx):
-        return gather_rows(f, idx), gather_rows(c, idx)
-
-    def library(f, c, idx):
-        return rows(f, idx), rows(c, idx)
-
-    forms = {"concat": concat, "two launches": two_launches,
-             "two-table kernel": gather_rows_with_coords}
-    rng = np.random.default_rng(9)
-    sums = {model: {(form, kind): 0.0 for form in forms for kind in ("fwd", "fwd+bwd",
-                                                                     "fwd device",
-                                                                     "fwd+bwd device")}
-            for model in SA_GROUPINGS}
-    lib_sum = {model: [0.0, 0.0] for model in SA_GROUPINGS}
-    shapes = dict.fromkeys(g for groupings in SA_GROUPINGS.values() for g in groupings)
-    for N, h, C, K in shapes:
-        B = 8
-        x = torch.from_numpy(rng.random((B, N, 9)).astype(np.float32)).to(device)
-        coords = x[..., :3] if N == 4096 else x[..., :3].contiguous()
-        feats = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(device)
-        feats.requires_grad_(True)
-        idx = torch.from_numpy(rng.integers(0, N, (B, C, K)).astype(np.int32)).to(device)
-        grad = torch.randn((B, C, K, h), device=device)
-        outs = {name: form(feats, coords, idx) for name, form in forms.items()}
-        want = library(feats.detach(), coords, idx)
-        for name, (gf, gc) in outs.items():
-            if not (torch.equal(gf, want[0]) and torch.equal(gc, want[1])):
-                raise AssertionError(f"SA grouping {(N, h, C, K)}, {name}: rows differ")
-        del outs
-
-        def fwd(form):
-            return lambda: form(feats, coords, idx)
-
-        def fwd_bwd(form):  # eight groupings, one backward call: a step's shape
-            return lambda: torch.autograd.backward(
-                [form(feats, coords, idx)[0] for _ in range(8)], [grad] * 8)
-
-        times = {}
-        for name in [*forms, *reversed(forms)]:  # in turns, there and back
-            times.setdefault((name, "fwd"), []).append(timed(fwd(forms[name]), 20))
-            times.setdefault((name, "fwd+bwd"), []).append(timed(fwd_bwd(forms[name]), 5) / 8)
-        for name, form in forms.items():
-            times[(name, "fwd device")] = [device_ms(fwd(form))]
-            times[(name, "fwd+bwd device")] = [device_ms(fwd_bwd(form), reps=3) / 8]
-        lib_ms = timed(lambda: library(feats.detach(), coords, idx), 20)
-        call_ms = timed(lambda: gather_rows_with_coords(feats.detach(), coords, idx), 20)
-        feats.grad = None
-        line = "; ".join(f"{name} " + " / ".join(
-            f"{sum(times[(name, kind)]) / len(times[(name, kind)]):.4f}"
-            for kind in ("fwd", "fwd+bwd", "fwd device", "fwd+bwd device")) for name in forms)
-        print(f"SA grouping (8, {N}, {h}) + coords x ({C}, {K}), ms fwd / fwd+bwd (CUDA events) "
-              f"/ fwd / fwd+bwd (device): {line}; the two-table call without a gradient "
-              f"{call_ms:.4f} against two torch.gather {lib_ms:.4f} ({call_ms / lib_ms:.2f}x)")
-        for model, groupings in SA_GROUPINGS.items():
-            n = groupings.count((N, h, C, K))
-            for key, values in times.items():
-                sums[model][key] += n * sum(values) / len(values)
-            lib_sum[model][0] += n * call_ms
-            lib_sum[model][1] += n * lib_ms
-    for model, total in sums.items():
-        line = "; ".join(f"{name} " + " / ".join(f"{total[(name, kind)]:.4f}" for kind in (
-            "fwd", "fwd+bwd", "fwd device", "fwd+bwd device")) for name in forms)
-        fastest = {kind: min(forms, key=lambda name: total[(name, kind)])
-                   for kind in ("fwd", "fwd+bwd", "fwd device", "fwd+bwd device")}
-        print(f"SA grouping, {model}'s {len(SA_GROUPINGS[model])} tables summed, ms fwd / fwd+bwd "
-              f"(CUDA events) / fwd / fwd+bwd (device): {line}; fastest {fastest}; the "
-              f"two-table calls {lib_sum[model][0]:.4f} against two torch.gather each "
-              f"{lib_sum[model][1]:.4f}")
 
 
 # PointNeXt-XL's grouped layers of one forward at B 32 x 4,096, over its
@@ -2193,8 +1619,10 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
         lib_us = sum(device_time_us(e) for e in profiled(
             lambda: torch.index_select(table, 0, next(rows)), 10)
             if e.device_type == DeviceType.CUDA) / 10
+        # its own count: portbench/opwork/ has no module for the store's gather,
+        # and these random rows read whole sectors, not their bytes
         record.note("gather_rows_flat", (R, row_bytes, mrows, what), (k1 + k2) / 2,
-                    (p1 + p2) / 2, lib_ms, 0.0, nbytes, 0, 0.0, per_step)
+                    (p1 + p2) / 2, lib_ms, (0.0, nbytes), 0, 0.0, per_step)
         print(f"{'':11s} device time a launch (profiler): kernel {us:.1f} us, index_select's "
               f"kernels {lib_us:.1f} us; sectors {nbytes - 8 * mrows - mrows * row_bytes} B, "
               f"rows {mrows * row_bytes} B")
@@ -2225,184 +1653,6 @@ def gather_flat_kernels(device, record: Record, seed: int) -> None:
         case(table, f"{what}, all of S3DIS", odd, 0, reps=5)
         del table
         torch.cuda.empty_cache()
-
-
-def host_us(fn, calls: int = 10_000) -> float:
-    """Host microseconds per call of `fn` over `calls` calls, by the host's
-    clock with no synchronisation inside the loop: what the call costs the
-    thread that launches the work."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / calls * 1e6
-
-
-def launch_path_split(device) -> None:
-    """Where the host time of one `gather_rows_flat` call goes: 32,768 rows
-    of the 240,000-row table of nine floats. Each part is timed by itself
-    (the parts of the call as it is now, then the steps it no longer
-    takes), beside the whole call, `torch.index_select` and an empty
-    Python function."""
-    from pointseg_torch.ops import _kernels
-    from pointseg_torch.ops.gather import gather_rows_flat
-
-    gen = torch.Generator(device).manual_seed(11)
-    table = torch.rand((SYNTHETIC_ROWS, 9), device=device, generator=gen)
-    idx = torch.randint(0, SYNTHETIC_ROWS, (SAMPLED_ROWS,), device=device, generator=gen)
-    out = torch.empty((SAMPLED_ROWS, 9), device=device)
-    _kernels.library()
-    symbol = "pointseg_gather_rows_flat"
-    entry = _kernels._ENTRY_POINTS[symbol]
-    index = device.index
-    stream = _kernels._raw_stream(index)
-    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), SYNTHETIC_ROWS, SAMPLED_ROWS, 36)
-
-    def empty_call():
-        pass
-
-    def checks():  # the tests the public function and its CUDA path make
-        dtype = idx.dtype
-        return (idx.dim() != 1 or (dtype != torch.int64 and (idx.is_floating_point()
-                                                             or dtype == torch.bool))
-                or table.dim() < 1 or not table.is_cuda or idx.device != table.device
-                or not table.is_contiguous() or idx.dtype != torch.int64
-                or not idx.is_contiguous())
-
-    def sizes_and_pointers():
-        return (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], idx.shape[0],
-                out.stride(0) * out.element_size(), out.numel())
-
-    def guard():
-        with torch.cuda.device(device):
-            pass
-
-    def count():
-        _kernels.LAUNCHES["gather_rows_flat"] += 0
-
-    now = [
-        ("argument checks", checks),
-        ("table.new_empty of the output", lambda: table.new_empty((idx.shape[0],
-                                                                   *table.shape[1:]))),
-        ("pointers, sizes, row bytes", sizes_and_pointers),
-        ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
-        ("the ctypes call (launches the kernel)", lambda: entry(*args, index, stream)),
-        ("launch counter", count),
-    ]
-    before = [
-        ("`with torch.cuda.device(device)`", guard),
-        ("torch.cuda.current_stream(device).cuda_stream",
-         lambda: torch.cuda.current_stream(device).cuda_stream),
-        ("getattr(library(), symbol)", lambda: getattr(_kernels.library(), symbol)),
-        ("idx.to(int64).contiguous() on an int64 index", lambda: idx.to(torch.int64).contiguous()),
-        ("math.prod(table.shape[1:])", lambda: math.prod(table.shape[1:])),
-        ("torch.empty(shape, dtype=, device=) of the output, less new_empty's time",
-         lambda: torch.empty((SAMPLED_ROWS, 9), dtype=table.dtype, device=table.device)),
-    ]
-    whole = host_us(lambda: gather_rows_flat(table, idx))
-    library_call = host_us(lambda: torch.index_select(table, 0, idx))
-    nothing = host_us(empty_call)
-    print(f"host time of one gather_rows_flat call ({SAMPLED_ROWS} rows of 36 bytes from "
-          f"{SYNTHETIC_ROWS}), us a call over 10,000 calls, host clock, no synchronisation:")
-    print(f"  whole call {whole:.2f}; torch.index_select {library_call:.2f}; an empty Python "
-          f"function {nothing:.3f}")
-    parts = {name: host_us(fn) for name, fn in now}
-    total = sum(parts.values())
-    for name, us in parts.items():
-        print(f"  part of the call: {name:45s} {us:7.2f}")
-    print(f"  parts summed {total:.2f} (each part pays an empty call's {nothing:.3f} again)")
-    gone = 0.0
-    for name, fn in before:
-        us = host_us(fn)
-        if name.startswith("torch.empty"):
-            us -= parts["table.new_empty of the output"]
-        gone += us
-        print(f"  no longer in the call: {name:45s} {us:7.2f}")
-    print(f"  steps no longer taken, summed {gone:.2f}")
-
-
-def gather_call_split(device) -> None:
-    """Where the host time of one `gather_rows` call goes, at the first
-    stage's centroid gather, (8, 4096, 3) x 1,024 rows, a table needing no
-    gradient (four such calls a PointNet++ step; a kernel of a few
-    microseconds, so the call is host time): each part timed by itself,
-    then the steps the call no longer takes, beside the whole call,
-    `torch.gather` and an empty Python function."""
-    from pointseg_torch.ops import _kernels
-    from pointseg_torch.ops.gather import _check_batched, _GatherRows, gather_rows
-
-    gen = torch.Generator(device).manual_seed(12)
-    table = torch.rand((8, 4096, 3), device=device, generator=gen)
-    idx = torch.randint(0, 4096, (8, 1024), device=device, generator=gen, dtype=torch.int32)
-    grad_table = table.clone().requires_grad_(True)
-    flat = idx.long()[..., None].expand(-1, -1, 3)
-    out = table.new_empty((8, 1024, 3))
-    _kernels.library()
-    symbol = "pointseg_gather_rows"
-    entry = _kernels._ENTRY_POINTS[symbol]
-    index = device.index
-    stream = _kernels._raw_stream(index)
-    args = (table.data_ptr(), None, idx.data_ptr(), out.data_ptr(), None, 8, 4096, 1024, 12, 0)
-
-    def count():
-        _kernels.LAUNCHES["gather_rows"] += 0
-
-    def dispatch():  # the public function's test and its device test
-        return (table.requires_grad and torch.is_grad_enabled()) or _kernels.on_cuda(table)
-
-    def layout():  # contiguity and the index's type, nothing to convert
-        return (table.is_contiguous(), idx.dtype != torch.int32 or not idx.is_contiguous())
-
-    now = [
-        ("grad test and device dispatch", dispatch),
-        ("argument checks (_check_batched)", lambda: _check_batched(table, idx, None)),
-        ("contiguity and index type", layout),
-        ("table.new_empty of the output", lambda: table.new_empty((*idx.shape, 3))),
-        ("pointers, sizes, row bytes", lambda: (table.data_ptr(), idx.data_ptr(),
-                                                out.data_ptr(), idx.numel() // 8,
-                                                3 * table.element_size(), table.shape)),
-        ("device index and raw stream handle", lambda: _kernels._raw_stream(device.index)),
-        ("the ctypes call (launches the kernel)", lambda: entry(*args, index, stream)),
-        ("launch counter", count),
-    ]
-    before = [
-        ("_GatherRows.apply on a table needing a gradient, less the direct call",
-         lambda: _GatherRows.apply(grad_table, idx, None)),
-        ("table.contiguous() on a contiguous table", lambda: table.contiguous()),
-        ("idx.reshape(B, -1).to(int32).contiguous()",
-         lambda: idx.reshape(8, -1).to(torch.int32).contiguous()),
-        ("two _kernels.check calls", lambda: (
-            _kernels.check(table, "table", torch.float32, (8, 4096, 3)),
-            _kernels.check(idx.reshape(8, -1), "idx", torch.int32, (8, 1024)))),
-        ("torch.empty(shape, dtype=, device=) of the output, less new_empty's time",
-         lambda: torch.empty((8, 1024, 3), dtype=table.dtype, device=table.device)),
-    ]
-    whole = host_us(lambda: gather_rows(table, idx))
-    library_call = host_us(lambda: torch.gather(table, 1, flat))
-    nothing = host_us(lambda: None)
-    print(f"host time of one gather_rows call (8 x 1,024 rows of 3 floats from 8 x 4096, a "
-          f"table needing no gradient), us a call over 10,000 calls, host clock, no "
-          f"synchronisation:")
-    print(f"  whole call {whole:.2f}; torch.gather {library_call:.2f}; an empty Python function "
-          f"{nothing:.3f}")
-    parts = {name: host_us(fn) for name, fn in now}
-    for name, us in parts.items():
-        print(f"  part of the call: {name:45s} {us:7.2f}")
-    print(f"  parts summed {sum(parts.values()):.2f} (each part pays an empty call's "
-          f"{nothing:.3f} again)")
-    gone = 0.0
-    for name, fn in before:
-        us = host_us(fn)
-        if name.startswith("_GatherRows"):
-            us -= whole
-        elif name.startswith("torch.empty"):
-            us -= parts["table.new_empty of the output"]
-        gone += us
-        print(f"  no longer in the call: {name:45s} {us:7.2f}")
-    print(f"  steps no longer taken, summed {gone:.2f}")
 
 
 def streams_and_graphs(device) -> None:
@@ -2538,41 +1788,10 @@ def steady_state(state, batch, label: str) -> dict:
             "points_per_s": points / (step_ms / 1e3), "peak_bytes": peak}
 
 
-def matmul_floor(model, batch, perf: dict, label: str) -> None:
-    """Prints the float32 work of the Linear layers in a train step of
-    `model` on `batch` (counted by hooks in one forward pass: rows x in x
-    out multiply-adds; a step is the forward and the backward's two
-    products, 6 FLOP a multiply-add) and the least time it could take at
-    the card's peak float32 rate, beside the measured step."""
-    macs = 0
-
-    def count(module, args, out):
-        nonlocal macs
-        macs += args[0].numel() // module.in_features * module.in_features * module.out_features
-
-    hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, torch.nn.Linear)]
-    try:
-        with torch.no_grad():
-            model.eval()(batch[0])
-    finally:
-        for hook in hooks:
-            hook.remove()
-        model.train()
-    points = batch[0].shape[0] * batch[0].shape[1]
-    floor_ms = 6 * macs / PEAK_F32_FLOPS * 1e3
-    print(f"{label}: Linear work {macs / points:,.0f} multiply-adds a point forward, "
-          f"{6 * macs / 1e9:.1f} GFLOP a train step; floor {floor_ms:.3f} ms at "
-          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s float32; measured step {perf['step_ms']:.3f} ms "
-          f"({100 * floor_ms / perf['step_ms']:.1f}% of the floor's rate)")
-
-
 def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
-                      flags: tuple[str, ...] = (), mode: str = "host loader",
-                      env: dict | None = None):
-    """One epoch and its evaluation through the CLI, with `flags` added
-    and the environment variables `env` set for the run; returns (state,
-    launches, records), `records["launched_steps"]` the train steps that
+                      flags: tuple[str, ...] = (), mode: str = "host loader"):
+    """One epoch and its evaluation through the CLI, with `flags` added;
+    returns (state, launches, records), `records["launched_steps"]` the train steps that
     launched from Python (`launched_steps`: the launches count these and
     the evaluation's forwards, not the replayed steps). Raises unless every
     kernel in `needed` was launched and the train split came by way of
@@ -2584,25 +1803,14 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
             "--device", "cuda", "--log-dir", f"{workdir}/logs",
             "--model-dir", f"{workdir}/models", *flags]
     args = cli.build_parser().parse_args(argv)
-    env = env or {}
-    saved = {name: os.environ.get(name) for name in env}
-    os.environ.update(env)
-    try:
-        zero_launches()
-        before = step_counts()
-        t0 = time.time()
-        state, records = cli.train_from_args(args)
-        launches = read_launches()
-        records["launched_steps"] = launched_steps(before)
-        steps = {k: v - before[k] for k, v in step_counts().items()}
-    finally:
-        for name, value in saved.items():
-            if value is None:
-                del os.environ[name]
-            else:
-                os.environ[name] = value
-    shown = " ".join([*(f"{k}={v}" for k, v in env.items()), *flags])
-    print(f"{model_name} {shown}: {time.time() - t0:.1f} s for one epoch ({state.step} "
+    zero_launches()
+    before = step_counts()
+    t0 = time.time()
+    state, records = cli.train_from_args(args)
+    launches = read_launches()
+    records["launched_steps"] = launched_steps(before)
+    steps = {k: v - before[k] for k, v in step_counts().items()}
+    print(f"{model_name} {' '.join(flags)}: {time.time() - t0:.1f} s for one epoch ({state.step} "
           f"steps; `train_step` calls {steps}) and its evaluation; launches {launches}")
     if records["config"]["data_mode"] != mode:
         raise AssertionError(f"train {model_name} {flags}: the train split came by way of "
@@ -2616,45 +1824,6 @@ def train_through_cli(model_name: str, workdir: str, needed: tuple[str, ...],
     if missing:
         raise AssertionError(f"kernels never launched by train {model_name}: {missing}")
     return state, launches, records
-
-
-def two_level_against_flat(model_name: str, option: str, flat: str, two_level: str,
-                           per_step: int, state, batch, device) -> dict:
-    """Three steps each of `model_name` with the two-level and the flat
-    kernel (model argument `option`, launch counters `two_level` and
-    `flat`, `per_step` launches a step), from the trained weights, one
-    batch, one FPS seed and one dropout seed; returns the two-level run's
-    launches."""
-    from pointseg_torch.models import create_model
-    from pointseg_torch.train.state import create_train_state, train_step
-
-    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
-    losses, launches, launched = {}, {}, {}
-    for select in ("two_level", "flat"):
-        model = create_model(model_name, **{option: select})
-        model.load_state_dict(weights)
-        run = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
-        torch.manual_seed(1234)  # the same dropout masks in both runs
-        zero_launches()
-        before = step_counts()
-        losses[select] = [float(train_step(run, *batch)["loss"]) for _ in range(3)]
-        launches[select] = read_launches()
-        launched[select] = launched_steps(before)  # eager, then captured; the third replays
-    print(f"{model_name} two-level: losses {losses['two_level']} launches {launches['two_level']}")
-    print(f"{model_name} flat:      losses {losses['flat']} launches {launches['flat']}")
-    for select, used, unused in (("two_level", two_level, flat), ("flat", flat, two_level)):
-        if (launched[select] != 2 or launches[select][used] != 2 * per_step
-                or launches[select][unused] != 0):
-            raise AssertionError(f"{model_name} {option}={select!r} must launch {used} "
-                                 f"{per_step} times in each of the 2 steps launched from "
-                                 f"Python ({launched[select]}) and {unused} never: "
-                                 f"{launches[select]}")
-    for step, (a, b) in enumerate(zip(losses["two_level"], losses["flat"])):
-        rel = 1e-6 if step == 0 else 1e-3
-        if not math.isfinite(a) or abs(a - b) > rel * abs(b):
-            raise AssertionError(f"{model_name} step {step}: two-level loss {a} vs flat {b} "
-                                 f"(rel {rel})")
-    return launches["two_level"]
 
 
 def few_steps(model_name: str, batch, device) -> None:
@@ -2686,38 +1855,6 @@ def few_steps(model_name: str, batch, device) -> None:
     torch.cuda.empty_cache()
 
 
-def remat_cost(state, batch, device) -> None:
-    """Step time and peak memory of DeepGraphCnn with and without
-    `EdgeConv.remat`, from the same weights and batch: the launches of its
-    two steps launched from Python, the time of five replayed ones."""
-    from pointseg_torch.models import create_model
-    from pointseg_torch.train.state import create_train_state, train_step
-
-    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
-    for remat in (False, True):
-        model = create_model("DeepGraphCnn")
-        model.load_state_dict(weights)
-        for conv in (model.conv1, model.conv2, model.conv3, model.conv4):
-            conv.remat = remat
-        run = create_train_state(model, device=device, learning_rate=1e-3, seed=0)
-        zero_launches()
-        before = step_counts()
-        loss = [float(train_step(run, *batch)["loss"]) for _ in range(2)][-1]
-        # the two steps launched from Python (eager, captured): edge_reduce's forward and
-        # backward kernel, 4 each a step; remat runs the forward twice
-        reduces = read_launches()["edge_reduce"] // launched_steps(before)
-        torch.cuda.reset_peak_memory_stats()
-        step_ms = cuda_ms(lambda: train_step(run, *batch), 5)  # replays
-        if not math.isfinite(loss) or reduces != (12 if remat else 8):
-            raise AssertionError(f"remat={remat}: loss {loss}, {reduces} edge_reduce launches "
-                                 f"a step")
-        print(f"DeepGraphCnn remat={remat}: {step_ms:.3f} ms a step, {reduces} edge_reduce "
-              f"launches a step, "
-              f"peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        del run, model
-        torch.cuda.empty_cache()
-
-
 def trainer_phase(device, workdir: str):
     from pointseg_torch.data.datasets import create_block_dataloaders
     from pointseg_torch.train.loop import to_device
@@ -2740,7 +1877,6 @@ def trainer_phase(device, workdir: str):
     if any(pn_launches.values()):
         raise AssertionError(f"PointNet runs none of the port's kernels, got {pn_launches}")
     pn_perf = {**steady_state(pn_state, batch, "PointNet"), "cli_launches": pn_launches}
-    matmul_floor(pn_state.model, batch, pn_perf, "PointNet")
 
     dg_state, dg_launches, dg_rec = train_through_cli("DeepGraphCnn", workdir,
                                                       ("knn", "edge_reduce"))
@@ -2752,10 +1888,7 @@ def trainer_phase(device, workdir: str):
     if (dg_launches["knn_2l"] or dg_launches["fps"] or dg_launches["ball_query_2l"]
             or dg_launches["gather_rows"]):
         raise AssertionError(f"DeepGraphCnn launched kernels off its path: {dg_launches}")
-    two_level_against_flat("DeepGraphCnn", "knn_select", "knn", "knn_2l", 4, dg_state, batch,
-                           device)
     dg_perf = {**steady_state(dg_state, batch, "DeepGraphCnn"), "cli_launches": dg_launches}
-    remat_cost(dg_state, batch, device)
     states = {"PointNet++": (pp_state, pp_perf), "PointNet": (pn_state, pn_perf),
               "DeepGraphCnn": (dg_state, dg_perf)}
 
@@ -2771,32 +1904,16 @@ def trainer_phase(device, workdir: str):
                                  f"and their evaluation must launch "
                                  f"{per_forward} (fps, ball_query, three_nn) per forward pass "
                                  f"and no other selection kernel, got {got}")
-        two_level_against_flat(
-            name, "ball_select", "ball_query", "ball_query_2l", per_forward[1], state, batch,
-            device)
         states[name] = (state, {**steady_state(state, batch, name), "cli_launches": got})
     few_steps("PointNeXt-L", batch, device)
     pointnext_xl_step(device)
-    # the two-level kernels from a command a user can type: the JAX
-    # package's switch, read by the port's CLI
-    select2l = {}
-    for name, used, unused, per_step in (("PointNeXt", "ball_query_2l", "ball_query", 9),
-                                         ("DeepGraphCnn", "knn_2l", "knn", 4)):
-        state, got, rec = train_through_cli(name, workdir, (used,),
-                                            env={"POINTSEG_SELECT2L": "1"})
-        if got[unused] or got[used] < per_step * rec["launched_steps"]:
-            raise AssertionError(f"POINTSEG_SELECT2L=1 train {name}: {rec['launched_steps']} "
-                                 f"steps launched from Python must "
-                                 f"launch {used} at least {per_step} times a step and {unused} "
-                                 f"never, got {got}")
-        select2l[used] = got[used]
-        del state
     flat_launches = device_store_phase(device, workdir, pp_state)
 
+    # kernel 6 runs on no registered model's path (no ball of more than 32);
+    # kernel 5's launches are the enhanced trainer's (phase 9, k = 40)
     launches = {"fps": pp_launches["fps"], "ball_query": pp_launches["ball_query"],
-                "ball_query_2l": select2l["ball_query_2l"],
-                "three_nn": pp_launches["three_nn"], "knn": dg_launches["knn"],
-                "knn_2l": select2l["knn_2l"],
+                "ball_query_2l": 0, "three_nn": pp_launches["three_nn"],
+                "knn": dg_launches["knn"], "knn_2l": None,
                 "gather_rows": pp_launches["gather_rows"],
                 "gather_rows_flat": flat_launches, "edge_reduce": dg_launches["edge_reduce"]}
     return states, launches, batch
@@ -3009,7 +2126,7 @@ def forward_with_graphs(model, x, graphs=None):
         if graphs is not None:
             idx = graphs[len(used)].to(args[0].device)
         else:
-            idx = ops.knn_indices(args[0], module.k, select=module.knn_select)
+            idx = ops.knn_indices(args[0], module.k)
         used.append(idx)
         return args, {**kwargs, "idx": idx}
 
@@ -3539,14 +2656,25 @@ def measurement_phase(device, workdir: str, smi: str) -> dict:
     return readings
 
 
-# Phase 8: bf16 compute (`--bf16`). Kernel 7 at bf16 rows: the SA
-# groupings of the three PointNet++-family models (SA_GROUPINGS) and
-# DGCNN's EdgeConv gathers, (B, N, h, idx shape).
+# Phase 8: bf16 compute (`--bf16`). Kernel 7 at bf16 rows: the
+# SetAbstraction groupings of one forward pass at B = 8, N = 4096 of the
+# three PointNet++-family models, as (the feature table's points, its
+# width h, centroids, K) per model, and DGCNN's EdgeConv gathers, as (B,
+# N, h, idx shape).
+SA_GROUPINGS = {
+    "PointNet++": [(4096, 32, 1024, 32), (1024, 64, 256, 32), (256, 128, 64, 32),
+                   (64, 256, 16, 32)],
+    "PointNet++MSG": [(4096, 16, 1024, 16), (4096, 32, 1024, 32), (1024, 64, 256, 16),
+                      (1024, 64, 256, 32), (256, 128, 64, 16), (256, 128, 64, 32),
+                      (64, 256, 16, 16), (64, 256, 16, 32)],
+    "PointNeXt": [(4096, 32, 1024, 32), (1024, 64, 1024, 32), (1024, 64, 256, 32),
+                  (256, 128, 256, 32), (256, 128, 256, 32), (256, 128, 64, 32),
+                  (64, 256, 64, 32), (64, 256, 16, 16), (16, 512, 16, 16)],
+}
 BF16_GATHERS = [(8, N, h, (C, K)) for model in SA_GROUPINGS
                 for N, h, C, K in SA_GROUPINGS[model]]
 BF16_GATHERS += [(8, 4096, 64, (4096, K_NEIGHBOURS)), (8, 4096, 128, (4096, K_NEIGHBOURS))]
 BF16_MODELS = ("PointNet++", "DeepGraphCnn", "PointNeXt", "PointNet")  # trained through the CLI
-BF16_TIMED = ("PointNet", "PointNet++", "PointNet++MSG", "PointNeXt", "DeepGraphCnn")
 BF16_LOSS_REL = 2e-2  # bf16 loss against float32, as the JAX package's tests hold it
 # card against CPU in bf16, max |Δlogit| over max |logit|: the two round
 # bf16 products and sums differently (cuBLAS against the CPU's kernels);
@@ -3598,7 +2726,6 @@ def bf16_gathers(device) -> dict:
             raise AssertionError(f"bf16 gather backward {(B, N, h, shape)}: "
                                  f"{int((err > allowed).sum())} sums off by more than one "
                                  f"bf16 rounding")
-        M = math.prod(shape)
         for with_coords in (False, True):
             if with_coords:
                 def kernel():
@@ -3613,9 +2740,10 @@ def bf16_gathers(device) -> dict:
                 def library():
                     return gather_rows_plain(table, idx)
             ms, lib_ms = timed_pair(kernel, library, 20)
-            nbytes = 2 * B * N * h + 4 * B * M + 2 * B * M * h
             if with_coords:
-                nbytes += 12 * B * N + 12 * B * M
+                _, nbytes = opwork("gather_rows_with_coords", table, coords, idx)
+            else:
+                _, nbytes = opwork("gather_rows", table, idx)
             bound = nbytes / PEAK_BYTES_PER_S * 1e3
             key = "bf16 rows and coordinates" if with_coords else "bf16 rows"
             s = sums.setdefault(key, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0})
@@ -3631,52 +2759,6 @@ def bf16_gathers(device) -> dict:
               f"({100 * s['bound_ms'] / s['ms']:.0f}% of it), torch.gather "
               f"{s['library_ms']:.4f} ms")
     return sums
-
-
-def bf16_step_times(device, batch) -> dict:
-    """Step ms (CUDA events), device ms a step (profiler) and peak memory
-    of the five measured models in float32 and bf16, from the same seeded
-    weights and batch, in turns (f32, bf16, bf16, f32 for the times)."""
-    from torch.autograd import DeviceType
-
-    from pointseg_torch.models import create_model
-    from pointseg_torch.train.state import create_train_state, train_step
-
-    out = {}
-    for name in BF16_TIMED:
-        runs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            torch.manual_seed(0)
-            runs[dtype] = create_train_state(create_model(name, dtype=dtype), device=device,
-                                             learning_rate=1e-3, seed=0)
-            for _ in range(3):
-                train_step(runs[dtype], *batch)
-        res = {dtype: {"step_ms": [], "device_ms": None, "peak_mib": None} for dtype in runs}
-        for dtype in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
-            res[dtype]["step_ms"].append(cuda_ms(lambda: train_step(runs[dtype], *batch), 10))
-        for dtype, run in runs.items():
-            rows = [e for e in profiled(lambda: train_step(run, *batch), 3)
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-            res[dtype]["device_ms"] = sum(device_time_us(e) for e in rows) / 3 / 1e3
-            top = sorted(rows, key=device_time_us, reverse=True)[:6]
-            print(f"{name} {str(dtype)[6:]}: device ms a step by kernel, largest first: "
-                  + "; ".join(f"{e.key[:48]} {device_time_us(e) / 3e3:.3f}" for e in top))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            train_step(run, *batch)
-            torch.cuda.synchronize()
-            res[dtype]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-        f32, bf = res[torch.float32], res[torch.bfloat16]
-        print(f"{name} train step, float32 against bf16 (same weights and batch): step ms "
-              f"{[round(v, 3) for v in f32['step_ms']]} against "
-              f"{[round(v, 3) for v in bf['step_ms']]} (CUDA events, 10 steps each, in turns), "
-              f"device ms a step {f32['device_ms']:.3f} against {bf['device_ms']:.3f} "
-              f"({f32['device_ms'] / bf['device_ms']:.2f}x), peak allocated "
-              f"{f32['peak_mib']:.1f} against {bf['peak_mib']:.1f} MiB", flush=True)
-        out[name] = res
-        del runs
-        torch.cuda.empty_cache()
-    return out
 
 
 def bf16_train_through_cli(device, workdir: str, f32_launches: dict, batch) -> dict:
@@ -3811,7 +2893,6 @@ def bf16_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
     gathers = bf16_gathers(device)
     f32_launches = {name: states[name][1]["cli_launches"] for name in BF16_MODELS}
     dirs = bf16_train_through_cli(device, workdir, f32_launches, batch)
-    steps = bf16_step_times(device, batch)
     bf16_evaluate(device, workdir, smi, dirs["PointNet++"])
     readings = {}
     from pointseg_torch import cli
@@ -3823,7 +2904,7 @@ def bf16_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
     bf16_card_against_cpu(device, states, batch)
     batch_norm_faults(device, states, batch)
     print(f"phase 8: {time.time() - t0:.1f} s")
-    return {"gathers": gathers, "steps": steps, "benchmark": readings}
+    return {"gathers": gathers, "benchmark": readings}
 
 
 # Phase 9: the remaining entry points (`train-legacy`, the enhanced DGCNN
@@ -3867,9 +2948,9 @@ def fps_past_n(device) -> None:
 
 def knn_2l_at_k40(device) -> None:
     """Kernel 5 at the enhanced trainer's k = 40, (2, 8192, 3) and (2,
-    8192, 64): `select="flat"` runs it (k > 32), slot for slot equal to the
+    8192, 64): the shape rule runs it (k > 32), slot for slot equal to the
     plain version beyond float64-verified ties; device us a launch beside
-    kernel 5 and the flat kernel at k = 20 on the same rows."""
+    its bound."""
     from pointseg_torch.ops import _kernels
     from pointseg_torch.ops.knn import knn_indices, knn_indices_plain
 
@@ -3884,16 +2965,11 @@ def knn_2l_at_k40(device) -> None:
             raise AssertionError(f"kNN {(B, N, F)} k={ENHANCED_K} must launch kernel 5 once")
         flips, gap = check_picks(x, x, got, knn_indices_plain(x, ENHANCED_K))
         us = kernel_device_us(lambda: knn_indices(x, ENHANCED_K), "knn_two_level_kernel", 5)
-        us_2l20 = kernel_device_us(lambda: knn_indices(x, K_NEIGHBOURS, select="two_level"),
-                                   "knn_two_level_kernel", 5)
-        flat20 = kernel_device_us(lambda: knn_indices(x, K_NEIGHBOURS), "knn_flat_kernel", 5)
-        flops = 2.0 * B * N * N * F
-        bound = max(flops / PEAK_F32_FLOPS, (4 * B * N * F + 4 * B * N * ENHANCED_K)
-                    / PEAK_BYTES_PER_S)
+        flops, nbytes = opwork("knn_indices", x, ENHANCED_K)
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S)
         print(f"knn_2l {(B, N, F)} k={ENHANCED_K}: equal to plain slot for slot ({flips} "
               f"float64-verified tie flips, gap {gap:.3g}); {us:.1f} us a launch on the device; "
-              f"k={K_NEIGHBOURS} on the same rows: kernel 5 {us_2l20:.1f} us, the flat kernel "
-              f"{flat20:.1f} us; bound {bound * 1e6:.1f} us", flush=True)
+              f"bound {bound * 1e6:.1f} us", flush=True)
 
 
 def legacy_rooms(workdir: str) -> str:
@@ -3966,11 +3042,12 @@ def legacy_phase(device, workdir: str, rooms: str) -> None:
           f"{float((got - want).abs().max()):.3g}", flush=True)
 
 
-def enhanced_phase(device, workdir: str, rooms: str) -> None:
+def enhanced_phase(device, workdir: str, rooms: str) -> int:
     """`create_dgcnn_trainer` at the reference's recommended configuration
     (k = 40, emb 1024, cut 8192, sampling 0.5, batch 2) for one epoch on
     rooms of 20,000 points (8,192 points a sampled room): kernel 5 only,
-    never the flat kNN; ms a step, the peak and the memory line."""
+    never the flat kNN; ms a step, the peak and the memory line. Returns
+    the epoch's kernel 5 launches."""
     from pointseg_torch.data.datasets import create_chunked_dataloaders
     from pointseg_torch.data.s3dis import S3DIS_CLASSES
     from pointseg_torch.train.enhanced import create_dgcnn_trainer
@@ -3981,7 +3058,7 @@ def enhanced_phase(device, workdir: str, rooms: str) -> None:
     if (cfg["k"], cfg["emb_dims"], cfg["cut"], cfg["sampling"]) != (ENHANCED_K, 1024, 8192, 0.5):
         raise AssertionError(f"create_dgcnn_trainer's defaults moved: {cfg}")
     torch.cuda.reset_peak_memory_stats()
-    (state, records), _ = path_run("the enhanced DGCNN trainer (one epoch)",
+    (state, records), launches = path_run("the enhanced DGCNN trainer (one epoch)",
                                    ("knn_2l", "edge_reduce"),
                                    lambda: train(*create_chunked_dataloaders(rooms, batch_size=2)))
     peak = torch.cuda.max_memory_allocated()
@@ -3994,6 +3071,7 @@ def enhanced_phase(device, workdir: str, rooms: str) -> None:
           f"epoch {records['epoch_times'][0]:.2f} s, loss {records['train_loss'][0]:.4f}; "
           f"{step_ms:.3f} ms a step (CUDA events, 5 steps); peak allocated over the epoch "
           f"{peak / 2**20:.1f} MiB; {format_memory_usage()}", flush=True)
+    return launches["knn_2l"]
 
 
 def export_phase(device, workdir: str) -> None:
@@ -4118,41 +3196,20 @@ def oom_phase(device) -> None:
         raise AssertionError("an allocation past the card's memory did not raise")
 
 
-def operator_host_us(device) -> None:
-    """Host us of one call of the ball query (repeat filler) at SA3 and
-    of 3-NN at FP3, as phase 3's split times them, now that the
-    operators are registered; beside it the exporting test the wrappers
-    make and the same selections through the dispatcher, the route only a
-    trace takes."""
-    from pointseg_torch.ops.ballquery import ball_query
-    from pointseg_torch.ops.interpolate import three_nn
-
-    levels = training_levels(device)
-    cents, pts = levels[3], levels[2]
-    bq = host_us(lambda: ball_query(cents, pts, 0.4, 32))
-    nn = host_us(lambda: three_nn(pts, cents))
-    test = host_us(torch.compiler.is_exporting)
-    bq_op = host_us(lambda: torch.ops.pointseg_torch.ball_query(cents, pts, None, 0.4, 32, True))
-    nn_op = host_us(lambda: torch.ops.pointseg_torch.three_nn(pts, cents, None, 3))
-    print(f"host us a call, 10,000 calls, operators registered: ball_query(filler='repeat') at "
-          f"SA3 {bq:.2f}, three_nn at FP3 {nn:.2f}; torch.compiler.is_exporting() {test:.3f}; "
-          f"through the dispatcher (a trace's route) {bq_op:.2f} and {nn_op:.2f}", flush=True)
-
-
-def remaining_entry_points_phase(device, workdir: str) -> None:
-    """Phase 9."""
+def remaining_entry_points_phase(device, workdir: str) -> int:
+    """Phase 9; returns the enhanced trainer's kernel 5 launches."""
     t0 = time.time()
     fps_past_n(device)
     knn_2l_at_k40(device)
     rooms = legacy_rooms(workdir)
     legacy_phase(device, workdir, rooms)
-    enhanced_phase(device, workdir, rooms)
+    knn_2l_launches = enhanced_phase(device, workdir, rooms)
     torch.cuda.empty_cache()
     export_phase(device, workdir)
     import_and_prepare_phase(device, workdir)
     oom_phase(device)
-    operator_host_us(device)
     print(f"phase 9: {time.time() - t0:.1f} s")
+    return knn_2l_launches
 
 
 DP_MODELS = {  # phase 10 (b, c): the model -> its path's kernels
@@ -4299,7 +3356,7 @@ def dp_cli_ranks(device, workdir: str, want_first: float) -> dict:
                              f"{ckpt_dirs}, checkpoints {ckpts}: one of each expected")
     torch.manual_seed(0)
     state = create_train_state(create_model("PointNet++", num_classes=cli.NUM_S3DIS_CLASSES,
-                                            **cli.kernel_switches("PointNet++")),
+                                            **cli.filler_switch("PointNet++")),
                                device=device, seed=0)
     restore_train_state(ckpts[0], state)
     saved = load_checkpoint(ckpts[0])["model"]
@@ -4718,13 +3775,9 @@ def placement_phase(device, workdir: str, smi: str, batch) -> dict:
 
 
 def main() -> int:
-    args = sys.argv[1:]
-    if args[:1] == ["--kernel-times"] and len(args) == 3:
-        return kernel_times_main(args[1], args[2])
-    if args and (args[0] != "--parent" or len(args) != 2):
-        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py", file=sys.stderr)
         return 2
-    parent = args[1] if args else None
     started = time.time()
     phase("1. device")
     if not torch.cuda.is_available():
@@ -4745,11 +3798,9 @@ def main() -> int:
     from pointseg_torch.ops import _kernels
 
     t0 = time.time()
-    ptxas = ptxas_start()
     lib = _kernels.build()
     _kernels.library()
     print(f"built {lib} from {len(_kernels.SOURCES)} sources in {time.time() - t0:.1f} s")
-    ptxas_report(ptxas)
 
     phase("3. kernels against their plain versions")
     record = Record()
@@ -4759,17 +3810,11 @@ def main() -> int:
     selection_times(device)
     selection_splits(device)
     one_kernel_a_repeat_call(device)
-    selection_call_split(device)
-    if parent:
-        against_parent(parent)
     knn_kernels(device, record)
     gather_kernels(device, record)
     edge_reduce_kernels(device, record)
     gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
-    launch_path_split(device)
-    gather_call_split(device)
-    sa_grouping_forms(device)
     pointnext_xl_groupings(device)
     streams_and_graphs(device)
 
@@ -4786,7 +3831,7 @@ def main() -> int:
         phase("8. bf16")
         bf16 = bf16_phase(device, workdir, smi, states, batch)
         phase("9. the remaining entry points")
-        remaining_entry_points_phase(device, workdir)
+        launches["knn_2l"] = remaining_entry_points_phase(device, workdir)
         phase("10. data parallel")
         dp = data_parallel_phase(device, workdir, smi, batch)
         phase("11. placements (M10)")
@@ -4809,9 +3854,10 @@ def main() -> int:
               f"{perf['points_per_s']:.0f} points/s, peak {perf['peak_bytes'] / 2**20:.1f} MiB")
     print(f"summary: {smi}; kernel, plain, library and bound ms are per forward pass of the "
           f"kernel's training path (its shapes summed; ball_query_2l: PointNeXt's nine "
-          f"queries); launches are one epoch and its "
-          f"evaluation (knn_2l and ball_query_2l: DeepGraphCnn and PointNeXt with "
-          f"POINTSEG_SELECT2L=1; gather_rows: the PointNet++ epoch, its ms PointNet++'s "
+          f"queries, forced onto kernel 6); launches are one epoch and its "
+          f"evaluation (ball_query_2l: no registered model's path, which queries no ball "
+          f"past K = 32; knn_2l: the enhanced DGCNN trainer's epoch at k = 40; "
+          f"gather_rows: the PointNet++ epoch, its ms PointNet++'s "
           f"12 gathers; edge_reduce: the DeepGraphCnn epoch, both kernels, its ms a training "
           f"step's forward and backward kernel; gather_rows_flat: one "
           f"PointNet++ epoch from the flat device store, two "
@@ -4829,12 +3875,6 @@ def main() -> int:
         print(f"summary: {smi}; gather_rows on {key} at {len(BF16_GATHERS)} shapes (SA groupings "
               f"of PointNet++, MSG and PointNeXt, DGCNN's two): kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms, torch.gather {r['library_ms']:.4f} ms")
-    for name, r in bf16["steps"].items():
-        f32, bf = r[torch.float32], r[torch.bfloat16]
-        print(f"summary: {smi}; {name} train step float32 / bf16: step ms "
-              f"{min(f32['step_ms']):.3f} / {min(bf['step_ms']):.3f}, device ms "
-              f"{f32['device_ms']:.3f} / {bf['device_ms']:.3f}, peak {f32['peak_mib']:.1f} / "
-              f"{bf['peak_mib']:.1f} MiB")
     for (model_name, mode), r in bf16["benchmark"].items():
         print(f"summary: {smi}; benchmark --bf16 {model_name} {mode}: mean "
               f"{1e3 * r['mean_s']:.3f} ms, {r['points_per_sec']:.0f} points/s, launches a "

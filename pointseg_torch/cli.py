@@ -44,9 +44,10 @@ The port carries every flag of the JAX CLI. `--device cuda`
 `--platforms`) without a CUDA device raises; the port never moves work
 to the CPU by itself. `prepare` is numpy only and takes the JAX
 package's flags alone.
-The JAX package's environment switches POINTSEG_SELECT2L and
-POINTSEG_BQ_FILLER select the two-level kernels and the ball-query
-filler here too (`kernel_switches`).
+The JAX package's environment switch POINTSEG_BQ_FILLER selects the
+ball-query filler here too (`filler_switch`). Its two-level selection
+switch has no counterpart: each op picks its CUDA kernel from the call's
+shape (`pointseg_torch/ops/ballquery.py`, `ops/knn.py`).
 """
 from __future__ import annotations
 
@@ -150,26 +151,19 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "card of its own, else gloo.")
 
 
-def kernel_switches(model: str) -> dict:
-    """Model arguments from the JAX package's two process-wide switches,
-    read from the environment as it reads them: POINTSEG_SELECT2L (set to
-    anything but "0", "false" or "False": the two-level kNN and ball-query
-    kernels; `pointseg/ops/dispatch.py::use_select2l`) and
-    POINTSEG_BQ_FILLER ("repeat", the default, or "index": what fills a
-    sparse ball; `pointseg/ops/ballquery.py::filler_mode`). The DGCNNs
-    take the first as `knn_select`, the ball-query models both as
-    `ball_select` and `filler`; PointNet, which selects nothing, takes
-    neither."""
-    two_level = os.environ.get("POINTSEG_SELECT2L", "0") not in ("0", "false", "False")
-    select = "two_level" if two_level else "flat"
+def filler_switch(model: str) -> dict:
+    """Model arguments from the JAX package's process-wide filler switch,
+    read from the environment as it reads it: POINTSEG_BQ_FILLER
+    ("repeat", the default, or "index": what fills a sparse ball, which
+    changes the output; `pointseg/ops/ballquery.py::filler_mode`; any
+    other value is refused). The ball-query models take it as `filler`;
+    PointNet and the DGCNNs, which query no ball, take nothing."""
     filler = os.environ.get("POINTSEG_BQ_FILLER", "repeat")
     if filler not in ("repeat", "index"):
         raise SystemExit(f"POINTSEG_BQ_FILLER must be 'repeat' or 'index', got {filler!r}")
-    if model == "PointNet":
+    if model == "PointNet" or model in DGCNN_NAMES:
         return {}
-    if model in DGCNN_NAMES:
-        return {"knn_select": select}
-    return {"ball_select": select, "filler": filler}
+    return {"filler": filler}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -286,7 +280,7 @@ def _train(args: argparse.Namespace, device: torch.device, mesh):
     say = print if main else _quiet
     if mesh is not None:
         parallel.refuse_indivisible(args.train_batch_size, mesh)
-    switches = kernel_switches(args.model)
+    switches = filler_switch(args.model)
     model_kwargs = dict(switches)
     if args.static_graph:
         if args.model not in DGCNN_NAMES:
@@ -336,7 +330,7 @@ def _train(args: argparse.Namespace, device: torch.device, mesh):
         say(f"Resumed from step {state.step}.")
     config = {k: v for k, v in vars(args).items() if not callable(v) and k != "func"}
     config["data_mode"] = data_mode  # "device", "compact", "host" or "host loader"
-    config["kernel_switches"] = switches
+    config["filler"] = switches.get("filler")  # None: the model queries no ball
     if mesh is not None:
         # every rank walks the global batches and keeps its rows
         state = parallel.shard_state(mesh, state)
@@ -550,7 +544,7 @@ def benchmark_from_args(args: argparse.Namespace) -> dict:
     device = resolve_device(args.device)
     torch.manual_seed(0)  # weight init and dropout
     model = create_model(args.model, num_classes=NUM_S3DIS_CLASSES, dtype=_dtype(args.bf16),
-                         **kernel_switches(args.model))
+                         **filler_switch(args.model))
     _no_tf32()
     B, N = args.batch_size, args.num_points
     rng = np.random.default_rng(0)
@@ -579,8 +573,8 @@ def benchmark_from_args(args: argparse.Namespace) -> dict:
 
 def doctor_from_args(args: argparse.Namespace) -> None:
     """Runs the `doctor` subcommand: versions, the cards, nvcc, whether
-    the kernel library builds and loads, the two kernel switches and the
-    native ETL parser. Exits with 1 where a card is present and the
+    the kernel library builds and loads, the selection kernels' shape
+    rule, the filler switch and the native ETL parser. Exits with 1 where a card is present and the
     kernels fail to build or load."""
     import pointseg_torch
     from pointseg_torch.data.native import get_lib
@@ -619,14 +613,12 @@ def doctor_from_args(args: argparse.Namespace) -> None:
             failed = True
     else:
         print("CUDA kernels: not built (no card)")
-    select2l = os.environ.get("POINTSEG_SELECT2L", "<default>")
+    print("selection kernels: by shape (ball query: flat at K <= 32, two-level past it; kNN: "
+          "flat at k <= 32 and F <= 512, two-level past either)")
     try:
-        switches = kernel_switches("PointNet++")
-        print(f"two-level selection: {'ON' if switches['ball_select'] == 'two_level' else 'off'}"
-              f"  [POINTSEG_SELECT2L={select2l}]")
-        print(f"ball-query filler mode: {switches['filler']}")
+        print(f"ball-query filler mode: {filler_switch('PointNet++')['filler']}")
     except SystemExit as e:
-        print(f"kernel switches refused by train and evaluate: {e}")
+        print(f"filler switch refused by train and evaluate: {e}")
     print(f"native ETL parser: "
           f"{'available' if get_lib() is not None else 'unavailable (Python fallback)'}")
     if failed:
@@ -694,7 +686,7 @@ def _export_device(platforms: str) -> torch.device:
 def _model_from_sidecar(model_path: str, model: str | None, num_classes: int, bf16: bool,
                         device: torch.device):
     """(TrainState restored from a checkpoint, model name, bf16): the model
-    named by `model` or the config sidecar, built with the kernel switches,
+    named by `model` or the config sidecar, built with the filler switch,
     the sidecar's `--static-graph` for a DGCNN and its `--bf16` unless
     `bf16` is given."""
     from pointseg_torch.io.checkpoint import load_config, restore_train_state
@@ -705,7 +697,7 @@ def _model_from_sidecar(model_path: str, model: str | None, num_classes: int, bf
     config = load_config(ckpt_dir) or {}
     use_bf16 = bf16 or bool(config.get("bf16"))  # the training run's, unless given
     model_name = model or config.get("model", "PointNet++")
-    model_kwargs = kernel_switches(model_name)
+    model_kwargs = filler_switch(model_name)
     if config.get("static_graph") and model_name in DGCNN_NAMES:
         model_kwargs["static_graph"] = True  # the graph mode the model was trained in
     net = create_model(model_name, num_classes=num_classes, dtype=_dtype(use_bf16),
@@ -837,7 +829,7 @@ def train_legacy_from_args(args: argparse.Namespace):
         test_loader = train_loader  # the reference's small-excerpt mode
     torch.manual_seed(args.seed)  # weight init and dropout
     model = create_model(args.model, num_classes=len(mapping), in_dim=6,
-                         **kernel_switches(args.model))
+                         **filler_switch(args.model))
     _no_tf32()
     state = create_train_state(model, device=device, learning_rate=args.learning_rate,
                                seed=args.seed)

@@ -23,10 +23,12 @@ Differences from the JAX package:
 - One artifact is for one device: the device of the trace (`cuda` or
   `cpu`), where a StableHLO artifact may be lowered for several
   platforms at once.
-- As in JAX, the traced path is frozen at export: the model's kernel
-  choices (`ball_select`, `filler`, `knn_select`, `static_graph`) and its
-  compute dtype are the ones it was built with. Static shapes only:
-  export one artifact per serving bucket.
+- As in JAX, the traced path is frozen at export: the model's `filler`
+  and `static_graph` and its compute dtype are the ones it was built
+  with, and each selection's operator is the one the shape rule picks at
+  the traced shape (`pointseg_torch::knn_2l` past the flat kNN kernel's
+  k = 32, `ball_query_2l` past its K = 32). Static shapes only: export one
+  artifact per serving bucket.
 """
 
 from __future__ import annotations

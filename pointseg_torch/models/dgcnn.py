@@ -14,8 +14,6 @@ the colour branch. Returns float32 logits (B, N, classes), or
 
 `static_graph=True` computes the kNN graph once on xyz and reuses it in
 every EdgeConv; parameters and checkpoints are the same in both modes.
-`knn_select` ('flat' or 'two_level') names the CUDA kNN kernel
-(`pointseg_torch/ops/knn.py`); both select the same neighbours.
 
 The models take `generator=` like `PointNetPP`, so one train step serves
 all, and ignore it: nothing here samples. `dtype` is the compute dtype
@@ -44,17 +42,15 @@ class DGCNN(nn.Module):
 
     def __init__(self, num_classes: int = 14, k: int = 20, emb_dims: int = 1024,
                  dropout: float = 0.5, static_graph: bool = False,
-                 knn_select: str = "flat", dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k = k
         self.static_graph = static_graph
-        self.knn_select = knn_select
         self.dtype = dtype
-        edge = dict(knn_select=knn_select, dtype=dtype)
-        self.conv1 = EdgeConv(3, 64, k, **edge)
-        self.conv2 = EdgeConv(64, 64, k, **edge)
-        self.conv3 = EdgeConv(64, 64, k, **edge)
-        self.conv4 = EdgeConv(64, 128, k, **edge)
+        self.conv1 = EdgeConv(3, 64, k, dtype=dtype)
+        self.conv2 = EdgeConv(64, 64, k, dtype=dtype)
+        self.conv3 = EdgeConv(64, 64, k, dtype=dtype)
+        self.conv4 = EdgeConv(64, 128, k, dtype=dtype)
         if self.color_width:
             self.color_conv = _conv(3, self.color_width, dtype)
         cat = 64 + 64 + 64 + 128 + self.color_width
@@ -75,7 +71,7 @@ class DGCNN(nn.Module):
         if self.static_graph:
             split = point_split()  # point-sharded: this rank's rows of the whole graph
             on = cast(xyz, self.dtype) if split is None else gather(split, cast(xyz, self.dtype))[0]
-            idx = ops.knn_indices(on, self.k, mask=mask, select=self.knn_select)
+            idx = ops.knn_indices(on, self.k, mask=mask)
             if split is not None:
                 idx = share(idx, split)
         x1 = self.conv1(xyz, mask=mask, idx=idx)

@@ -15,8 +15,7 @@ into the JAX model and `pointseg_torch/io/jax_import.py` goes back.
 The MSG variant groups every stage at two nested radii (K = 16 and 32)
 with an MLP each and concatenates them; the decoder is the same.
 
-`ball_select` ('flat' or 'two_level') names the CUDA ball-query kernel
-and `filler` ('repeat' or 'index') what fills a sparse ball
+`filler` ('repeat' or 'index') names what fills a sparse ball
 (`pointseg_torch/ops/ballquery.py`). `dtype` is the compute dtype
 (`nn/mlp.py`): torch.bfloat16 for the JAX package's `--bf16`.
 """
@@ -34,11 +33,9 @@ class PointNetPP(nn.Module):
     """Single-scale-grouping PointNet++."""
 
     def __init__(self, num_classes: int = 14, dropout: float = 0.5, in_features: int = 6,
-                 ball_select: str = "flat", filler: str = "repeat",
-                 dtype: torch.dtype = torch.float32):
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
         super().__init__()
-        w1, w2, w3, w4 = self._build_encoder(in_features, ball_select=ball_select, filler=filler,
-                                             dtype=dtype)
+        w1, w2, w3, w4 = self._build_encoder(in_features, filler=filler, dtype=dtype)
         self.fp4 = FeaturePropagation(w3 + w4, [256, 256], dtype=dtype)
         self.fp3 = FeaturePropagation(w2 + 256, [256, 256], dtype=dtype)
         self.fp2 = FeaturePropagation(w1 + 256, [256, 128], dtype=dtype)

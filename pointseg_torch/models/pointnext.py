@@ -23,8 +23,7 @@ package has no such model) is the published layout instead (Qian et al.
 2022, arXiv:2206.04670; openpoints' `cfgs/s3dis/pointnext-xl.yaml`):
 class docstring.
 
-`ball_select` ('flat' or 'two_level') names the CUDA ball-query kernel
-and `filler` ('repeat' or 'index') what fills a sparse ball
+`filler` ('repeat' or 'index') names what fills a sparse ball
 (`pointseg_torch/ops/ballquery.py`). `dtype` is the compute dtype
 (`nn/mlp.py`).
 """
@@ -52,12 +51,11 @@ def irmlp_name(stage: int, j: int) -> str:
 class PointNeXt(nn.Module):
     def __init__(self, num_classes: int = 14, width: int = 32,
                  blocks: tuple[int, int, int, int] = (1, 2, 1, 1), dropout: float = 0.5,
-                 ball_select: str = "flat", filler: str = "repeat", in_dim: int = 9,
-                 dtype: torch.dtype = torch.float32):
+                 filler: str = "repeat", in_dim: int = 9, dtype: torch.dtype = torch.float32):
         super().__init__()
         w = width
         self.blocks = tuple(blocks)
-        ball = dict(ball_select=ball_select, filler=filler, dtype=dtype)
+        ball = dict(filler=filler, dtype=dtype)
         self.mlp = SharedMLP(in_dim, [w], dtype=dtype)
         self.sa1 = SetAbstraction(1024, 0.1, w, [w, w, 2 * w], grouping_norm=True, **ball)
         self.sa2 = SetAbstraction(256, 0.2, 2 * w, [2 * w, 2 * w, 4 * w],
@@ -128,15 +126,14 @@ class PointNeXtXL(nn.Module):
       `conv`, Linear(width -> classes).
 
     41.58 M parameters at width 64, in_dim 9 and 14 classes. Takes
-    `in_dim`, `dtype`, `ball_select` and `filler` as the family does.
+    `in_dim`, `dtype` and `filler` as the family does.
     """
 
     def __init__(self, num_classes: int = 14, width: int = 64, dropout: float = 0.5,
-                 ball_select: str = "flat", filler: str = "repeat", in_dim: int = 9,
-                 dtype: torch.dtype = torch.float32):
+                 filler: str = "repeat", in_dim: int = 9, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.blocks = XL_BLOCKS
-        ball = dict(ball_select=ball_select, filler=filler, dtype=dtype, bias=False)
+        ball = dict(filler=filler, dtype=dtype, bias=False)
         self.mlp = Linear(in_dim, width, dtype=dtype)
         widths = [width * 2 ** s for s in range(5)]
         for stage in range(1, 5):

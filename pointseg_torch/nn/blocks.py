@@ -5,9 +5,8 @@
 FPS takes its start from the `generator` a caller passes (the training
 step passes one; evaluation passes none and starts at 0), where the JAX
 package reads the flax 'fps' stream. The blocks that group by ball query
-take `ball_select` ('flat' or 'two_level', the CUDA kernel) and `filler`
-('repeat' or 'index', what fills a sparse ball) and hand them to
-`ops.ball_query`; the JAX package sets both process-wide.
+take `filler` ('repeat' or 'index', what fills a sparse ball) and hand it
+to `ops.ball_query`; the JAX package sets it process-wide.
 
 Every block takes `dtype`, the compute dtype of `nn/mlp.py`. Under
 bfloat16 features flow in bfloat16 and coordinates stay float32: FPS,
@@ -63,19 +62,17 @@ class GroupedFirstLayer(SharedMLP):
     """
 
     def __init__(self, in_features: int, widths: Sequence[int], radius: float,
-                 K: int, normalize: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat", dtype: torch.dtype = torch.float32,
-                 bias: bool = True):
+                 K: int, normalize: bool = False, filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(3 + in_features, widths, use_bias=bias, dtype=dtype)
         self.radius = radius
         self.K = K
         self.normalize = normalize
-        self.ball_select = ball_select
         self.filler = filler
 
     def forward(self, centroids, coords, features, mask=None):
         idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask,
-                                filler=self.filler, select=self.ball_select)
+                                filler=self.filler)
         first, dtype, plan = self.conv[0], self.dtype, self.conv[0].tp
         weight = cast(first.weight, dtype)
         w_rel, w_feat = weight[:, :3], weight[:, 3:]
@@ -116,9 +113,9 @@ class SetAbstraction(torch.nn.Module):
 
     def __init__(self, num_centroids: int | None, radius: float, in_features: int,
                  mlps: Sequence[int], K: int = 32, pooling: str = "max",
-                 grouping_norm: bool = False, ball_select: str = "flat",
-                 filler: str = "repeat", dtype: torch.dtype = torch.float32,
-                 stride: int | None = None, bias: bool = True):
+                 grouping_norm: bool = False, filler: str = "repeat",
+                 dtype: torch.dtype = torch.float32, stride: int | None = None,
+                 bias: bool = True):
         super().__init__()
         if (num_centroids is None) == (stride is None):
             raise ValueError("give num_centroids or stride, not both or neither")
@@ -126,8 +123,8 @@ class SetAbstraction(torch.nn.Module):
         self.stride = stride
         self.pooling = pooling
         self.point_net = GroupedFirstLayer(in_features, mlps, radius, K,
-                                           normalize=grouping_norm, ball_select=ball_select,
-                                           filler=filler, dtype=dtype, bias=bias)
+                                           normalize=grouping_norm, filler=filler,
+                                           dtype=dtype, bias=bias)
 
     def forward(self, coords, features, mask=None, generator=None):
         centroids, coords, features, mask = _centroids(self.num_centroids, coords, features,
@@ -166,8 +163,7 @@ class SetAbstractionMSG(torch.nn.Module):
 
     def __init__(self, num_centroids: int, radii: Sequence[float], Ks: Sequence[int],
                  in_features: int, mlps: Sequence[Sequence[int]], pooling: str = "max",
-                 ball_select: str = "flat", filler: str = "repeat",
-                 dtype: torch.dtype = torch.float32):
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32):
         super().__init__()
         if not len(radii) == len(Ks) == len(mlps):
             raise ValueError("radii, Ks and mlps need one entry per scale, got "
@@ -175,8 +171,7 @@ class SetAbstractionMSG(torch.nn.Module):
         self.num_centroids = num_centroids
         self.pooling = pooling
         self.scales = torch.nn.ModuleList(
-            GroupedFirstLayer(in_features, widths, r, k, ball_select=ball_select, filler=filler,
-                              dtype=dtype)
+            GroupedFirstLayer(in_features, widths, r, k, filler=filler, dtype=dtype)
             for r, k, widths in zip(radii, Ks, mlps))
 
     def forward(self, coords, features, mask=None, generator=None):
@@ -227,15 +222,14 @@ class InvResMLP(torch.nn.Module):
     """
 
     def __init__(self, radius: float, mlp_size: int, K: int, pooling: str = "max",
-                 ball_select: str = "flat", filler: str = "repeat",
-                 dtype: torch.dtype = torch.float32, residual_act: bool = False,
-                 bias: bool = True):
+                 filler: str = "repeat", dtype: torch.dtype = torch.float32,
+                 residual_act: bool = False, bias: bool = True):
         super().__init__()
         self.pooling = pooling
         self.residual_act = residual_act
         self.neighbour_features_mlp = GroupedFirstLayer(
-            mlp_size, [mlp_size], radius, K, normalize=True,
-            ball_select=ball_select, filler=filler, dtype=dtype, bias=bias)
+            mlp_size, [mlp_size], radius, K, normalize=True, filler=filler, dtype=dtype,
+            bias=bias)
         self.point_features_mlp = SharedMLP(mlp_size, [4 * mlp_size, mlp_size],
                                             use_bias=bias, dtype=dtype,
                                             last_act=not residual_act)
@@ -325,13 +319,11 @@ class EdgeConv(torch.nn.Module):
     """
 
     def __init__(self, in_features: int, out_channels: int, k: int = 20,
-                 fused: bool = True, remat: bool = False, knn_select: str = "flat",
-                 dtype: torch.dtype = torch.float32):
+                 fused: bool = True, remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.k = k
         self.fused = fused
         self.remat = remat
-        self.knn_select = knn_select
         self.dtype = dtype
         self.w_edge = Linear(in_features, out_channels, bias=False, dtype=dtype)
         self.w_center = Linear(in_features, out_channels, bias=False, dtype=dtype)
@@ -346,13 +338,12 @@ class EdgeConv(torch.nn.Module):
             table = pts.gather(split, x)[0]
             if idx is None:
                 on = table if knn_on is None else pts.gather(split, knn_on)[0]
-                idx = pts.share(ops.knn_indices(on, self.k, select=self.knn_select), split)
+                idx = pts.share(ops.knn_indices(on, self.k), split)
             p_table = self.w_edge(table)
             p = pts.share(p_table, split)
         else:
             if idx is None:
-                idx = ops.knn_indices(x if knn_on is None else knn_on, self.k, mask=mask,
-                                      select=self.knn_select)
+                idx = ops.knn_indices(x if knn_on is None else knn_on, self.k, mask=mask)
             p_table = p = self.w_edge(x)  # (B, N, out)
         d = self.w_center(x) - p
         if not self.fused:

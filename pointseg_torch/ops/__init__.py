@@ -1,11 +1,12 @@
 """Geometric primitives (port of `pointseg.ops`).
 
-FPS, ball query, 3-NN, kNN (flat and two-level), the row gathers
-(batched and flat) and EdgeConv's gather-reduce (`edge_reduce`, float32
-and bfloat16 rows) launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
-`_kernels`) and run plain PyTorch on CPU tensors. Pooling is plain
-PyTorch on both. Importing this package registers the kernels as
-PyTorch operators for `torch.export` (`library.py`).
+FPS, ball query, 3-NN, kNN, the row gathers (batched and flat) and
+EdgeConv's gather-reduce (`edge_reduce`, float32 and bfloat16 rows)
+launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
+`_kernels`) and run plain PyTorch on CPU tensors; the ball query and kNN
+each have a flat and a two-level kernel, and the call's shape picks one.
+Pooling is plain PyTorch on both. Importing this package registers the
+kernels as PyTorch operators for `torch.export` (`library.py`).
 """
 
 from pointseg_torch.ops.fps import farthest_point_sampling, sample  # noqa: F401

@@ -33,10 +33,10 @@ launcher uses, instead of a `torch.cuda.Stream` object built per call
 allocation (5-7 us, which `index_select` pays too), the ctypes call
 itself (6 us: it converts each argument by its `argtypes` entry, and
 holds the CUDA launch) and the wrapper's checks and pointer reads (3
-us). `chip_smoke.py` prints this split in microseconds a call, beside
-`index_select` and an empty Python call; the figures here are its, on the
-fastest host of four NVIDIA H100 80GB HBM3 machines (the slowest took 1.5
-times as long for every part). The launch goes to PyTorch's current
+us). These figures are the measured split of that call in microseconds
+a call over 10,000 calls, beside `index_select` and an empty Python
+call, on the fastest host of four NVIDIA H100 80GB HBM3 machines (the
+slowest took 1.5 times as long for every part). The launch goes to PyTorch's current
 stream of the tensors' device, so it orders with the PyTorch work around
 it, runs on a stream chosen with `torch.cuda.stream` and is captured by
 `torch.cuda.graph`.

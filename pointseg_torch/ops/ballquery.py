@@ -8,18 +8,20 @@ fillers, the lowest-index points outside the ball in ascending index
 order. The JAX package picks the filler through a module-wide setting;
 here it is the `filler` argument.
 
-On a CUDA tensor the selection is one launch of `csrc/ballquery.cu`: the
-flat kernel (`select="flat"`, the default) or the two-level kernel
-(`select="two_level"`, the counterpart of the JAX package's
-`use_select2l` setting; here a function argument), with or without a
-mask. The flat kernel keeps one slot a warp lane (K <= `MAX_K`);
-`select="flat"` with a larger K runs the two-level kernel, which takes
-any K <= N (the launch counters show which ran). On a CPU tensor the
-plain PyTorch version below runs for both. All return the same raw (idx, in_ball); `ball_query` with
-the repeat filler has the kernel write it (still one launch), or applies
-it with `torch.where` on the CPU. While `torch.export` traces, the
-selection is the operator `pointseg_torch::ball_query` or
-`ball_query_2l` (`ops/library.py`), which does the same at run time.
+On a CUDA tensor the selection is one launch of `csrc/ballquery.cu`,
+with or without a mask, and the shape alone picks the kernel: the flat
+kernel, which keeps one slot a warp lane, where K <= `MAX_K`; the
+two-level kernel, which takes any K <= N, past it (the launch counters
+show which ran). Both give the same indices slot for slot; measured at
+every ball query of the models' paths, the flat one is the faster. The
+two-level kernel stands for the JAX package's `use_select2l` route;
+tests reach it at any K through `_select(..., "two_level")`. On a CPU
+tensor the plain PyTorch version below runs. All return the same raw
+(idx, in_ball); `ball_query` with the repeat filler has the kernel
+write it (still one launch), or applies it with `torch.where` on the
+CPU. While `torch.export` traces, the selection is the operator
+`pointseg_torch::ball_query`, or `ball_query_2l` past `MAX_K`
+(`ops/library.py`), which does the same at run time.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ import numpy as np
 import torch
 
 from pointseg_torch.ops import _kernels
-from pointseg_torch.ops.knn import SELECTS
 
 FILLERS = ("repeat", "index")
 MAX_K = 32  # the flat kernel keeps one slot per warp lane; the two-level one any K
@@ -89,7 +90,6 @@ def ball_query_raw(
     K: int,
     *,
     mask: torch.Tensor | None = None,
-    select: str = "flat",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selection without the filler step.
 
@@ -99,21 +99,27 @@ def ball_query_raw(
             outside the ball (or excluded by `mask`) in index order.
         in_ball: (B, C, K) bool, True on the member slots.
     """
-    return _select(centroids, coords, radius, K, mask, select, repeat=False)
+    return _select(centroids, coords, radius, K, mask, "flat", repeat=False)
+
+
+def _two_level(select: str, K: int) -> bool:
+    """The shape rule: the two-level kernel past the flat kernel's
+    `MAX_K`, or where `select` is "two_level" (tests force it)."""
+    return select == "two_level" or K > MAX_K
 
 
 def _select(centroids, coords, radius, K, mask, select, repeat: bool):
     """The selection, with the repeat filler applied when `repeat`: by
     the kernel on a CUDA tensor (one launch), by `torch.where` over the
-    plain version's raw result on a CPU one."""
-    if select not in SELECTS:
-        raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
+    plain version's raw result on a CPU one. `select` is "flat", the
+    shape rule (`_two_level`), which every caller outside the tests and
+    the `ball_query_2l` operator passes, or "two_level"."""
     N = coords.shape[1]
     if not 1 <= K <= N:
         raise ValueError(f"ball query needs 1 <= K <= N, got K={K}, N={N}")
     if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
-        op = (torch.ops.pointseg_torch.ball_query if select == "flat"
-              else torch.ops.pointseg_torch.ball_query_2l)
+        op = (torch.ops.pointseg_torch.ball_query_2l if _two_level(select, K)
+              else torch.ops.pointseg_torch.ball_query)
         return op(centroids, coords, mask, radius, K, repeat)
     if _kernels.on_cuda(coords):
         return _ball_query_cuda(centroids, coords, _radius_sq(radius), K, mask, select,
@@ -155,9 +161,9 @@ def ball_query_plain(
 
 def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth, repeat=False,
                      config=(0, 0, 0)):
-    """One launch of the flat or the two-level kernel (the two-level one
-    also for `select="flat"` where K > MAX_K), which writes the repeat
-    filler itself when `repeat`. `depth` is the two-level kernel's stack
+    """One launch of the flat or the two-level kernel, as `_two_level`
+    picks from `select` and K, which writes the repeat filler itself when
+    `repeat`. `depth` is the two-level kernel's stack
     depth (`TWO_LEVEL_DEPTH`; 1 forces its refills); `config` forces the kernel's
     (centroids a warp, warps a block, warps a centroid), (0, 0, 0) lets it
     choose. A call at the training shapes is host time beside a kernel of
@@ -190,12 +196,12 @@ def _ball_query_cuda(centroids, coords, r2, K, mask, select, depth, repeat=False
         return idx, in_ball
     args = (centroids.data_ptr(), coords.data_ptr(), _kernels.ptr(mask), idx.data_ptr(),
             in_ball.data_ptr(), B, C, N, K, r2)
-    if select == "flat" and K <= MAX_K:
-        _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args, repeat,
-                        *config)
-    else:
+    if _two_level(select, K):
         _kernels.launch("ball_query_2l", "pointseg_ball_query_2l", coords.device, *args, depth,
                         repeat, *config)
+    else:
+        _kernels.launch("ball_query", "pointseg_ball_query", coords.device, *args, repeat,
+                        *config)
     return idx, in_ball
 
 
@@ -207,7 +213,6 @@ def ball_query(
     *,
     mask: torch.Tensor | None = None,
     filler: str = "repeat",
-    select: str = "flat",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """For each centroid, selects the K nearest points within `radius`.
 
@@ -220,8 +225,6 @@ def ball_query(
             and fills slots N..K-1 with slot 0, under either filler.
         mask: optional (B, N) bool; False points are never members.
         filler: 'repeat' or 'index' (module docstring).
-        select: 'flat' or 'two_level', the CUDA kernel to launch
-            ('flat' with K > `MAX_K` runs the two-level kernel).
 
     Returns:
         idx: (B, C, K) int32 indices into N.
@@ -231,8 +234,8 @@ def ball_query(
         raise ValueError(f"filler must be one of {FILLERS}, got {filler!r}")
     N = coords.shape[1]
     if K <= N or N == 0:
-        return _select(centroids, coords, radius, K, mask, select, repeat=filler == "repeat")
-    idx, in_ball = _select(centroids, coords, radius, N, mask, select, repeat=filler == "repeat")
+        return _select(centroids, coords, radius, K, mask, "flat", repeat=filler == "repeat")
+    idx, in_ball = _select(centroids, coords, radius, N, mask, "flat", repeat=filler == "repeat")
     pad = (*idx.shape[:-1], K - N)
     return (torch.cat([idx, idx[..., :1].expand(pad)], dim=-1),
             torch.cat([in_ball, in_ball.new_zeros(pad)], dim=-1))
@@ -248,7 +251,6 @@ def group(
     *,
     mask: torch.Tensor | None = None,
     filler: str = "repeat",
-    select: str = "flat",
 ) -> torch.Tensor:
     """Gathers each ball's coordinates (relative to the centroid, divided
     by the radius if `normalize`) and features.
@@ -258,7 +260,7 @@ def group(
     """
     from pointseg_torch.ops.gather import gather_rows
 
-    idx, _ = ball_query(centroids, coords, radius, K, mask=mask, filler=filler, select=select)
+    idx, _ = ball_query(centroids, coords, radius, K, mask=mask, filler=filler)
     grouped_coords = gather_rows(coords, idx) - centroids[:, :, None, :]
     if normalize:
         grouped_coords = grouped_coords / radius

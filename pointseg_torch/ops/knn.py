@@ -9,20 +9,22 @@ as the k largest of the score
 in (score descending, index ascending) order: equal scores, as between
 repeated points, resolve to the lowest index.
 
-On a CUDA tensor the selection is one launch of `csrc/knn.cu`: the flat
-kernel (`select="flat"`, the default; eight query rows a warp in a
-register tile, 16-byte loads when F is a multiple of 4) or the two-level kernel
-(`select="two_level"`, the counterpart of the JAX package's
-`use_select2l` setting; here a function argument). Both give the same
-indices, and both take `mask` and `include_self` themselves (the JAX
-package sends those two to its oracle). The flat kernel keeps one list
-slot a warp lane and stages a block's query rows whole, so it takes k <=
-`MAX_K` and F <= `MAX_F`; `select="flat"` runs the two-level kernel,
-which takes any k <= N and any F, for the shapes past either limit. The
-launch counters show which kernel ran. The plain PyTorch version below
-runs on a CPU tensor only. While `torch.export` traces, the selection is
-the operator `pointseg_torch::knn` or `knn_2l` (`ops/library.py`),
-which does the same at run time.
+On a CUDA tensor the selection is one launch of `csrc/knn.cu`, and the
+shape alone picks the kernel. The flat kernel (eight query rows a warp
+in a register tile, 16-byte loads when F is a multiple of 4) keeps one
+list slot a warp lane and stages a block's query rows whole, so it takes
+k <= `MAX_K` and F <= `MAX_F`; the two-level kernel, which takes any
+k <= N and any F, runs past either limit (the enhanced DGCNN trainer's
+k = 40). Both give the same indices slot for slot; measured at every kNN
+shape of the DGCNN cells, the flat one is the faster. The two-level
+kernel stands for the JAX package's `use_select2l` route; tests reach it
+at any shape through `_knn(..., "two_level")` or `_knn_cuda`. Both
+kernels take `mask` and `include_self` themselves (the JAX package sends
+those two to its oracle). The launch counters show which kernel ran. The
+plain PyTorch version below runs on a CPU tensor only. While
+`torch.export` traces, the selection is the operator
+`pointseg_torch::knn`, or `knn_2l` past the flat kernel's limits
+(`ops/library.py`), which does the same at run time.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import torch
 from pointseg_torch.ops import _kernels
 from pointseg_torch.ops.gather import gather_rows
 
-SELECTS = ("flat", "two_level")
 MAX_K = 32  # the flat kernel keeps one list slot per warp lane
 # The flat kernel holds a block's 64 query rows whole in shared memory
 # (227 KB a block on an H100), beside two 128-candidate tiles of 64
@@ -56,7 +57,6 @@ def knn_indices(
     *,
     mask: torch.Tensor | None = None,
     include_self: bool = True,
-    select: str = "flat",
 ) -> torch.Tensor:
     """k nearest neighbours of every point under squared L2 distance.
 
@@ -72,20 +72,30 @@ def knn_indices(
             downstream.)
         include_self: keep the point itself in its neighbourhood (the
             reference's semantics).
-        select: 'flat' or 'two_level', the CUDA kernel to launch
-            ('flat' past `MAX_K` or `MAX_F` runs the two-level kernel).
 
     Returns:
         (B, N, k) int32 neighbour indices. Selection carries no gradient.
     """
-    if select not in SELECTS:
-        raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
-    B, N, _ = x.shape
+    return _knn(x, k, mask, include_self, "flat")
+
+
+def _two_level(select: str, k: int, F: int) -> bool:
+    """The shape rule: the two-level kernel past the flat kernel's `MAX_K`
+    or `MAX_F`, or where `select` is "two_level" (tests force it)."""
+    return select == "two_level" or k > MAX_K or F > MAX_F
+
+
+def _knn(x, k, mask, include_self, select):
+    """`knn_indices` with `select`: "flat", the shape rule (`_two_level`),
+    which every caller outside the tests and the `knn_2l` operator
+    passes, or "two_level"."""
+    B, N, F = x.shape
     if not 1 <= k <= N:
         raise ValueError(f"knn needs 1 <= k <= N, got k={k}, N={N}")
     x = x.detach().to(torch.float32).contiguous()
     if torch.compiler.is_exporting():  # one operator in the traced graph (ops/library.py)
-        op = torch.ops.pointseg_torch.knn if select == "flat" else torch.ops.pointseg_torch.knn_2l
+        op = (torch.ops.pointseg_torch.knn_2l if _two_level(select, k, F)
+              else torch.ops.pointseg_torch.knn)
         return op(x, mask, k, include_self)
     if _kernels.on_cuda(x):
         return _knn_cuda(x, k, select, default_depth(k), mask=mask, include_self=include_self)
@@ -151,9 +161,9 @@ def knn_indices_plain(
 
 def _knn_cuda(x: torch.Tensor, k: int, select: str, depth: int, *,
               mask: torch.Tensor | None = None, include_self: bool = True) -> torch.Tensor:
-    """One launch of the flat or the two-level kernel; the two-level one
-    also for `select="flat"` where k > MAX_K or F > MAX_F. `depth` is the
-    two-level kernel's stack depth (4 or 5; 1 forces its refills)."""
+    """One launch of the flat or the two-level kernel, as `_two_level`
+    picks from `select`, k and F. `depth` is the two-level kernel's stack
+    depth (4 or 5; 1 forces its refills)."""
     B, N, F = x.shape
     if F < 1:
         raise ValueError(f"the kNN kernels need F >= 1 features, got {F}")
@@ -167,14 +177,14 @@ def _knn_cuda(x: torch.Tensor, k: int, select: str, depth: int, *,
     if B == 0:
         return out
     norms = torch.empty((B, N), dtype=torch.float32, device=x.device)  # the kernels' scratch
-    if select == "flat" and k <= MAX_K and F <= MAX_F:
-        _kernels.launch("knn", "pointseg_knn", x.device, _kernels.ptr(x),
-                        _kernels.ptr(norms), _kernels.ptr(mask), _kernels.ptr(out),
-                        B, N, F, k, int(include_self))
-    else:
+    if _two_level(select, k, F):
         _kernels.launch("knn_2l", "pointseg_knn_2l", x.device, _kernels.ptr(x),
                         _kernels.ptr(norms), _kernels.ptr(mask), _kernels.ptr(out),
                         B, N, F, k, int(include_self), depth)
+    else:
+        _kernels.launch("knn", "pointseg_knn", x.device, _kernels.ptr(x),
+                        _kernels.ptr(norms), _kernels.ptr(mask), _kernels.ptr(out),
+                        B, N, F, k, int(include_self))
     return out
 
 

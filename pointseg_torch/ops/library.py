@@ -19,7 +19,14 @@ wrappers in `ops/*.py` call these operators only while
 `torch.compiler.is_exporting()` is true; at any other time they dispatch
 directly, so the training path never goes through PyTorch's dispatcher
 (a call of a host-bound model costs its microseconds there,
-`ops/_kernels.py`; `chip_smoke.py` phase 9 prints both routes).
+`ops/_kernels.py`).
+
+The wrappers pick `ball_query` or `ball_query_2l`, `knn` or `knn_2l`, by
+the shape rule of `ops/ballquery.py` and `ops/knn.py`: the `_2l`
+operator only past the flat kernel's limits. Each `_2l` operator runs
+its two-level kernel at any shape on the card, so a test can hold that
+kernel to the flat one where both take the shape, and a program exported
+with it loads and runs.
 
 Importing `pointseg_torch.ops` registers the operators; a process that
 loads an exported artifact must do so before it runs it
@@ -35,7 +42,7 @@ from pointseg_torch.ops.ballquery import _select
 from pointseg_torch.ops.fps import farthest_point_sampling
 from pointseg_torch.ops.gather import _gather
 from pointseg_torch.ops.interpolate import three_nn as _three_nn
-from pointseg_torch.ops.knn import knn_indices
+from pointseg_torch.ops.knn import _knn
 
 
 @torch.library.custom_op("pointseg_torch::fps", mutates_args=())
@@ -58,16 +65,16 @@ def _ball_query_fake(centroids, coords, mask, radius, K, repeat):
 @torch.library.custom_op("pointseg_torch::ball_query", mutates_args=())
 def ball_query(centroids: Tensor, coords: Tensor, mask: Optional[Tensor], radius: float, K: int,
                repeat: bool) -> tuple[Tensor, Tensor]:
-    """(idx, in_ball), each (B, C, K), of the flat selection (the
-    two-level kernel past K = 32 on the card); the repeat filler applied
-    when `repeat`."""
+    """(idx, in_ball), each (B, C, K), by the shape rule on the card (the
+    flat kernel, the two-level one past K = 32); the repeat filler
+    applied when `repeat`."""
     return _select(centroids, coords, radius, K, mask, "flat", repeat)
 
 
 @torch.library.custom_op("pointseg_torch::ball_query_2l", mutates_args=())
 def ball_query_2l(centroids: Tensor, coords: Tensor, mask: Optional[Tensor], radius: float,
                   K: int, repeat: bool) -> tuple[Tensor, Tensor]:
-    """`ball_query` by the two-level kernel on the card."""
+    """`ball_query` by the two-level kernel on the card, at any K."""
     return _select(centroids, coords, radius, K, mask, "two_level", repeat)
 
 
@@ -95,15 +102,15 @@ def _knn_fake(x, mask, k, include_self):
 
 @torch.library.custom_op("pointseg_torch::knn", mutates_args=())
 def knn(x: Tensor, mask: Optional[Tensor], k: int, include_self: bool) -> Tensor:
-    """(B, N, k) int32 neighbour indices by the flat kernel (the
-    two-level one past k = 32 or F = 512 on the card)."""
-    return knn_indices(x, k, mask=mask, include_self=include_self, select="flat")
+    """(B, N, k) int32 neighbour indices by the shape rule on the card
+    (the flat kernel, the two-level one past k = 32 or F = 512)."""
+    return _knn(x, k, mask, include_self, "flat")
 
 
 @torch.library.custom_op("pointseg_torch::knn_2l", mutates_args=())
 def knn_2l(x: Tensor, mask: Optional[Tensor], k: int, include_self: bool) -> Tensor:
-    """`knn` by the two-level kernel on the card."""
-    return knn_indices(x, k, mask=mask, include_self=include_self, select="two_level")
+    """`knn` by the two-level kernel on the card, at any shape."""
+    return _knn(x, k, mask, include_self, "two_level")
 
 
 knn.register_fake(_knn_fake)

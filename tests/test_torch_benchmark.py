@@ -124,7 +124,9 @@ def test_doctor_on_a_machine_without_a_card(capsys, monkeypatch):
     lines = capsys.readouterr().out.strip().splitlines()
     starts = ["pointseg_torch ", "torch ", "cuda: unavailable", "nvcc: ",
               "CUDA kernels: not built (no card)",
-              "two-level selection: ON  [POINTSEG_SELECT2L=1]", "ball-query filler mode: index",
+              "selection kernels: by shape (ball query: flat at K <= 32, two-level past it; "
+              "kNN: flat at k <= 32 and F <= 512, two-level past either)",
+              "ball-query filler mode: index",
               "native ETL parser: "]
     assert len(lines) == len(starts)
     for line, start in zip(lines, starts):

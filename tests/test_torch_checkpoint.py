@@ -360,7 +360,7 @@ def test_cli_trains_with_checkpoints_and_resumes(tiny_blocks, tmp_path, capsys, 
     config = json.loads((run_dir / "config.json").read_text())
     assert config["model"] == "DGCNN" and config["static_graph"] is False
     assert config["lr_schedule"] == "warmup_cosine" and config["grad_clip"] == 1.0
-    assert config["kernel_switches"] == {"knn_select": "flat"}
+    assert config["filler"] is None  # a DGCNN queries no ball
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == f"Model checkpoints saved to: {run_dir}."
 

@@ -1,7 +1,9 @@
-"""The port's CLI reads the JAX package's two environment switches,
-POINTSEG_SELECT2L (the two-level kNN and ball-query kernels) and
-POINTSEG_BQ_FILLER (the ball-query filler), as `pointseg` reads them,
-and hands them to the model it builds.
+"""The port's CLI reads the JAX package's filler switch,
+POINTSEG_BQ_FILLER, as `pointseg` reads it, and hands it to the model it
+builds. The JAX package's other switch, POINTSEG_SELECT2L (its two-level
+kNN and ball-query kernels), changes nothing here: each op picks its CUDA
+kernel from the call's shape, so the model built is the same whatever
+the variable says.
 
 `train_from_args` runs with `--epochs 0` on a tiny synthetic dataset:
 it builds the data, the model and the train state and trains nothing.
@@ -37,6 +39,7 @@ def tiny_blocks(tmp_path_factory):
 
 
 def _build(model, tiny_blocks, tmp_path, monkeypatch, env):
+    """The model `train` builds (its seed fixed) with only `env` set."""
     for name in SWITCHES:
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -49,33 +52,54 @@ def _build(model, tiny_blocks, tmp_path, monkeypatch, env):
     return state.model
 
 
-@pytest.mark.parametrize("model,env,select,filler", [
-    ("PointNeXt", {"POINTSEG_SELECT2L": "1"}, "two_level", "repeat"),
-    ("PointNet++MSG", {"POINTSEG_BQ_FILLER": "index"}, "flat", "index"),
-    ("PointNet++", {"POINTSEG_SELECT2L": "true", "POINTSEG_BQ_FILLER": "index"},
-     "two_level", "index"),
-    ("PointNet++", {"POINTSEG_SELECT2L": "False", "POINTSEG_BQ_FILLER": "repeat"},
-     "flat", "repeat"),
-    ("PointNeXt-L", {}, "flat", "repeat"),
-])
+def _assert_select2l_changes_nothing(built, model, tiny_blocks, tmp_path, monkeypatch, env):
+    """`built`, made under `env`, equals the model made without
+    POINTSEG_SELECT2L: the same modules and the same weights."""
+    if "POINTSEG_SELECT2L" not in env:
+        return
+    rest = {k: v for k, v in env.items() if k != "POINTSEG_SELECT2L"}
+    plain = _build(model, tiny_blocks, tmp_path, monkeypatch, rest)
+    assert repr(built) == repr(plain)
+    want = plain.state_dict()
+    got = built.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ids: the model, the case, what POINTSEG_SELECT2L asks for, the filler
+@pytest.mark.parametrize("model,env,filler", [
+    ("PointNeXt", {"POINTSEG_SELECT2L": "1"}, "repeat"),
+    ("PointNet++MSG", {"POINTSEG_BQ_FILLER": "index"}, "index"),
+    ("PointNet++", {"POINTSEG_SELECT2L": "true", "POINTSEG_BQ_FILLER": "index"}, "index"),
+    ("PointNet++", {"POINTSEG_SELECT2L": "False", "POINTSEG_BQ_FILLER": "repeat"}, "repeat"),
+    ("PointNeXt-L", {}, "repeat"),
+], ids=["PointNeXt-env0-two_level-repeat", "PointNet++MSG-env1-flat-index",
+        "PointNet++-env2-two_level-index", "PointNet++-env3-flat-repeat",
+        "PointNeXt-L-env4-flat-repeat"])
 def test_train_builds_ball_query_models_with_the_switches(tiny_blocks, tmp_path, monkeypatch,
-                                                          model, env, select, filler):
+                                                          model, env, filler):
+    """The filler from the environment, and the same model whatever
+    POINTSEG_SELECT2L says."""
     built = _build(model, tiny_blocks, tmp_path, monkeypatch, env)
     grouped = [m for m in built.modules() if isinstance(m, GroupedFirstLayer)]
     assert grouped
-    assert all(m.ball_select == select and m.filler == filler for m in grouped)
+    assert all(m.filler == filler for m in grouped)
+    assert not any(hasattr(m, "ball_select") for m in built.modules())
+    _assert_select2l_changes_nothing(built, model, tiny_blocks, tmp_path, monkeypatch, env)
 
 
-@pytest.mark.parametrize("model,env,select", [
-    ("DeepGraphCnn", {"POINTSEG_SELECT2L": "1"}, "two_level"),
-    ("DGCNN", {"POINTSEG_SELECT2L": "0", "POINTSEG_BQ_FILLER": "index"}, "flat"),
-])
-def test_train_builds_dgcnns_with_the_switch(tiny_blocks, tmp_path, monkeypatch, model, env,
-                                             select):
+@pytest.mark.parametrize("model,env", [
+    ("DeepGraphCnn", {"POINTSEG_SELECT2L": "1"}),
+    ("DGCNN", {"POINTSEG_SELECT2L": "0", "POINTSEG_BQ_FILLER": "index"}),
+], ids=["DeepGraphCnn-env0-two_level", "DGCNN-env1-flat"])
+def test_train_builds_dgcnns_with_the_switch(tiny_blocks, tmp_path, monkeypatch, model, env):
+    """No filler (a DGCNN queries no ball), and the same model whatever
+    POINTSEG_SELECT2L says."""
     built = _build(model, tiny_blocks, tmp_path, monkeypatch, env)
     convs = [m for m in built.modules() if isinstance(m, EdgeConv)]
-    assert len(convs) == 4 and built.knn_select == select
-    assert all(m.knn_select == select for m in convs)
+    assert len(convs) == 4
+    assert not any(hasattr(m, "knn_select") or hasattr(m, "filler") for m in built.modules())
+    _assert_select2l_changes_nothing(built, model, tiny_blocks, tmp_path, monkeypatch, env)
 
 
 def test_train_refuses_a_filler_the_jax_package_does_not_know(tiny_blocks, tmp_path,

@@ -118,9 +118,18 @@ def test_graph_holds_the_operators_and_no_fps_loop(name, artifacts):
 
 
 def test_two_level_switch_is_frozen_into_the_graph():
-    model = _model("DeepGraphCnn", 0, knn_select="two_level")
-    found, _ = _graph_operators(export_aot.export_forward(model, _points((1, 128), 0)))
+    """Past the flat kNN kernel's k = 32 (the enhanced trainer's k = 40)
+    the shape rule picks kernel 5, and the graph holds its operator; the
+    artifact equals the eager forward."""
+    model = _model("DeepGraphCnn", 0, k=40)
+    x = _points((1, 128), 0)
+    blob = export_aot.export_forward(model, x)
+    found, _ = _graph_operators(blob)
     assert found == {"knn_2l", "gather_rows"}
+    got = export_aot.load_forward(blob)(model.state_dict(), x)
+    with torch.no_grad():
+        want = model(x)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_port_artifact_agrees_with_the_jax_artifact():

@@ -10,6 +10,11 @@ rounding, so indices, `in_ball` and the 3-NN distances must be equal, not
 close; the gathers move bits, so their rows are equal too. Only the
 batched gather's gradient (atomic adds on the card) is compared to a
 tolerance.
+
+The public ball query and kNN pick their kernel from the call's shape.
+To hold the two-level kernels (5 and 6) to the flat ones where both take
+the shape, the tests call the private route with "two_level" (`_select`,
+`_knn`, `_ball_query_cuda`, `_knn_cuda`); "flat" there is the shape rule.
 """
 
 import numpy as np
@@ -22,6 +27,7 @@ from pointseg_torch.ops.ballquery import (
     TWO_LEVEL_DEPTH,
     _ball_query_cuda,
     _radius_sq,
+    _select,
     ball_query,
     ball_query_plain,
     ball_query_raw,
@@ -40,7 +46,7 @@ from pointseg_torch.ops.gather import (
     gather_rows_with_coords,
 )
 from pointseg_torch.ops.interpolate import _three_nn_cuda, three_nn, three_nn_plain
-from pointseg_torch.ops.knn import _knn_cuda, knn_indices, knn_indices_plain
+from pointseg_torch.ops.knn import _knn, _knn_cuda, knn_indices, knn_indices_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -200,7 +206,7 @@ def _assert_ball_query_2l(cents, pts, r, K, depth=None, mask=None):
     version and the flat kernel: indices and `in_ball` equal."""
     before = dict(_kernels.LAUNCHES)
     if depth is None:
-        idx, in_ball = ball_query_raw(cents, pts, r, K, mask=mask, select="two_level")
+        idx, in_ball = _select(cents, pts, r, K, mask, "two_level", False)
     else:
         idx, in_ball = _ball_query_cuda(cents.contiguous(), pts, _radius_sq(r), K, mask,
                                         "two_level", depth)
@@ -268,7 +274,7 @@ def test_ball_query_kernels_treat_nan_as_outside(device, select, counter):
     pts[1, 499] = float("nan")
     cents = pts[:, :100].contiguous()
     before = _kernels.LAUNCHES[counter]
-    idx, in_ball = ball_query_raw(cents, pts, 0.3, 32, select=select)
+    idx, in_ball = _select(cents, pts, 0.3, 32, None, select, False)
     assert _kernels.LAUNCHES[counter] == before + 1
     want_idx, want_in = ball_query_plain(cents, pts, 0.3, 32)
     torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
@@ -382,7 +388,7 @@ def test_ball_query_kernels_with_a_mask_that_empties_a_cloud(device, select, cou
     want_idx, want_in = ball_query_plain(cents, pts, 0.2, 32, mask=mask)
     for filler in ("index", "repeat"):
         before = _kernels.LAUNCHES[counter]
-        idx, in_ball = ball_query(cents, pts, 0.2, 32, mask=mask, filler=filler, select=select)
+        idx, in_ball = _select(cents, pts, 0.2, 32, mask, select, filler == "repeat")
         assert _kernels.LAUNCHES[counter] == before + 1
         want = want_idx if filler == "index" else torch.where(want_in, want_idx,
                                                                want_idx[..., :1])
@@ -498,6 +504,12 @@ def _features(seed, B, N, F, device, dup_from=None):
     return torch.from_numpy(x).to(device)
 
 
+def _knn_by(x, k, select, mask=None, include_self=True):
+    """`knn_indices` through the private route: "flat" is the shape rule,
+    "two_level" forces kernel 5."""
+    return _knn(x, k, mask, include_self, select)
+
+
 @pytest.mark.parametrize("select,counter", [("flat", "knn"), ("two_level", "knn_2l")])
 @pytest.mark.parametrize("B,N,F,k,dup", [(8, 4096, 3, 20, False), (8, 4096, 64, 20, False),
                                          (2, 1000, 64, 20, True), (3, 333, 7, 32, True),
@@ -505,7 +517,7 @@ def _features(seed, B, N, F, device, dup_from=None):
 def test_knn_kernels_match_plain(device, select, counter, B, N, F, k, dup):
     x = _features(20, B, N, F, device, dup_from=N - N // 4 if dup else None)
     before = dict(_kernels.LAUNCHES)
-    got = knn_indices(x, k, select=select)
+    got = _knn_by(x, k, select)
     assert _kernels.LAUNCHES[counter] == before[counter] + 1
     assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
     torch.testing.assert_close(got, knn_indices_plain(x, k), rtol=0, atol=0)
@@ -534,14 +546,14 @@ def test_knn_flat_kernel_tile_edges_match_plain_and_two_level(device, B, N, F, k
         assert _kernels.LAUNCHES["knn"] == before["knn"] + 1
         assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-        torch.testing.assert_close(knn_indices(x, k, select="two_level", **kwargs), want,
+        torch.testing.assert_close(_knn_cuda(x, k, "two_level", 4, **kwargs), want,
                                    rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("F", [3, 64])
 def test_knn_two_level_kernel_at_the_enhanced_trainers_k(device, F):
     """`create_dgcnn_trainer`'s kNN: (2, 8192, F) at k = 40, past the flat
-    kernel's 32, so `select="flat"` launches kernel 5; equal to the plain
+    kernel's 32, so the shape rule launches kernel 5; equal to the plain
     version slot for slot."""
     x = _cloud(30, 2, 8192, device) if F == 3 else _features(30, 2, 8192, F, device)
     before = dict(_kernels.LAUNCHES)
@@ -641,7 +653,7 @@ def test_launch_makes_another_device_current_only_for_the_call(device):
 def test_two_level_knn_is_exact_at_every_depth(device, depth):
     # shallow stacks and repeated points force the rescan
     x = _features(21, 2, 2048, 16, device, dup_from=1024)
-    want = knn_indices(x, 20, select="flat")
+    want = knn_indices(x, 20)
     got = _knn_cuda(x, 20, "two_level", depth)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -656,7 +668,7 @@ def test_knn_on_clustered_columns_refills_one_lane(device):
     want = knn_indices_plain(x, 20)
     assert bool((want[0, 0] % 32 == 0).all())
     for select in ("flat", "two_level"):
-        torch.testing.assert_close(knn_indices(x, 20, select=select), want, rtol=0, atol=0)
+        torch.testing.assert_close(_knn_by(x, 20, select), want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("select,counter,depth", [("flat", "knn", 4), ("two_level", "knn_2l", 4),
@@ -675,7 +687,7 @@ def test_knn_kernels_take_mask_and_no_self(device, select, counter, depth, B, N,
                    {"mask": mask, "include_self": False}):
         before = dict(_kernels.LAUNCHES)
         if depth == 4:
-            got = knn_indices(x, k, select=select, **kwargs)
+            got = _knn_by(x, k, select, **kwargs)
         else:
             got = _knn_cuda(x, k, select, depth, **kwargs)
         assert _kernels.LAUNCHES[counter] == before[counter] + 1
@@ -683,7 +695,7 @@ def test_knn_kernels_take_mask_and_no_self(device, select, counter, depth, B, N,
         torch.testing.assert_close(got, knn_indices_plain(x, k, **kwargs), rtol=0, atol=0)
     if keep > 0.3:
         own = torch.arange(N, device=device)[None, :, None]
-        assert not bool((knn_indices(x, k, select=select, include_self=False) == own).any())
+        assert not bool((_knn_by(x, k, select, include_self=False) == own).any())
 
 
 @pytest.mark.parametrize("select", ["flat", "two_level"])
@@ -694,7 +706,7 @@ def test_knn_kernels_stay_in_bounds_on_nan_rows(device, select):
     x = _features(26, 2, 500, 8, device)
     x[0, 7] = float("nan")
     x[1, 499, 3] = float("nan")
-    got = knn_indices(x, 20, select=select)
+    got = _knn_by(x, 20, select)
     assert int(got.min()) >= 0 and int(got.max()) < 500
     torch.testing.assert_close(got, knn_indices_plain(x, 20), rtol=0, atol=0)
     assert not bool((got[0, 8:] == 7).any()) and not bool((got[1, :499] == 499).any())
@@ -705,13 +717,13 @@ def test_knn_kernels_stay_in_bounds_on_nan_rows(device, select):
 
 # ------------------------------------------ the two-level kernels (5 and 6)
 # at the shapes the flat kernels refuse (k or K > 32, F > MAX_F), where
-# `select="flat"` runs them, at every split and at depth 1
+# the shape rule runs them, at every split and at depth 1
 
 
 @pytest.mark.parametrize("k", [33, 48, 64])
 @pytest.mark.parametrize("options", ["plain", "mask", "no_self", "mask_no_self"])
 def test_knn_past_32_neighbours_runs_the_two_level_kernel(device, k, options):
-    """DGCNN's (8, 4096, 64) with k > 32: `select="flat"` launches the
+    """DGCNN's (8, 4096, 64) with k > 32: the shape rule launches the
     two-level kernel, equal to the plain version slot for slot; the tail
     repeats the head (exact ties)."""
     x = _features(50, 8, 4096, 64, device, dup_from=3072)
@@ -724,7 +736,7 @@ def test_knn_past_32_neighbours_runs_the_two_level_kernel(device, k, options):
     want = knn_indices_plain(x, k, **kwargs)
     for select in ("flat", "two_level"):
         before = dict(_kernels.LAUNCHES)
-        got = knn_indices(x, k, select=select, **kwargs)
+        got = _knn_by(x, k, select, **kwargs)
         assert _kernels.LAUNCHES["knn_2l"] == before["knn_2l"] + 1
         assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
         torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -790,7 +802,7 @@ BALL_WIDE_K = [(8, 1024, 4096, 0.1, 48), (8, 1024, 4096, 0.1, 64), (2, 1024, 163
 @pytest.mark.parametrize("depth", [None, 1])
 @pytest.mark.parametrize("B,C,N,r,K", BALL_WIDE_K)
 def test_ball_query_past_32_runs_the_two_level_kernel(device, depth, B, C, N, r, K):
-    """`select="flat"` with K > 32 launches the two-level kernel, equal to
+    """The shape rule with K > 32 launches the two-level kernel, equal to
     the plain version raw and with the repeat filler, with and without a
     mask; at depth 1 every pick past a lane's first rescans it."""
     pts = _cloud(58, B, N, device, dup_from=N - N // 8)
@@ -1054,12 +1066,13 @@ def test_device_stores_sample_the_same_batches_on_the_card_as_on_the_cpu(device)
 
 @pytest.mark.parametrize("name,kwargs", [
     ("DeepGraphCnn", {}), ("DeepGraphCnn", {"static_graph": True}),
-    ("DGCNN", {"knn_select": "two_level"})])
+    ("DGCNN", {"k": 40})])
 def test_dgcnn_on_the_card_matches_the_cpu(device, name, kwargs):
     """Eval logits through the kernels against the plain versions on the
-    CPU. Feature-space graphs (conv2-4) can flip a neighbour where the
-    card's matmuls round another way, so the dynamic graph is held to
-    "nearly every point" and the static graph, xyz only, to 1e-4."""
+    CPU; at k = 40 (the enhanced trainer's) every EdgeConv runs kernel 5.
+    Feature-space graphs (conv2-4) can flip a neighbour where the card's
+    matmuls round another way, so the dynamic graph is held to "nearly
+    every point" and the static graph, xyz only, to 1e-4."""
     torch.manual_seed(0)
     model = create_model(name, **kwargs).eval()
     rng = np.random.default_rng(25)
@@ -1075,9 +1088,9 @@ def test_dgcnn_on_the_card_matches_the_cpu(device, name, kwargs):
 
 
 @pytest.mark.parametrize("name,kwargs", [
-    ("PointNet++", {}), ("PointNet++", {"ball_select": "two_level"}),
-    ("PointNeXt", {"ball_select": "two_level"}), ("PointNeXt-B", {"filler": "index"}),
-    ("PointNet++MSG", {"ball_select": "two_level", "filler": "index"})])
+    ("PointNet++", {}), ("PointNet++", {"filler": "index"}),
+    ("PointNeXt", {}), ("PointNeXt-B", {"filler": "index"}),
+    ("PointNet++MSG", {"filler": "index"})])
 def test_model_on_the_card_matches_the_cpu(device, name, kwargs):
     """Eval logits through the kernels match the plain versions' on the
     CPU with the same weights (matmul and reduction order differ)."""

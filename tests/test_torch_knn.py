@@ -75,16 +75,17 @@ def test_knn_matches_jax_oracle(B, N, F, k):
     np.testing.assert_array_equal(got[..., 0].numpy(), np.broadcast_to(np.arange(N), (B, N)))
 
 
-@pytest.mark.parametrize("select", ["flat", "two_level"])
-def test_knn_matches_pallas_kernels_in_interpret_mode(select):
+@pytest.mark.parametrize("pallas", ["flat", "two_level"])
+def test_knn_matches_pallas_kernels_in_interpret_mode(pallas):
+    """The one port call (its plain version on a CPU tensor) against the
+    JAX package's flat and two-level Pallas kernels in interpret mode."""
     x = _activations(1, 2, 256, 8)
     with pltpu.force_tpu_interpret_mode():
-        if select == "flat":
+        if pallas == "flat":
             want = knn_indices_pallas(jnp.asarray(x), 6, tile=64)
         else:
             want = knn_indices_pallas_2l(jnp.asarray(x), 6, tile=128, seg=128)
-    # on a CPU tensor both selects are the one plain version
-    got = tops.knn_indices(torch.from_numpy(x), 6, select=select)
+    got = tops.knn_indices(torch.from_numpy(x), 6)
     _assert_same_neighbours(x, got.numpy(), want)
 
 
@@ -116,10 +117,9 @@ def test_knn_tile_edge_shapes_equal_the_jax_oracle(B, N, F, k, options):
         kw_j["include_self"] = kw_t["include_self"] = False
     want = np.asarray(jops.knn_indices(jnp.asarray(x), k, **kw_j))
     before = dict(_kernels.LAUNCHES)
-    for select in ("flat", "two_level"):  # one plain version behind both on the CPU
-        got = tops.knn_indices(torch.from_numpy(x), k, select=select, **kw_t).numpy()
-        assert got.dtype == np.int32
-        np.testing.assert_array_equal(got, want)
+    got = tops.knn_indices(torch.from_numpy(x), k, **kw_t).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
     assert _kernels.LAUNCHES == before
     if "no_self" in options:
         assert not (want == np.arange(N)[None, :, None]).any()
@@ -142,7 +142,7 @@ def test_knn_tile_edge_shapes_equal_the_pallas_kernels_in_interpret_mode(B, N, F
 def test_knn_cuda_limits_are_the_kernels():
     """`MAX_K` and `MAX_F` are what the flat kernel of `csrc/knn.cu` can
     take: one list slot a lane, and a block's 64 query rows held whole in
-    shared memory beside two 128-candidate tiles. Past them `select="flat"`
+    shared memory beside two 128-candidate tiles. Past them the shape rule
     runs the two-level kernel, which stages the query rows 64 features at
     a time: its shared memory does not grow with F, so it takes any F."""
     from pointseg_torch.ops import knn as knn_module
@@ -201,13 +201,13 @@ def test_knn_plain_blocks_do_not_change_the_result(monkeypatch):
 def test_knn_argument_checks_and_no_launch_on_the_cpu():
     x = torch.from_numpy(_activations(6, 1, 32, 3))
     before = dict(_kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="select"):
-        tops.knn_indices(x, 4, select="sorted")
+    with pytest.raises(TypeError, match="select"):  # the shape picks the kernel
+        tops.knn_indices(x, 4, select="two_level")
     with pytest.raises(ValueError, match="k <= N"):
         tops.knn_indices(x, 33)
     with pytest.raises(ValueError, match="cpu.*cuda"):
         tops.knn_indices(torch.empty((1, 32, 3), device="meta"), 4)
-    tops.knn_indices(x, 4, select="two_level")
+    tops.knn_indices(x, 4)
     assert _kernels.LAUNCHES == before
     assert [default_depth(k) for k in (1, 3, 4, 20, 21, 32)] == [4, 4, 4, 4, 5, 5]
 
@@ -373,21 +373,22 @@ def test_two_level_knn_model_matches_plain_jax_and_pallas_2l(k, deep, options):
                                      (1, 96, 700, 40)])
 def test_knn_past_the_flat_kernels_limits_matches_jax(B, N, F, k):
     """The shapes the CUDA path sends to the two-level kernel (k > 32, F >
-    MAX_F): the plain version (both selects on the CPU) equal to the JAX
-    oracle, on grid clouds, whose scores are exact in any order."""
+    MAX_F): the plain version equal to the JAX oracle, on grid clouds,
+    whose scores are exact in any order."""
     x = _grid_cloud(72, B, N, F)
     want = np.asarray(jops.knn_indices(jnp.asarray(x), k))
-    for select in ("flat", "two_level"):
-        got = tops.knn_indices(torch.from_numpy(x), k, select=select).numpy()
-        np.testing.assert_array_equal(got, want)
+    got = tops.knn_indices(torch.from_numpy(x), k).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 class _Launches:
-    """Stands in for `_kernels.launch` and `_kernels.check` on the CPU: the
-    calls a CUDA tensor would make, recorded, no kernel run."""
+    """Stands in for `_kernels.on_cuda`, `_kernels.launch` and
+    `_kernels.check` on the CPU: a CPU tensor takes the CUDA path, and the
+    calls it would make are recorded, no kernel run."""
 
     def __init__(self, monkeypatch):
         self.calls = []
+        monkeypatch.setattr(_kernels, "on_cuda", lambda t: True)
         monkeypatch.setattr(_kernels, "launch", lambda kernel, symbol, device, *args:
                             self.calls.append((kernel, symbol)))
         monkeypatch.setattr(_kernels, "check", lambda *args: None)
@@ -397,11 +398,13 @@ class _Launches:
                                       (40, 64, "pointseg_knn_2l"), (20, 700, "pointseg_knn_2l"),
                                       (64, 1024, "pointseg_knn_2l")])
 def test_knn_flat_select_routes_past_its_limits_to_the_two_level_kernel(monkeypatch, k, F, want):
+    """The public call picks by shape; the private route forces kernel 5
+    at any shape."""
     from pointseg_torch.ops.knn import _knn_cuda
 
     launches = _Launches(monkeypatch)
     x = torch.zeros((1, 64, F))
-    _knn_cuda(x, k, "flat", default_depth(k))
+    tops.knn_indices(x, k)
     _knn_cuda(x, k, "two_level", default_depth(k))
     assert launches.calls == [(want.replace("pointseg_", ""), want), ("knn_2l", "pointseg_knn_2l")]
 
@@ -423,12 +426,14 @@ def test_knn_cuda_refuses_rows_of_no_feature_and_depths_it_lacks(monkeypatch, se
 @pytest.mark.parametrize("K,want", [(16, "pointseg_ball_query"), (32, "pointseg_ball_query"),
                                     (33, "pointseg_ball_query_2l"), (48, "pointseg_ball_query_2l")])
 def test_ball_query_flat_select_routes_past_32_to_the_two_level_kernel(monkeypatch, K, want):
+    """The public calls (raw, and with the repeat filler the kernel
+    writes) pick by shape; the private route forces kernel 6 at any K."""
     from pointseg_torch.ops.ballquery import _ball_query_cuda
 
     launches = _Launches(monkeypatch)
     pts = torch.zeros((1, 64, 3))
-    for repeat in (False, True):
-        _ball_query_cuda(pts, pts, 0.01, K, None, "flat", TWO_LEVEL_DEPTH, repeat)
+    tops.ball_query_raw(pts, pts, 0.1, K)
+    tops.ball_query(pts, pts, 0.1, K)
     _ball_query_cuda(pts, pts, 0.01, K, None, "two_level", TWO_LEVEL_DEPTH)
     assert launches.calls == [(want.replace("pointseg_", ""), want)] * 2 + [
         ("ball_query_2l", "pointseg_ball_query_2l")]

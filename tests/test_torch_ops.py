@@ -187,8 +187,8 @@ def test_ball_query_rejects_bad_filler_and_k():
     want_idx, want_in = tops.ball_query(pts, pts, 0.2, 20)
     assert torch.equal(idx, torch.cat([want_idx, want_idx[..., :1]], dim=-1))
     assert torch.equal(in_ball, torch.cat([want_in, torch.zeros_like(want_in[..., :1])], dim=-1))
-    with pytest.raises(ValueError, match="select"):
-        tops.ball_query(pts, pts, 0.2, 4, select="strided")
+    with pytest.raises(TypeError, match="select"):  # the shape picks the kernel
+        tops.ball_query(pts, pts, 0.2, 4, select="two_level")
 
 
 # (seed, C, radius, K): N = 256 in two 128-column segments, what the Pallas
@@ -199,27 +199,26 @@ BQ2L_CASES = [(40, 32, 0.15, 8), (41, 64, 0.3, 16), (42, 16, 0.6, 32), (43, 256,
 
 @pytest.mark.parametrize("seed,C,r,K", BQ2L_CASES)
 def test_ball_query_two_level_matches_pallas_2l_and_flat(seed, C, r, K):
-    """`select="two_level"` against the Pallas two-level kernel in
-    interpret mode and against `select="flat"`: indices and `in_ball`
-    exact, raw and under both fillers."""
+    """The one port call (its plain version on a CPU tensor) against the
+    JAX package's two-level and flat Pallas kernels in interpret mode:
+    indices and `in_ball` exact, raw and under both fillers."""
     pts = _cloud(seed, 2, 256)
     cents = pts[:, :C]
     with pltpu.force_tpu_interpret_mode():
         p_idx, p_in = ball_query_pallas_2l(jnp.asarray(cents), jnp.asarray(pts), r, K, seg=128)
+        flat_idx, flat_in = ball_query_pallas(jnp.asarray(cents), jnp.asarray(pts), r, K)
     p_idx, p_in = np.asarray(p_idx), np.asarray(p_in)
-    idx, in_ball = tops.ball_query_raw(_t(cents), _t(pts), r, K, select="two_level")
-    flat_idx, flat_in = tops.ball_query_raw(_t(cents), _t(pts), r, K, select="flat")
+    idx, in_ball = tops.ball_query_raw(_t(cents), _t(pts), r, K)
     assert 0 < in_ball.float().mean() < 1  # both members and fillers occur
     np.testing.assert_array_equal(idx.numpy(), p_idx)
     np.testing.assert_array_equal(in_ball.numpy(), p_in)
-    np.testing.assert_array_equal(idx.numpy(), flat_idx.numpy())
-    np.testing.assert_array_equal(in_ball.numpy(), flat_in.numpy())
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(flat_idx))
+    np.testing.assert_array_equal(in_ball.numpy(), np.asarray(flat_in))
     for filler in ("repeat", "index"):
         want = np.where(p_in, p_idx, p_idx[..., :1]) if filler == "repeat" else p_idx
-        for select in ("two_level", "flat"):
-            got, got_in = tops.ball_query(_t(cents), _t(pts), r, K, filler=filler, select=select)
-            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{filler} {select}")
-            np.testing.assert_array_equal(got_in.numpy(), p_in)
+        got, got_in = tops.ball_query(_t(cents), _t(pts), r, K, filler=filler)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=filler)
+        np.testing.assert_array_equal(got_in.numpy(), p_in)
 
 
 @pytest.mark.parametrize("filler", ["repeat", "index"])
@@ -238,11 +237,9 @@ def test_ball_query_two_level_mask_matches_jax_and_flat(filler):
     finally:
         set_filler_mode(None)
     assert not np.asarray(want_in)[2].any()
-    for select in ("two_level", "flat"):
-        idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.25, 16, mask=_t(mask),
-                                       filler=filler, select=select)
-        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx), err_msg=select)
-        np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in), err_msg=select)
+    idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.25, 16, mask=_t(mask), filler=filler)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in))
 
 
 def test_group_takes_select_and_filler():
@@ -255,8 +252,7 @@ def test_group_takes_select_and_filler():
                                      jnp.asarray(feats), 0.2, 8))
     finally:
         set_filler_mode(None)
-    got = tops.group(_t(pts[:, :30]), _t(pts), _t(feats), 0.2, 8, filler="index",
-                     select="two_level")
+    got = tops.group(_t(pts[:, :30]), _t(pts), _t(feats), 0.2, 8, filler="index")
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
 
 
@@ -673,7 +669,7 @@ def test_two_level_ball_query_model_with_a_mask_matches_plain_jax_and_pallas_2l(
 @pytest.mark.parametrize("K", [48, 64])
 def test_ball_query_past_32_matches_jax(K, filler):
     """The K the CUDA path sends to the two-level kernel: the plain version
-    (both selects on the CPU) against the JAX function, both fillers."""
+    against the JAX function, both fillers."""
     pts = _tie_cloud(66, 2, 300)
     cents = pts[:, :50]
     set_filler_mode(filler)
@@ -681,10 +677,9 @@ def test_ball_query_past_32_matches_jax(K, filler):
         want_idx, want_in = jops.ball_query(jnp.asarray(cents), jnp.asarray(pts), 0.4, K)
     finally:
         set_filler_mode(None)
-    for select in ("flat", "two_level"):
-        idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.4, K, filler=filler, select=select)
-        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
-        np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in))
+    idx, in_ball = tops.ball_query(_t(cents), _t(pts), 0.4, K, filler=filler)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(in_ball.numpy(), np.asarray(want_in))
     assert 0 < np.asarray(want_in).mean() < 1
 
 

@@ -360,7 +360,7 @@ def test_registry_holds_every_jax_model_and_refuses_unknown_names():
     assert "PointNetCls" not in MODELS
     with pytest.raises(ValueError, match="Unknown model 'PointNetCls'"):
         create_model("PointNetCls")
-    assert cli.kernel_switches("PointNet") == {}
+    assert cli.filler_switch("PointNet") == {}
 
 
 @pytest.fixture(scope="module")
@@ -383,7 +383,7 @@ def test_cli_trains_pointnet_and_evaluates_with_both_statistics(tiny_blocks, tmp
     (records,) = list((tmp_path / "logs").rglob("records.json"))
     rec = json.loads(records.read_text())
     assert math.isfinite(rec["train_loss"][0]) and math.isfinite(rec["val_loss"][0])
-    assert rec["config"]["kernel_switches"] == {}
+    assert rec["config"]["filler"] is None
     (run_dir,) = (tmp_path / "models" / "PointNet").iterdir()
     results = {}
     for stats in ("running", "batch"):

@@ -209,24 +209,24 @@ def test_set_abstraction_msg_matches_jax():
 def test_registry_builds_the_four_names_with_ball_select_and_filler():
     for name, blocks in (("PointNeXt", (1, 2, 1, 1)), ("PointNeXt-B", (2, 3, 2, 2)),
                          ("PointNeXt-L", (3, 5, 3, 3))):
-        model = create_model(name, width=8, ball_select="two_level", filler="index")
+        model = create_model(name, width=8, filler="index")
         assert isinstance(model, PointNeXt) and model.blocks == blocks
         irmlps = [k for k, _ in model.named_children() if k.startswith("irmlp")]
         assert len(irmlps) == sum(blocks)
         assert model.irmlp2_1.neighbour_features_mlp.radius == 0.2
         assert model.irmlp4.neighbour_features_mlp.K == 16
-        grouped = [m for m in model.modules() if hasattr(m, "ball_select")]
+        grouped = [m for m in model.modules() if hasattr(m, "filler")]
         assert len(grouped) == 4 + sum(blocks)
-        assert all(m.ball_select == "two_level" and m.filler == "index" for m in grouped)
-    msg = create_model("PointNet++MSG", ball_select="two_level", filler="index")
+        assert all(m.filler == "index" for m in grouped)
+    msg = create_model("PointNet++MSG", filler="index")
     assert isinstance(msg, PointNetPPMSG)
     assert [s.K for s in msg.sa1.scales] == [16, 32]
-    assert all(m.ball_select == "two_level" and m.filler == "index"
-               for m in msg.modules() if hasattr(m, "ball_select"))
-    assert create_model("PointNet++", ball_select="two_level").sa3.point_net.ball_select \
-        == "two_level"
-    with pytest.raises(ValueError, match="select"):
-        create_model("PointNeXt", width=8, ball_select="strided")(torch.zeros(1, 1024, 9))
+    assert all(m.filler == "index" for m in msg.modules() if hasattr(m, "filler"))
+    assert create_model("PointNet++", filler="index").sa3.point_net.filler == "index"
+    with pytest.raises(ValueError, match="filler"):
+        create_model("PointNeXt", width=8, filler="nearest")(torch.zeros(1, 1024, 9))
+    with pytest.raises(TypeError, match="ball_select"):  # the shape picks the kernel
+        create_model("PointNeXt", width=8, ball_select="two_level")
 
 
 @pytest.mark.parametrize("name", ["PointNeXt", "PointNeXt-B", "PointNeXt-L", "PointNet++MSG"])
@@ -289,11 +289,8 @@ def test_eval_logits_match_jax(cases, name):
     model = _port_model(name, variables).eval()
     with torch.no_grad():
         got = model(torch.from_numpy(x))
-        two_level = _port_model(name, variables, ball_select="two_level").eval()(
-            torch.from_numpy(x))
     assert got.shape == (B, N, 14) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
-    assert torch.equal(two_level, got)  # on the CPU both run the plain version
 
 
 @pytest.mark.parametrize("name", ["PointNeXt", "PointNet++MSG"])

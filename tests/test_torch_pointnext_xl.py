@@ -195,8 +195,7 @@ def test_bfloat16_fails_the_tolerances():
 
 def _parent_grouped(layer, centroids, coords, features):
     """`GroupedFirstLayer.forward` as it was before the bias argument."""
-    idx, _ = ops.ball_query(centroids, coords, layer.radius, layer.K,
-                            filler=layer.filler, select=layer.ball_select)
+    idx, _ = ops.ball_query(centroids, coords, layer.radius, layer.K, filler=layer.filler)
     first = layer.conv[0]
     w_rel, w_feat = first.weight[:, :3], first.weight[:, 3:]
     gfeat, gcoords = ops.gather_rows_with_coords(F.linear(features, w_feat), coords, idx)

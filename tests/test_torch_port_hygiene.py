@@ -10,10 +10,14 @@
   other devices are refused.
 - The kernel build is pinned to Hopper (`sm_90a`) and its sources ship
   with the package.
+- The ops layer alone chooses each selection kernel: no public function
+  or class takes a kernel choice, and nothing outside `ops/` reaches the
+  private route that forces the two-level kernels.
 """
 
 import ast
 import ctypes
+import importlib
 import inspect
 import pathlib
 import re
@@ -68,14 +72,14 @@ def test_cpu_tensors_never_count_as_launches():
     model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
     pts = x[..., :3]
     ops.three_nn(pts, pts[:, :64])
-    dgcnn = create_model("DGCNN", k=8, emb_dims=32, knn_select="two_level").train()
+    dgcnn = create_model("DGCNN", k=40, emb_dims=32).train()  # k > 32: kernel 5's shape
     dgcnn(x[:, :256]).sum().backward()
     ops.gather_rows(x, torch.zeros((2, 5), dtype=torch.int32))
     ops.gather_rows_flat(x[0], torch.zeros(5, dtype=torch.int64))
     for name in ("PointNeXt", "PointNet++MSG"):
-        new = create_model(name, ball_select="two_level").train()
+        new = create_model(name).train()
         new(x, generator=torch.Generator().manual_seed(0)).sum().backward()
-    ops.ball_query(pts[:, :8], pts, 0.2, 8, select="two_level")
+    ops.ball_query(pts[:, :8], pts, 0.2, 48)  # K > 32: kernel 6's shape
     assert _kernels.LAUNCHES == before
     ops.edge_reduce(x[..., :4], torch.zeros((2, 6, 3), dtype=torch.int32), True)
     assert _kernels.LAUNCHES == before
@@ -87,9 +91,11 @@ def test_other_devices_are_refused():
     pts = torch.empty((1, 64, 3), device="meta")
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.farthest_point_sampling(pts, 8)
-    for select in ("flat", "two_level"):
+    for K in (8, 48):  # the flat and the two-level kernel's shapes
         with pytest.raises(ValueError, match="cpu.*cuda"):
-            ops.ball_query(pts[:, :8], pts, 0.2, 8, select=select)
+            ops.ball_query(pts[:, :8], pts, 0.2, K)
+    with pytest.raises(ValueError, match="cpu.*cuda"):
+        ops.knn_indices(pts, 40)
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.three_nn(pts, pts[:, :8])
     with pytest.raises(ValueError, match="cpu.*cuda"):
@@ -100,6 +106,56 @@ def test_other_devices_are_refused():
         ops.gather_rows_flat(pts[0], torch.zeros(4, dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="cpu.*cuda"):
         ops.edge_reduce(pts, torch.zeros((1, 4, 2), dtype=torch.int32, device="meta"), True)
+
+
+KERNEL_CHOICES = {"select", "ball_select", "knn_select"}
+
+
+def _public_callables():
+    """(qualified name, callable) of every public function and class that
+    a module of `pointseg_torch` defines."""
+    for path in sorted((REPO / "pointseg_torch").rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        if any(p.startswith("_") for p in parts) or parts[-1] == "__main__":
+            continue
+        module = importlib.import_module(".".join(parts))
+        for name, obj in vars(module).items():
+            if (not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
+                    and getattr(obj, "__module__", None) == module.__name__):
+                yield f"{module.__name__}.{name}", obj
+
+
+def test_no_public_function_or_class_takes_a_kernel_choice():
+    """The ball query and kNN pick their CUDA kernel from the call's shape
+    (`ops/ballquery.py`, `ops/knn.py`); no caller passes a choice down."""
+    seen = 0
+    for name, obj in _public_callables():
+        targets = [obj.__init__] if inspect.isclass(obj) else [obj]
+        if inspect.isclass(obj):
+            targets += [f for f in vars(obj).values() if inspect.isfunction(f)]
+        for fn in targets:
+            try:
+                params = set(inspect.signature(fn).parameters)
+            except (TypeError, ValueError):  # a builtin slot without a signature
+                continue
+            seen += 1
+            assert not params & KERNEL_CHOICES, (name, fn.__name__, params & KERNEL_CHOICES)
+    assert seen > 300  # every subpackage was reached
+
+
+def test_only_the_ops_layer_reaches_the_two_level_route():
+    """The private route that forces kernels 5 and 6 (`"two_level"`,
+    `_select`, `_knn`, `_ball_query_cuda`, `_knn_cuda`) and the `_2l`
+    operators are named only inside `pointseg_torch/ops/`."""
+    banned = re.compile(r"two_level|\b_select\(|\b_knn\(|_ball_query_cuda|_knn_cuda|"
+                        r"pointseg_torch\.(knn|ball_query)_2l")
+    for path in sorted((REPO / "pointseg_torch").rglob("*.py")):
+        if path.parent.name == "ops":
+            continue
+        code = "\n".join(line.split("#")[0] for line in path.read_text().splitlines())
+        assert not banned.search(code), (path, banned.search(code).group(0))
 
 
 def test_wrapper_checks_refuse_cpu_and_wrong_tensors():
