@@ -93,9 +93,17 @@ counts its own).
      last level's 16 points under balls of 32): each ball query one
      launch, equal to the plain version with the repeat fill up to
      float64-verified ties, the slots of a ball past its level's points
-     slot 0 as non-members; each gather one launch, rows bit-equal to
-     `torch.gather`'s and the feature gradient within 1e-5 of its largest
-     from a float64 `torch.gather` gradient.
+     slot 0 as non-members; at the 4 set abstractions' shapes each
+     gather one launch, rows bit-equal to `torch.gather`'s and the
+     feature gradient within 1e-5 of its largest from a float64
+     `torch.gather` gradient; at the 15 InvResMLPs' shapes `edge_reduce`
+     with a per-centre offset through its public wrapper, ties forced,
+     against `edge_reduce_plain` with the offset: max and min bit-equal,
+     tie counts exact, the sums and the table's and the offset's
+     gradients within 1e-5 of their largest, both kernels timed against
+     the plain forward and backward beside a bytes bound that counts the
+     offset's (B, M, C) read, as a row of their own (a training step's
+     15 forward and 15 backward launches).
    - the flat row gather (the device store's sampler) bit-equal to
      `index_select` for rows of 1, 16 and 36 bytes (uint8, int32 x 4,
      float32 x 9) and an odd width (float32 x 35), at 8 x 4096 rows and
@@ -134,14 +142,16 @@ counts its own).
    and edge_reduce (4 + 4 per step), and no gather_rows; `train PointNeXt`
    must launch fps 4, ball_query 9 and three_nn 4 times per forward pass
    and `train PointNet++MSG` 4, 8 and 4 times, and neither a two-level
-   kernel. Three steps of PointNeXt-L give its step time and peak memory.
+   kernel; edge_reduce once a forward and once a backward for each
+   InvResMLP block whose grouped layer reduces through it
+   (`reducing_blocks` of the trained model; none in MSG). Three steps of PointNeXt-L give its step time and peak memory.
    The train steps replay a CUDA graph after their state's first two
    (eager, then captured), so every count a step here is over the steps
    that launched from Python (`train/state.py::STEP_GRAPHS`,
    `launched_steps`). One PointNeXt-XL train step at B 32 x 4,096, the
    captured one, the counters set to 0 just before it, must launch fps
-   4, ball_query 19, three_nn 4 and gather_rows 27 times and nothing
-   else; three replayed ones give its step time and peak memory, and
+   4, ball_query 19, three_nn 4, gather_rows 12 and edge_reduce 15 + 15
+   times and nothing else; three replayed ones give its step time and peak memory, and
    three more replayed steps against three eager steps of a copy of the
    state must be counted as replays, with the first loss bit-equal and
    the others within 1e-5. For each model the steady-state step time
@@ -223,8 +233,11 @@ counts its own).
    `torch.gather`'s; `train --bf16` one epoch through the CLI for
    PointNet++, DeepGraphCnn, PointNeXt and PointNet (the sidecar says
    bf16, parameters float32, the launches equal the float32 epoch's of
-   phase 4, one batch's loss from the trained weights within 2e-2 of
-   the float32 loss of the same weights and batch); `evaluate` of the bf16
+   phase 4 but that each InvResMLP block that reduces through
+   edge_reduce in float32 launches, in bf16, one gather a forward in
+   place of its edge_reduce forward and backward, counted exactly; one
+   batch's loss from the trained weights within 2e-2 of the float32 loss
+   of the same weights and batch); `evaluate` of the bf16
    PointNet++ checkpoint with no flag (bf16 from its sidecar) on the
    phase 6 blocks and whole rooms, both streams; `benchmark --bf16` for
    every registry model in both modes; bf16 eval logits of PointNet++,
@@ -316,6 +329,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import gc
 import glob
 import io
@@ -1362,28 +1376,35 @@ def edge_reduce_kernels(device, record: Record) -> None:
 # clouds of 4096, 1024, 256, 64 and 16 points: per stage s, its set
 # abstraction (level s's centroids in level s - 1 at radius r_s) and its
 # InvResMLPs (level s around its own points at 2 r_s; 3, 6, 3, 3 of them),
-# each a ball of 32 and one `gather_rows_with_coords` of rows of the
-# stage's width. (centroid level, cloud level, radius, row width, calls a
-# forward); the last one's balls are wider than their 16-point level.
+# each a ball of 32 over rows of the stage's width: one
+# `gather_rows_with_coords` for a set abstraction, one `edge_reduce` with an
+# offset for an InvResMLP. (centroid level, cloud level,
+# radius, row width, calls a forward); the last one's balls are wider than
+# their 16-point level.
 XL_GROUPINGS = [(1, 0, 0.1, 128, 1), (1, 1, 0.2, 128, 3), (2, 1, 0.2, 256, 1),
                 (2, 2, 0.4, 256, 6), (3, 2, 0.4, 512, 1), (3, 3, 0.8, 512, 3),
                 (4, 3, 0.8, 1024, 1), (4, 4, 1.6, 1024, 3)]
 XL_K = 32
-# a PointNeXt-XL forward's launches (its backward launches none of the
-# port's kernels: the gathers' gradient is the library's scatter-add)
-XL_LAUNCHES = {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 27}
+# a PointNeXt-XL train step's launches: the forward's, and the InvResMLPs'
+# 15 edge_reduce backward launches (the SA gathers' gradient is the
+# library's scatter-add)
+XL_LAUNCHES = {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 12, "edge_reduce": 30}
 
 
-def pointnext_xl_groupings(device) -> None:
-    """PointNeXt-XL's 19 ball queries and grouped-row gathers at B 32 x
-    4,096, on the clouds FPS makes from a block cloud: each ball query
-    (public `ops.ball_query`, repeat filler, one flat launch) against the
-    plain version with the repeat fill, picks equal up to float64-verified
-    ties, and slots 16..31 of the last level's K > N balls slot 0 as
-    non-members; each gather (one launch) bit-equal to two
-    `torch.gather` calls, and its feature gradient within 1e-5 of the
-    largest of a float64 `torch.gather` gradient (the scatter-add's order
-    differs). Kernel and plain times, each and summed over a forward."""
+def pointnext_xl_groupings(device) -> dict:
+    """PointNeXt-XL's 19 ball queries at B 32 x 4,096, on the clouds FPS
+    makes from a block cloud, and what each grouping does with its ball:
+    each ball query (public `ops.ball_query`, repeat filler, one flat
+    launch) against the plain version with the repeat fill, picks equal
+    up to float64-verified ties, and slots 16..31 of the last level's
+    K > N balls slot 0 as non-members. A set abstraction's gather (one
+    launch) bit-equal to two `torch.gather` calls, and its feature
+    gradient within 1e-5 of the largest of a float64 `torch.gather`
+    gradient (the scatter-add's order differs); an InvResMLP's
+    `edge_reduce` with an offset by `offset_edge_reduce`. Kernel and
+    plain times, each and summed over a forward. Returns the `Record`
+    row of `edge_reduce` with an offset: its 15 forward and 15 backward
+    launches of a training step."""
     from pointseg_torch.ops import _kernels
     from pointseg_torch.ops.ballquery import ball_query, ball_query_plain
     from pointseg_torch.ops.fps import farthest_point_sampling
@@ -1414,7 +1435,8 @@ def pointnext_xl_groupings(device) -> None:
     levels = [torch.from_numpy(block_cloud(rng, B, 4096)).to(device)]
     for n in (1024, 256, 64, 16):
         levels.append(gather_rows(levels[-1], farthest_point_sampling(levels[-1], n)).contiguous())
-    sums = [0.0, 0.0, 0.0, 0.0]  # ball query kernel, plain; gather kernel, library
+    sums = [0.0, 0.0, 0.0, 0.0]  # ball query kernel, plain; the SAs' gathers, library
+    reduced = Record()  # its edge_reduce row: the InvResMLPs' pair with an offset
     for c, p, r, h, calls in XL_GROUPINGS:
         cents, pts = levels[c], levels[p]
         C, N = cents.shape[1], pts.shape[1]
@@ -1430,6 +1452,14 @@ def pointnext_xl_groupings(device) -> None:
                                  f"must repeat slot 0, as non-members")
         bq_ms, bq_plain_ms = timed_pair(lambda: ball_query(cents, pts, r, XL_K),
                                         lambda: plain_balls(cents, pts, r), 10)
+        sums[0] += calls * bq_ms
+        sums[1] += calls * bq_plain_ms
+        print(f"{what} x{calls} a forward: ball query {bq_ms:.4f} ms (plain {bq_plain_ms:.4f}), "
+              f"tie flips {flips}, max |err| {err:.3g}, in-ball share "
+              f"{float(in_ball.float().mean()):.3f}", flush=True)
+        if c == p:  # an InvResMLP: its level around its own points, reduced with an offset
+            offset_edge_reduce(device, rng, idx, N, h, what, reduced, calls)
+            continue
 
         feats = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(device)
         feats.requires_grad_(True)
@@ -1449,14 +1479,115 @@ def pointnext_xl_groupings(device) -> None:
         del gf, gc, grad, table
         g_ms, lib_ms = timed_pair(lambda: gather_rows_with_coords(feats.detach(), pts, idx),
                                   lambda: (rows(feats.detach(), idx), rows(pts, idx)), 10)
-        for i, ms in enumerate((bq_ms, bq_plain_ms, g_ms, lib_ms)):
-            sums[i] += calls * ms
-        print(f"{what} x{calls} a forward: ball query {bq_ms:.4f} ms (plain {bq_plain_ms:.4f}), "
-              f"tie flips {flips}, max |err| {err:.3g}, in-ball share "
-              f"{float(in_ball.float().mean()):.3f}; gather {g_ms:.4f} ms (two torch.gather "
+        sums[2] += calls * g_ms
+        sums[3] += calls * lib_ms
+        print(f"{what} x{calls} a forward: gather {g_ms:.4f} ms (two torch.gather "
               f"{lib_ms:.4f}), rows bit-equal, gradient {g_err:.3g} of its largest", flush=True)
+    row = reduced.rows["edge_reduce"]
     print(f"PointNeXt-XL's 19 groupings a forward at B {B}: ball queries {sums[0]:.4f} ms "
-          f"(plain {sums[1]:.4f}), gathers {sums[2]:.4f} ms (two torch.gather {sums[3]:.4f})")
+          f"(plain {sums[1]:.4f}); the 4 set abstractions' gathers {sums[2]:.4f} ms (two "
+          f"torch.gather {sums[3]:.4f}); the 15 InvResMLPs' edge_reduce with an offset, "
+          f"forward and backward kernel, {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f})")
+    return row
+
+
+def offset_edge_reduce(device, rng, idx, N: int, h: int, what: str, record: Record,
+                       calls: int) -> None:
+    """`ops.edge_reduce` with a per-centre offset at one InvResMLP grouping
+    of PointNeXt-XL (its ball `idx` over N points, rows h wide), ties
+    forced: rows of small integers with the second half of the table a
+    copy of the first, an integer offset and a repeated index in every
+    list, so every row x = p[idx] + d is exact. Through the public
+    wrapper, against `edge_reduce_plain` with the offset: max and min
+    bit-equal, the tie counts of the counting launch exact, the sums
+    within 1e-5 of their largest; the table's and the offset's gradients
+    (one backward launch and `offset_grad`) within 1e-5 of the largest of
+    autograd of the plain composition. Both kernels timed against the
+    plain forward and backward and noted in `record` `calls` times, their
+    bytes the benchmark's count (`portbench/opwork/edge_reduce.py`) plus
+    the offset's (B, M, C) read by each, their operations one add a row
+    element more; with device us a launch (profiler)."""
+    from pointseg_torch.ops import _kernels
+    from pointseg_torch.ops.edgereduce import (
+        _edge_reduce_backward_cuda,
+        _edge_reduce_cuda,
+        edge_reduce,
+        edge_reduce_plain,
+    )
+    from pointseg_torch.ops.gather import gather_rows_plain
+
+    B, M, k = idx.shape
+    table_np = rng.integers(-3, 4, size=(B, N, h)).astype(np.float32)
+    table_np[:, N // 2:] = table_np[:, :N - N // 2]
+    table = torch.from_numpy(table_np).to(device)
+    offset = torch.from_numpy(rng.integers(-2, 3, size=(B, M, h)).astype(np.float32)).to(device)
+    idx = idx.to(torch.int32).clone()
+    idx[..., 1] = idx[..., 0]
+    gen = torch.Generator(device).manual_seed(6)
+    grads = [torch.randn((B, M, h), device=device, generator=gen) for _ in range(4)]
+    before = _kernels.LAUNCHES["edge_reduce"]
+    got = edge_reduce(table, idx, True, offset)
+    torch.cuda.synchronize()
+    if _kernels.LAUNCHES["edge_reduce"] != before + 1:
+        raise AssertionError(f"{what}: edge_reduce with an offset must launch its kernel once")
+    want = edge_reduce_plain(table, idx, True, offset)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{what}: edge_reduce with an offset, max or min differ from the "
+                             f"plain composition")
+    err = 0.0
+    for label, g, w in (("s", got[2], want[2]), ("q", got[3], want[3])):
+        rel = float((g - w).abs().max()) / float(w.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"{what}: edge_reduce with an offset, {label} off by "
+                                 f"{rel:.3g} of its largest")
+        err = max(err, rel)
+    vmax, vmin, _, _, cmax, cmin = _edge_reduce_cuda(table, idx, True, True, offset)
+    gp = gather_rows_plain(table, idx) + offset[:, :, None]
+    n_max, n_min = (gp == want[0][:, :, None]).sum(2), (gp == want[1][:, :, None]).sum(2)
+    del gp, got
+    if not (torch.equal(cmax.long(), n_max) and torch.equal(cmin.long(), n_min)):
+        raise AssertionError(f"{what}: edge_reduce with an offset, tie counts differ")
+    if int(n_max.max()) < 2 or int(n_min.max()) < 2:
+        raise AssertionError(f"{what}: the inputs forced no tie")
+
+    t1, d1 = table.clone().requires_grad_(True), offset.clone().requires_grad_(True)
+    torch.autograd.backward(edge_reduce(t1, idx, True, d1), grads)
+    t2, d2 = table.clone().requires_grad_(True), offset.clone().requires_grad_(True)
+    plain_out = edge_reduce_plain(t2, idx, True, d2)
+    torch.autograd.backward(plain_out, grads, retain_graph=True)
+    grad_rel = max(float((a.grad - b.grad).abs().max()) / float(b.grad.abs().max())
+                   for a, b in ((t1, t2), (d1, d2)))
+    if not grad_rel <= 1e-5:
+        raise AssertionError(f"{what}: edge_reduce with an offset, gradient off by "
+                             f"{grad_rel:.3g} of its largest")
+    del t1, d1
+
+    shapes = [(tuple(table.shape), 4), (tuple(idx.shape), 4), True]
+    read, adds = offset.numel() * 4, float(offset.numel() * k)
+    fwd_ops, fwd_bytes = harness.op_module("edge_reduce").work(shapes)
+    bwd_ops, bwd_bytes = harness.op_module("edge_reduce").backward_work(shapes)
+    fwd_work, bwd_work = (fwd_ops + adds, fwd_bytes + read), (bwd_ops + adds, bwd_bytes + read)
+    fwd = lambda: _edge_reduce_cuda(table, idx, True, True, offset)  # noqa: E731
+    bwd = lambda: _edge_reduce_backward_cuda(  # noqa: E731
+        table, idx, vmax, vmin, cmax, cmin, *grads, offset)
+    ms, plain_ms = timed_pair(fwd, lambda: edge_reduce_plain(table, idx, True, offset), 20, 5)
+    record.note("edge_reduce", (B, N, k, h, "offset forward"), ms, plain_ms, None, fwd_work,
+                0, err, calls)
+    ms, plain_ms = timed_pair(bwd, lambda: torch.autograd.grad(plain_out, (t2, d2), grads,
+                                                               retain_graph=True), 20, 5)
+    record.note("edge_reduce", (B, N, k, h, "offset backward"), ms, plain_ms, None, bwd_work,
+                0, grad_rel, calls)
+    fwd_us = kernel_device_us(fwd, "edge_reduce_kernel")
+    bwd_us = kernel_device_us(bwd, "edge_reduce_backward_kernel")
+    print(f"{'':11s} device time a launch (profiler): edge_reduce_kernel {fwd_us:.1f} us "
+          f"({100 * fwd_work[1] / PEAK_BYTES_PER_S / (fwd_us * 1e-6):.0f}% of its bytes "
+          f"bound), edge_reduce_backward_kernel {bwd_us:.1f} us "
+          f"({100 * bwd_work[1] / PEAK_BYTES_PER_S / (bwd_us * 1e-6):.0f}%); max tie count "
+          f"{int(n_max.max())}; sums off by {err:.3g}, gradients by {grad_rel:.3g} of their "
+          f"largest", flush=True)
+    del table, offset, idx, grads, vmax, vmin, cmax, cmin, want, t2, d2, plain_out
+    torch.cuda.empty_cache()
 
 
 def pointnext_xl_step(device) -> None:
@@ -1894,17 +2025,20 @@ def trainer_phase(device, workdir: str):
 
     # per forward pass (a train step or an eval batch): fps, ball_query, three_nn
     for name, per_forward in (("PointNeXt", (4, 9, 4)), ("PointNet++MSG", (4, 8, 4))):
-        state, got, rec = train_through_cli(name, workdir,
-                                            ("fps", "ball_query", "three_nn", "gather_rows"))
-        forwards = got["fps"] // per_forward[0]
+        state, got, rec = train_through_cli(name, workdir, path_kernels(name))
+        forwards, steps = got["fps"] // per_forward[0], rec["launched_steps"]
         want = {"fps": per_forward[0] * forwards, "ball_query": per_forward[1] * forwards,
-                "three_nn": per_forward[2] * forwards, "ball_query_2l": 0, "knn": 0, "knn_2l": 0}
-        if forwards <= rec["launched_steps"] or any(got[k] != v for k, v in want.items()):
-            raise AssertionError(f"{name}: {rec['launched_steps']} steps launched from Python "
+                "three_nn": per_forward[2] * forwards, "ball_query_2l": 0, "knn": 0, "knn_2l": 0,
+                "edge_reduce": reducing_blocks(state.model) * (forwards + steps)}
+        if forwards <= steps or any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: {steps} steps launched from Python "
                                  f"and their evaluation must launch "
-                                 f"{per_forward} (fps, ball_query, three_nn) per forward pass "
-                                 f"and no other selection kernel, got {got}")
-        states[name] = (state, {**steady_state(state, batch, name), "cli_launches": got})
+                                 f"{per_forward} (fps, ball_query, three_nn) per forward pass, "
+                                 f"edge_reduce once a forward and once a backward for each "
+                                 f"InvResMLP that reduces, and no other selection kernel: want "
+                                 f"{want}, got {got}")
+        states[name] = (state, {**steady_state(state, batch, name), "cli_launches": got,
+                                "cli_forwards": forwards, "cli_steps": steps})
     few_steps("PointNeXt-L", batch, device)
     pointnext_xl_step(device)
     flat_launches = device_store_phase(device, workdir, pp_state)
@@ -2521,16 +2655,32 @@ BENCH_KEYS = ["model", "mode", "B", "N", "mean_s", "std_s", "min_s", "max_s", "f
               "num_runs", "points_per_sec"]
 
 
-def path_kernels(model_name: str) -> tuple[str, ...]:
+def reducing_blocks(model) -> int:
+    """How many InvResMLP blocks of `model` pool their grouped layer
+    through `edge_reduce` on the card (`GroupedFirstLayer.reduces` for
+    card features of the layer's compute dtype): one launch each a
+    forward and one each a backward, where the others gather their rows."""
+    from pointseg_torch.nn import InvResMLP
+
+    return sum(m.pooling == "max" and m.neighbour_features_mlp.reduces(
+        torch.empty(0, device="cuda", dtype=m.neighbour_features_mlp.dtype))
+        for m in model.modules() if isinstance(m, InvResMLP))
+
+
+@functools.lru_cache(maxsize=None)
+def path_kernels(model_name: str, bf16: bool = False) -> tuple[str, ...]:
     """The port's kernels a forward pass of `model_name` launches on the
-    flat kernels (the default)."""
+    flat kernels (the default), in float32 or with `bf16`."""
     from pointseg_torch import cli
+    from pointseg_torch.models import create_model
 
     if model_name == "PointNet":
         return ()
     if model_name in cli.DGCNN_NAMES:
         return ("knn", "edge_reduce")
-    return ("fps", "ball_query", "three_nn", "gather_rows")
+    grouped = ("fps", "ball_query", "three_nn", "gather_rows")
+    model = create_model(model_name, dtype=torch.bfloat16 if bf16 else torch.float32)
+    return grouped + ("edge_reduce",) if reducing_blocks(model) else grouped
 
 
 def export_kernels(model_name: str) -> tuple[str, ...]:
@@ -2556,7 +2706,7 @@ def benchmark_in_process(model_name: str, mode: str, smi: str, flags: tuple = ()
     (line,) = out.getvalue().strip().splitlines()
     print(line)
     result = json.loads(line)
-    needed = path_kernels(model_name)
+    needed = path_kernels(model_name, "--bf16" in flags)
     calls = launched_steps(before) if mode == "train" else BENCH_RUNS + BENCH_WARMUP
     per_call = {k: v / calls for k, v in launches.items() if v}
     print(f"benchmark {model_name} {mode} {' '.join(flags)} ({smi}): "
@@ -2761,10 +2911,15 @@ def bf16_gathers(device) -> dict:
     return sums
 
 
-def bf16_train_through_cli(device, workdir: str, f32_launches: dict, batch) -> dict:
+def bf16_train_through_cli(device, workdir: str, f32_runs: dict, batch) -> dict:
     """`train <model> --bf16` one epoch through the CLI for the four
     models: the sidecar says bf16, the parameters stay float32, the
-    launches equal the float32 epoch's of phase 4, and the loss of one
+    launches equal the float32 epoch's of phase 4 (`f32_runs`: each
+    model's float32 model and phase 4 readings), but where InvResMLP
+    blocks reduce through edge_reduce in float32 and not in bf16
+    (`reducing_blocks` of either model): each such block's forward
+    launches one gather in place of an edge_reduce, and its backward no
+    edge_reduce, exactly. The loss of one
     batch from the trained weights in bf16 lies within BF16_LOSS_REL of
     the float32 loss of the same weights, batch and dropout masks.
     Returns each run's checkpoint directory."""
@@ -2775,14 +2930,23 @@ def bf16_train_through_cli(device, workdir: str, f32_launches: dict, batch) -> d
     for name in BF16_MODELS:
         model_dir = f"{workdir}/models_bf16"
         state, launches, records = train_through_cli(
-            name, workdir, path_kernels(name), flags=("--bf16", "--model-dir", model_dir))
+            name, workdir, path_kernels(name, True), flags=("--bf16", "--model-dir", model_dir))
         if records["config"].get("bf16") is not True:
             raise AssertionError(f"train {name} --bf16: config {records['config']}")
         if {p.dtype for p in state.model.parameters()} != {torch.float32}:
             raise AssertionError(f"train {name} --bf16: parameters not float32")
-        if launches != f32_launches[name]:
-            raise AssertionError(f"train {name} --bf16 launched {launches}, the float32 epoch "
-                                 f"{f32_launches[name]}")
+        f32_model, f32_perf = f32_runs[name]
+        want = dict(f32_perf["cli_launches"])
+        moved = reducing_blocks(f32_model) - reducing_blocks(state.model)
+        if moved:  # their forwards gather rows, and no edge_reduce runs either way
+            forwards, steps = f32_perf["cli_forwards"], f32_perf["cli_steps"]
+            want["edge_reduce"] -= moved * (forwards + steps)
+            want["gather_rows"] += moved * forwards
+        if launches != want:
+            raise AssertionError(f"train {name} --bf16 launched {launches}, want {want} (the "
+                                 f"float32 epoch's {f32_perf['cli_launches']}, {moved} InvResMLP "
+                                 f"blocks a forward gathering their rows in place of "
+                                 f"edge_reduce)")
         losses = {}
         for dtype in (torch.float32, torch.bfloat16):
             model = create_model(name, dtype=dtype).to(device)
@@ -2792,7 +2956,7 @@ def bf16_train_through_cli(device, workdir: str, f32_launches: dict, batch) -> d
                 logits = model.train()(batch[0])
             losses[dtype] = float(masked_onehot_cross_entropy(logits, batch[1], batch[2]))
         rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(losses[torch.float32])
-        print(f"train {name} --bf16: launches equal the float32 epoch's; loss of one batch "
+        print(f"train {name} --bf16: launches as the float32 epoch's; loss of one batch "
               f"from its weights, bf16 {losses[torch.bfloat16]:.6f} against float32 "
               f"{losses[torch.float32]:.6f} (relative {rel:.3g}, bound {BF16_LOSS_REL})")
         if not all(math.isfinite(v) for v in losses.values()) or rel > BF16_LOSS_REL:
@@ -2891,8 +3055,8 @@ def bf16_phase(device, workdir: str, smi: str, states: dict, batch) -> dict:
     """Phase 8; returns the bf16 readings for the summary."""
     t0 = time.time()
     gathers = bf16_gathers(device)
-    f32_launches = {name: states[name][1]["cli_launches"] for name in BF16_MODELS}
-    dirs = bf16_train_through_cli(device, workdir, f32_launches, batch)
+    f32_runs = {name: (states[name][0].model, states[name][1]) for name in BF16_MODELS}
+    dirs = bf16_train_through_cli(device, workdir, f32_runs, batch)
     bf16_evaluate(device, workdir, smi, dirs["PointNet++"])
     readings = {}
     from pointseg_torch import cli
@@ -3815,7 +3979,7 @@ def main() -> int:
     edge_reduce_kernels(device, record)
     gather_flat_kernels(device, record, seed=7)
     torch.cuda.empty_cache()
-    pointnext_xl_groupings(device)
+    xl_reduce = pointnext_xl_groupings(device)
     streams_and_graphs(device)
 
     phase("4. trainers")
@@ -3864,6 +4028,11 @@ def main() -> int:
           f"launches a step, its ms the 36-byte and the 1-byte gather of a batch from "
           f"{SYNTHETIC_ROWS} rows); tie flips "
           f"{({k: r['flips'] for k, r in record.rows.items()})}")
+    print(f"summary: {smi}; edge_reduce with an offset, PointNeXt-XL's 15 InvResMLPs at B 32 "
+          f"(not in the kernel record: a training step's 15 forward and 15 backward launches "
+          f"at their four shapes): kernel {xl_reduce['ms']:.4f} ms, plain "
+          f"{xl_reduce['plain_ms']:.4f} ms, bound {xl_reduce['bound_ms']:.4f} ms (bytes, the "
+          f"offset's read counted), max |err| {xl_reduce['max_abs_err']:.3g}")
     print(f"summary: {smi}; phase 6 launches a block batch (2 blocks, buckets 16384 and 65536) "
           f"and a whole-room window group (8 windows of 4096 points): {eval_launches}")
     for (model_name, mode), r in readings.items():

@@ -1,5 +1,6 @@
 // EdgeConv's gather-reduce, forward and backward, with the gathered
-// (B, M, k, C) neighbour rows never formed.
+// (B, M, k, C) neighbour rows never formed; also the grouped layer of
+// PointNeXt's InvResMLP blocks, through a per-centre offset.
 //
 // Replaces no TPU kernel. The JAX package's fused EdgeConv
 // (pointseg/nn/blocks.py, `EdgeConv` with fused=True) gathers the
@@ -8,17 +9,30 @@
 // the same composition wrote the rows, read them four times and, in the
 // backward, built four (B, M, k, C) gradients, int64 tie counts and a
 // scatter over them. The function is the composition's
-// (`ops/edgereduce.py::edge_reduce_plain`):
+// (`ops/edgereduce.py::edge_reduce_plain`), over the rows
+// x[b, i, j, c] = p[b, idx[b, i, j], c] (+ d[b, i, c] with an offset d,
+// the sum rounded to the table's dtype, as the composition's add is):
 //
-//   forward, for every (b, i, c), over the k rows p[b, idx[b, i, j], c]:
-//     max, min, their tie counts, and (training) s = sum p, q = sum p^2
+//   forward, for every (b, i, c), over the k rows x[b, i, j, c]:
+//     max, min, their tie counts, and (training) s = sum x, q = sum x^2
 //     in float32;
 //   backward, for every edge (b, i, j) and channel c, into
 //   grad[b, idx[b, i, j], c]:
-//     g_max [p == max] / count_max + g_min [p == min] / count_min
-//     + g_s + 2 p g_q,
+//     g_max [x == max] / count_max + g_min [x == min] / count_min
+//     + g_s + 2 x g_q,
 //   which is autograd's derivative of amax / amin (ties share the
-//   gradient evenly), of sum and of the square, term for term.
+//   gradient evenly), of sum and of the square, term for term. The
+//   offset's own gradient, g_max + g_min + k g_s + 2 g_q s, is (B, M, C)
+//   and needs no kernel (`ops/edgereduce.py`).
+//
+// The offset is what lets PointNeXt's InvResMLP grouped layer use the
+// pair: its rows are W_f f_j + W_r (p_j - c_i) / r, a per-point table
+// t_j = W_f f_j + W_r (p_j - a) / r plus a per-centre offset
+// d_i = W_r (a - c_i) / r, for an anchor point a of the cloud
+// (`nn/blocks.py::GroupedFirstLayer`). The sums are taken over x itself,
+// not corrected from sums of p afterwards, a form that cancels. The
+// offset is a template parameter: without one (EdgeConv) the kernels
+// are the code they were before it.
 //
 // What bounds it on the H100: bytes, and the L2 cache's rate. From device
 // memory the forward needs the (B, N, C) table, the indices and the
@@ -38,9 +52,11 @@
 // sums in registers. Points are numbered in batch order, so the blocks
 // that run together read one or two clouds' rows. The counts are kept
 // online (a new extreme resets its count to 1, an equal value adds 1) and
-// stored in 1 byte where k <= 255, 4 above. The backward recomputes each
-// edge's term from the table row, the point's max, min and counts and
-// its four gradients, and adds it with one vector atomic per 16 bytes
+// stored in 1 byte where k <= 255, 4 above. An offset is read once a
+// point, the thread's V channels kept in registers while it walks the
+// neighbours: one more (B, M, C) read. The backward recomputes each
+// edge's term from the table row (plus the offset), the point's max, min
+// and counts and its four gradients, and adds it with one vector atomic per 16 bytes
 // (sm_90's float2 / float4 atomicAdd): the order of the adds changes from
 // run to run, so the gradient is not bit-reproducible, as kernel 7's
 // scatter-add (`index_add_`) is not.
@@ -103,6 +119,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);  // exact for a max or min of bfloat16 rows
 }
 
+// x = p + d, rounded to T as PyTorch's add of two T tensors rounds it
+// (float32: the add itself).
+template <typename T, int V>
+__device__ __forceinline__ void add_offset(float (&p)[V], const float (&d)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) p[e] = to_float(from_float<T>(p[e] + d[e]));
+}
+
 // V elements of T at p, as float; a null p reads as zeros.
 template <typename T, int V>
 __device__ __forceinline__ void load_float(const T* __restrict__ p, float (&out)[V]) {
@@ -153,12 +177,14 @@ __device__ __forceinline__ int neighbour(const int* __restrict__ nbr, int j, int
   return src;
 }
 
-// table (B, N, C) of T; idx (B, M, K) int32; out_max, out_min (B, M, C) of
-// T; out_sum, out_sq (B, M, C) float32 or null (not computed); count_max,
-// count_min (B, M, C) of Count or null (not stored). C = units * V.
-template <typename T, int V, typename Count>
+// table (B, N, C) of T; idx (B, M, K) int32; offset (B, M, C) of T, read
+// where Offset; out_max, out_min (B, M, C) of T; out_sum, out_sq (B, M, C)
+// float32 or null (not computed); count_max, count_min (B, M, C) of Count
+// or null (not stored). C = units * V.
+template <typename T, int V, typename Count, bool Offset>
 __global__ void edge_reduce_kernel(
-    const T* __restrict__ table, const int* __restrict__ idx, T* __restrict__ out_max,
+    const T* __restrict__ table, const int* __restrict__ idx, const T* __restrict__ offset,
+    T* __restrict__ out_max,
     T* __restrict__ out_min, float* __restrict__ out_sum, float* __restrict__ out_sq,
     Count* __restrict__ count_max, Count* __restrict__ count_min, long long points, int M,
     int N, int K, int units, int group_log2) {
@@ -170,11 +196,13 @@ __global__ void edge_reduce_kernel(
   const size_t out = static_cast<size_t>(s.point) * C;
   for (int w = s.lane; w < units; w += s.group) {
     const size_t col = static_cast<size_t>(w) * V;
-    float mx[V], mn[V], sum[V], sq[V];
+    float mx[V], mn[V], sum[V], sq[V], d[V];
     int cmx[V], cmn[V];
+    if constexpr (Offset) load_float<T, V>(offset + out + col, d);
     {
       float p[V];
       load_float<T, V>(rows + neighbour(nbr, 0, N) * C + col, p);
+      if constexpr (Offset) add_offset<T, V>(p, d);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         mx[e] = mn[e] = sum[e] = p[e];
@@ -186,6 +214,7 @@ __global__ void edge_reduce_kernel(
     for (int j = 1; j < K; ++j) {
       float p[V];
       load_float<T, V>(rows + neighbour(nbr, j, N) * C + col, p);
+      if constexpr (Offset) add_offset<T, V>(p, d);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         const float v = p[e];
@@ -232,10 +261,12 @@ __global__ void edge_reduce_kernel(
 
 // grad (B, N, C) float32, zeroed by the caller, += each edge's term.
 // g_max, g_min (B, M, C) of T; g_sum, g_sq (B, M, C) float32 or null (no
-// sums); the rest as the forward wrote them.
-template <typename T, int V, typename Count>
+// sums); the rest as the forward had them (each edge's x recomputed as
+// the forward computed it).
+template <typename T, int V, typename Count, bool Offset>
 __global__ void edge_reduce_backward_kernel(
-    const T* __restrict__ table, const int* __restrict__ idx, const T* __restrict__ vmax,
+    const T* __restrict__ table, const int* __restrict__ idx, const T* __restrict__ offset,
+    const T* __restrict__ vmax,
     const T* __restrict__ vmin, const Count* __restrict__ count_max,
     const Count* __restrict__ count_min, const T* __restrict__ g_max,
     const T* __restrict__ g_min, const float* __restrict__ g_sum,
@@ -251,8 +282,9 @@ __global__ void edge_reduce_backward_kernel(
   const size_t at = static_cast<size_t>(s.point) * C;
   for (int w = s.lane; w < units; w += s.group) {
     const size_t col = static_cast<size_t>(w) * V;
-    float mx[V], mn[V], a[V], b[V], gs[V], gq2[V];
+    float mx[V], mn[V], a[V], b[V], gs[V], gq2[V], d[V];
     Count c0[V], c1[V];
+    if constexpr (Offset) load_float<T, V>(offset + at + col, d);
     load_float<T, V>(vmax + at + col, mx);
     load_float<T, V>(vmin + at + col, mn);
     load_float<T, V>(g_max + at + col, a);
@@ -272,6 +304,7 @@ __global__ void edge_reduce_backward_kernel(
       const size_t row = static_cast<size_t>(neighbour(nbr, j, N)) * C + col;
       float p[V], add[V];
       load_float<T, V>(rows + row, p);
+      if constexpr (Offset) add_offset<T, V>(p, d);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         float t = gs[e] + gq2[e] * p[e];
@@ -287,8 +320,9 @@ __global__ void edge_reduce_backward_kernel(
 struct Args {
   const void* table;
   const void* idx;
-  const void* vmax;  // forward: out_max
-  const void* vmin;  // forward: out_min
+  const void* offset;  // null for none
+  const void* vmax;    // forward: out_max
+  const void* vmin;    // forward: out_min
   const void* count_max;
   const void* count_min;
   const void* g_max;  // backward only
@@ -300,7 +334,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int V, typename Count>
+template <typename T, int V, typename Count, bool Offset>
 int run(const Args& a, bool backward) {
   const int units = a.C / V;
   int group_log2 = 0;
@@ -311,17 +345,19 @@ int run(const Args& a, bool backward) {
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks));
   if (backward) {
-    edge_reduce_backward_kernel<T, V, Count><<<grid, kThreads, 0, a.stream>>>(
+    edge_reduce_backward_kernel<T, V, Count, Offset><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.table), static_cast<const int*>(a.idx),
-        static_cast<const T*>(a.vmax), static_cast<const T*>(a.vmin),
+        static_cast<const T*>(a.offset), static_cast<const T*>(a.vmax),
+        static_cast<const T*>(a.vmin),
         static_cast<const Count*>(a.count_max), static_cast<const Count*>(a.count_min),
         static_cast<const T*>(a.g_max), static_cast<const T*>(a.g_min),
         static_cast<const float*>(a.sum), static_cast<const float*>(a.sq),
         static_cast<float*>(a.grad), points, a.M, a.N, a.K, units, group_log2);
   } else {
-    edge_reduce_kernel<T, V, Count><<<grid, kThreads, 0, a.stream>>>(
+    edge_reduce_kernel<T, V, Count, Offset><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.table), static_cast<const int*>(a.idx),
-        static_cast<T*>(const_cast<void*>(a.vmax)), static_cast<T*>(const_cast<void*>(a.vmin)),
+        static_cast<const T*>(a.offset), static_cast<T*>(const_cast<void*>(a.vmax)),
+        static_cast<T*>(const_cast<void*>(a.vmin)),
         static_cast<float*>(const_cast<void*>(a.sum)),
         static_cast<float*>(const_cast<void*>(a.sq)),
         static_cast<Count*>(const_cast<void*>(a.count_max)),
@@ -329,6 +365,12 @@ int run(const Args& a, bool backward) {
         group_log2);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, typename Count>
+int run(const Args& a, bool backward) {
+  return a.offset == nullptr ? run<T, V, Count, false>(a, backward)
+                             : run<T, V, Count, true>(a, backward);
 }
 
 bool aligned(const void* p, int bytes) {
@@ -344,9 +386,10 @@ int dispatch(const Args& a, bool backward) {
       return p == nullptr || aligned(p, V * size < 16 ? V * size : 16);
     };
     const int t = static_cast<int>(sizeof(T)), c = static_cast<int>(sizeof(Count));
-    if (a.C % V != 0 || !fits(a.table, t) || !fits(a.vmax, t) || !fits(a.vmin, t) ||
-        !fits(a.g_max, t) || !fits(a.g_min, t) || !fits(a.count_max, c) ||
-        !fits(a.count_min, c) || !fits(a.sum, 4) || !fits(a.sq, 4) || !fits(a.grad, 4)) {
+    if (a.C % V != 0 || !fits(a.table, t) || !fits(a.offset, t) || !fits(a.vmax, t) ||
+        !fits(a.vmin, t) || !fits(a.g_max, t) || !fits(a.g_min, t) ||
+        !fits(a.count_max, c) || !fits(a.count_min, c) || !fits(a.sum, 4) ||
+        !fits(a.sq, 4) || !fits(a.grad, 4)) {
       continue;
     }
     if constexpr (sizeof(T) == 2) {
@@ -376,36 +419,37 @@ int launch(const Args& a, int dtype, bool backward) {
 
 }  // namespace
 
-// table (B, N, C), idx (B, M, K) int32; out_max, out_min (B, M, C) in the
-// table's dtype; out_sum, out_sq (B, M, C) float32, both null for no sums;
-// count_max, count_min (B, M, C) uint8 (K <= 255) or int32, both null for
-// no counts.
-extern "C" int pointseg_edge_reduce(const void* table, const void* idx, void* out_max,
-                                    void* out_min, void* out_sum, void* out_sq,
+// table (B, N, C), idx (B, M, K) int32; offset (B, M, C) in the table's
+// dtype, null for none; out_max, out_min (B, M, C) in the table's dtype;
+// out_sum, out_sq (B, M, C) float32, both null for no sums; count_max,
+// count_min (B, M, C) uint8 (K <= 255) or int32, both null for no counts.
+extern "C" int pointseg_edge_reduce(const void* table, const void* idx, const void* offset,
+                                    void* out_max, void* out_min, void* out_sum, void* out_sq,
                                     void* count_max, void* count_min, int B, int M, int N,
                                     int K, int C, int dtype, int device, void* stream) {
   const DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  const Args a{table,  idx,     out_max, out_min, count_max, count_min, nullptr,
-               nullptr, out_sum, out_sq,  nullptr, B,         M,         N,
-               K,       C,       static_cast<cudaStream_t>(stream)};
+  const Args a{table,   idx,     offset,  out_max, out_min, count_max, count_min,
+               nullptr, nullptr, out_sum, out_sq,  nullptr, B,         M,
+               N,       K,       C,       static_cast<cudaStream_t>(stream)};
   return launch(a, dtype, false);
 }
 
 // grad (B, N, C) float32, zeroed, += the edges' terms; g_max, g_min (B, M,
 // C) in the table's dtype; g_sum, g_sq (B, M, C) float32, both null for
-// no sums; the rest as pointseg_edge_reduce wrote them (counts required).
+// no sums; the rest as pointseg_edge_reduce had them (counts required).
 extern "C" int pointseg_edge_reduce_backward(const void* table, const void* idx,
-                                             const void* vmax, const void* vmin,
-                                             const void* count_max, const void* count_min,
+                                             const void* offset, const void* vmax,
+                                             const void* vmin, const void* count_max,
+                                             const void* count_min,
                                              const void* g_max, const void* g_min,
                                              const void* g_sum, const void* g_sq, void* grad,
                                              int B, int M, int N, int K, int C, int dtype,
                                              int device, void* stream) {
   const DeviceScope scope(device);
   if (scope.status() != 0) return scope.status();
-  const Args a{table, idx,   vmax, vmin, count_max, count_min, g_max,
-               g_min, g_sum, g_sq, grad, B,         M,         N,
-               K,     C,     static_cast<cudaStream_t>(stream)};
+  const Args a{table, idx,  offset, vmax, vmin, count_max, count_min, g_max, g_min,
+               g_sum, g_sq, grad,   B,    M,    N,         K,         C,
+               static_cast<cudaStream_t>(stream)};
   return launch(a, dtype, true);
 }

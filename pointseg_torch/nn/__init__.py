@@ -9,7 +9,6 @@ from pointseg_torch.nn.mlp import (  # noqa: F401
     leaky_relu_02,
 )
 from pointseg_torch.nn.blocks import (  # noqa: F401
-    BNStats,
     EdgeConv,
     FeaturePropagation,
     GroupedFirstLayer,

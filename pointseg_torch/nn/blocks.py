@@ -1,6 +1,7 @@
 """Network blocks (port of `GroupedFirstLayer`, `SetAbstraction`,
-`SetAbstractionMSG`, `FeaturePropagation`, `InvResMLP`, `_BNStats`,
-`EdgeConv` and `TNet` from `pointseg/nn/blocks.py`).
+`SetAbstractionMSG`, `FeaturePropagation`, `InvResMLP`, `EdgeConv` and
+`TNet` from `pointseg/nn/blocks.py`; its `_BNStats` is `BatchNorm.stats`
+in `nn/mlp.py`).
 
 FPS takes its start from the `generator` a caller passes (the training
 step passes one; evaluation passes none and starts at 0), where the JAX
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pointseg_torch import ops
 from pointseg_torch.nn.mlp import BatchNorm, Linear, SharedMLP, cast, leaky_relu_02
+from pointseg_torch.ops import edgereduce
 from pointseg_torch.parallel import points as pts
 from pointseg_torch.parallel import tensor_parallel as tp_ops
 from pointseg_torch.parallel.mesh import active, all_reduce_sum
@@ -58,7 +60,11 @@ class GroupedFirstLayer(SharedMLP):
     it is exactly the JAX GroupedFirstLayer.
 
     forward(centroids (B, C, 3), coords (B, N, 3), features (B, N, D))
-    -> (B, C, K, widths[-1]).
+    -> (B, C, K, widths[-1]). `pool(..., pooling)` returns those rows
+    pooled over K, (B, C, widths[-1]); with one width and max pooling, on
+    the kernels' path (`reduces`), it never forms them (the InvResMLP
+    blocks' route; `SetAbstraction` keeps its rows, whose gathers the
+    benchmark's `ops.gather_rows_with_coords_*` metrics read).
     """
 
     def __init__(self, in_features: int, widths: Sequence[int], radius: float,
@@ -98,6 +104,83 @@ class GroupedFirstLayer(SharedMLP):
         for conv, bn in zip(self.conv[1:], self.batch[1:]):
             x = F.relu(bn(conv(x)))
         return x
+
+    def reduces(self, features: torch.Tensor) -> bool:
+        """Whether `pool` with max pooling reduces through
+        `ops.edge_reduce`'s kernel pair: one width, float32 compute, no
+        tensor-parallel split, and features that the pair takes (float32
+        on the card, outside `torch.export`'s tracing)."""
+        return (len(self.conv) == 1 and self.dtype == torch.float32
+                and self.conv[0].tp is None and self.batch[0].tp is None
+                and edgereduce.launches(features))
+
+    def pool(self, centroids, coords, features, pooling: str, mask=None):
+        """`forward`'s rows pooled over the K neighbours: (B, C, widths[-1]).
+
+        Where `reduces(features)` and `pooling` is 'max', no (B, C, K, h)
+        tensor is formed, forward or backward. The first layer's row
+        W_f·f_j + W_r·(p_j - c_i)/r (+ bias) splits into a per-point table
+        t_j = W_f·f_j + W_r·(p_j - a)/r and a per-centre offset
+        d_i = W_r·(a - c_i)/r (+ bias), with a each cloud's first point:
+        coordinates lie metres from the origin, and without the anchor the
+        two terms would cancel to a few bits; with it, what cancels is
+        bounded by the cloud's extent over the radius. a's two terms
+        cancel in the derivative too, so every gradient is the
+        materialised layer's. `ops.edge_reduce` returns the max, the min
+        and, in training, the float32 sums s = sum x and q = sum x² over
+        the rows x_ij = t_j + d_i that the materialised layer normalises.
+        BatchNorm + ReLU is a monotone map a channel, increasing or
+        decreasing with the sign of the slope, so the pooled output is
+        relu((max or min - mean) * slope + shift), and the batch
+        statistics follow from s and q as in `EdgeConv`: mean = sum s /
+        count, var = max(sum q / count - mean², 0), the global batch's
+        inside a data-parallel step. In training the rows are first
+        centred on a per-channel value known before the reduction, the
+        mean of the first cloud's first 64 table rows plus that of its
+        first 64 offsets (the ranks' mean under a data-parallel mesh),
+        taken off the offset's bias. Features whose channel means lie far
+        above their spread would otherwise cancel in q / count - mean²;
+        what is left of the mean after centring is of the order of the
+        spread. The centre carries no gradient and changes no
+        derivative. The BatchNorm module, its
+        running statistics and its keys are the materialised layer's.
+        Elsewhere: the pooled rows of `forward`."""
+        if pooling != "max" or not self.reduces(features):
+            return ops.reduce(self(centroids, coords, features, mask=mask), pooling, dim=2)
+        idx, _ = ops.ball_query(centroids, coords, self.radius, self.K, mask=mask,
+                                filler=self.filler)
+        first, bn = self.conv[0], self.batch[0]
+        w_rel, w_feat = first.weight[:, :3], first.weight[:, 3:]
+        anchor = coords[:, :1, :]  # (B, 1, 3): each cloud's first point
+        rel_table, rel_centre = coords - anchor, anchor - centroids
+        if self.normalize:
+            rel_table, rel_centre = rel_table / self.radius, rel_centre / self.radius
+        table = F.linear(features, w_feat) + F.linear(rel_table, w_rel)  # (B, N, h)
+        bias = first.bias
+        mesh = active()
+        if bn.training:  # the rows reduced are x - centre (batch statistics follow the mode)
+            centre = (table[0, :64].mean(dim=0)
+                      + F.linear(rel_centre[0, :64].mean(dim=0), w_rel, bias)).detach()
+            if mesh is not None:  # one centre for every rank's sums
+                centre = all_reduce_sum(centre, mesh) / mesh.world_size
+            bias = -centre if bias is None else bias - centre
+        offset = F.linear(rel_centre, w_rel, bias)  # (B, C, h)
+        reduced = ops.edge_reduce(table, idx, bn.training, offset)
+        if bn.training:
+            sum_x, sum_x2 = reduced[2].sum(dim=(0, 1)), reduced[3].sum(dim=(0, 1))
+            count = idx.numel()
+            if mesh is not None:  # the global batch's sums and row count
+                sum_x, sum_x2, count = all_reduce_sum(
+                    torch.cat([sum_x, sum_x2, sum_x.new_full((1,), count)]), mesh
+                ).split([sum_x.shape[0], sum_x.shape[0], 1])
+            mean = sum_x / count  # of the rows reduced: the batch mean less the centre
+            var = torch.clamp_min(sum_x2 / count - mean * mean, 0.0)
+            scale, shift, _, var = bn.stats(mean + centre, var)
+        else:
+            scale, shift, mean, var = bn.stats(None, None)
+        slope = scale * torch.rsqrt(var + bn.eps)
+        extreme = torch.where(slope >= 0, reduced[0], reduced[1])  # where the map peaks
+        return F.relu((extreme - mean) * slope + shift)
 
 
 class SetAbstraction(torch.nn.Module):
@@ -217,6 +300,14 @@ class InvResMLP(torch.nn.Module):
     `bias=False` makes every layer bias-free. Each forward runs inside the
     span `pointseg_torch.model.invres` (`utils/trace.py`).
 
+    The grouped layer is pooled by `GroupedFirstLayer.pool`: with max
+    pooling in float32 on the card, through `ops.edge_reduce` with a
+    per-centre offset, so the block forms no (B, N, K, m) tensor (one
+    `edge_reduce` launch a forward and one a backward, in place of the
+    grouped-row gather and its scatter-add); on the CPU, in float64 or
+    bfloat16, under `torch.export` or split by tensor parallelism, from
+    the materialised rows.
+
     forward(coords (B, N, 3), features (B, N, m)) -> (coords, (B, N, m)).
     The submodule names are the reference torch model's.
     """
@@ -240,32 +331,10 @@ class InvResMLP(torch.nn.Module):
             split = pts.point_split()
             if split is not None:  # this rank's points against the whole level
                 table, table_features = pts.gather(split, coords, features)
-            h = self.neighbour_features_mlp(coords, table, table_features, mask=mask)
-            h = self.point_features_mlp(ops.reduce(h, self.pooling, dim=2)) + features
+            h = self.neighbour_features_mlp.pool(coords, table, table_features, self.pooling,
+                                                 mask=mask)
+            h = self.point_features_mlp(h) + features
             return coords, F.relu(h) if self.residual_act else h
-
-
-class BNStats(BatchNorm):
-    """BatchNorm parameters and running statistics for a block that
-    computes its batch statistics analytically instead of from a
-    materialised input (port of `_BNStats`).
-
-    `stats(batch_mean, batch_var)` returns (scale, bias, mean, var): in
-    training mode the given batch statistics, folded into the running
-    ones by `BatchNorm`'s rule (biased variance, momentum 0.1 = flax's
-    0.9); in eval mode, or with no batch statistics, the running ones.
-    Called on a tensor it is the ordinary `BatchNorm`, so one module and
-    one set of state_dict keys (`nn.BatchNorm1d`'s) serve both forms of
-    `EdgeConv`. The batch statistics it is given are float32, whatever
-    the block's compute dtype.
-    """
-
-    def stats(self, batch_mean: torch.Tensor | None, batch_var: torch.Tensor | None):
-        if not self.training or batch_mean is None:
-            return self.whole(True)
-        self.fold(batch_mean, batch_var)
-        weight, bias, _, _ = self.whole(False)
-        return weight, bias, batch_mean, batch_var
 
 
 class EdgeConv(torch.nn.Module):
@@ -327,7 +396,7 @@ class EdgeConv(torch.nn.Module):
         self.dtype = dtype
         self.w_edge = Linear(in_features, out_channels, bias=False, dtype=dtype)
         self.w_center = Linear(in_features, out_channels, bias=False, dtype=dtype)
-        self.bn = BNStats(out_channels, dtype=dtype)
+        self.bn = BatchNorm(out_channels, dtype=dtype)
 
     def forward(self, x, knn_on=None, mask=None, idx=None):
         x = cast(x, self.dtype)

@@ -171,6 +171,19 @@ class BatchNorm(nn.BatchNorm1d):
         return (out[0], out[1], out[2].detach(), out[3].detach()) if running else (
             out[0], out[1], None, None)
 
+    def stats(self, batch_mean: torch.Tensor | None, batch_var: torch.Tensor | None):
+        """(scale, bias, mean, var) for a block that computes its batch
+        statistics analytically instead of from materialised rows (the
+        JAX package's `_BNStats`): in training mode the given batch
+        statistics, folded into the running ones by this module's rule;
+        in eval mode, or with no batch statistics, the running ones. The
+        batch statistics are float32, whatever the compute dtype."""
+        if not self.training or batch_mean is None:
+            return self.whole(True)
+        self.fold(batch_mean, batch_var)
+        weight, bias, _, _ = self.whole(False)
+        return weight, bias, batch_mean, batch_var
+
     @torch.no_grad()
     def fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Folds a batch's (whole) statistics into the running ones."""

@@ -1,7 +1,8 @@
 """Geometric primitives (port of `pointseg.ops`).
 
 FPS, ball query, 3-NN, kNN, the row gathers (batched and flat) and
-EdgeConv's gather-reduce (`edge_reduce`, float32 and bfloat16 rows)
+the gather-reduce of EdgeConv and of the InvResMLP grouped layer
+(`edge_reduce`, float32 and bfloat16 rows, an optional per-point offset)
 launch hand-written CUDA kernels on CUDA tensors (`csrc/`, built by
 `_kernels`) and run plain PyTorch on CPU tensors; the ball query and kNN
 each have a flat and a two-level kernel, and the call's shape picks one.

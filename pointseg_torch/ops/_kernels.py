@@ -91,13 +91,14 @@ _SIGNATURES = {  # every entry point ends with (device index, stream)
     "pointseg_gather_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
     # table, idx, out, R, M, row_bytes
     "pointseg_gather_rows_flat": (_P, _P, _P, _L, _L, _L, _I, _P),
-    # table, idx, out_max, out_min, out_sum, out_sq, count_max, count_min, B, M, N, K, C,
-    # dtype
-    "pointseg_edge_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # table, idx, max, min, count_max, count_min, g_max, g_min, g_sum, g_sq, grad, B, M,
-    # N, K, C, dtype
-    "pointseg_edge_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _I, _P),
+    # table, idx, offset, out_max, out_min, out_sum, out_sq, count_max, count_min, B, M, N,
+    # K, C, dtype
+    "pointseg_edge_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
+    # table, idx, offset, max, min, count_max, count_min, g_max, g_min, g_sum, g_sq, grad, B,
+    # M, N, K, C, dtype
+    "pointseg_edge_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None

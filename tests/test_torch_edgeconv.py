@@ -1,4 +1,4 @@
-"""pointseg_torch's SharedMLP options, BNStats and EdgeConv against
+"""pointseg_torch's SharedMLP options, BatchNorm.stats and EdgeConv against
 pointseg's on the CPU: same numpy inputs, the JAX block's weights copied
 into the port's.
 
@@ -23,7 +23,7 @@ from pointseg.nn import SharedMLP as JaxSharedMLP
 from pointseg.nn import leaky_relu_02 as jax_leaky
 from pointseg.ops.dispatch import set_use_pallas
 from pointseg_torch import ops as tops
-from pointseg_torch.nn import BNStats, EdgeConv, SharedMLP, leaky_relu_02
+from pointseg_torch.nn import BatchNorm, EdgeConv, SharedMLP, leaky_relu_02
 
 torch.set_num_threads(2)
 
@@ -185,7 +185,7 @@ def test_edgeconv_builds_the_same_graph_as_jax(use_knn_on, use_mask):
 
 
 def test_bnstats_keys_update_rule_and_eval():
-    bn = BNStats(4)
+    bn = BatchNorm(4)
     assert set(bn.state_dict()) == set(torch.nn.BatchNorm1d(4).state_dict())
     mean, var = torch.tensor([1.0, 2.0, 3.0, 4.0]), torch.tensor([4.0, 3.0, 2.0, 1.0])
     bn.train()

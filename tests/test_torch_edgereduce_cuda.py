@@ -1,5 +1,6 @@
 """EdgeConv's gather-reduce kernel pair (`csrc/edgereduce.cu`) against its
-plain version, on the card.
+plain version, on the card, with and without the per-centre offset that
+PointNeXt's InvResMLP grouped layer passes.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX; run it on the card with the other kernel tests:
@@ -15,7 +16,8 @@ table's gradient is held to the float64 gradient of the same bf16 rows
 within one bfloat16 rounding. Ties are forced: integer-valued rows (many
 equal values a channel), duplicated table rows and a repeated index in
 every neighbour list, so that the even split of the max's and the min's
-gradient is exercised.
+gradient is exercised. With an offset the table and the offset are both
+integer-valued, so every row x = p + d is exact and the ties survive.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from pointseg_torch.models import create_model
-from pointseg_torch.nn import EdgeConv
+from pointseg_torch.nn import EdgeConv, InvResMLP
 from pointseg_torch.ops import _kernels
 from pointseg_torch.ops.edgereduce import (
     _edge_reduce_cuda,
@@ -32,6 +34,7 @@ from pointseg_torch.ops.edgereduce import (
     edge_reduce_plain,
 )
 from pointseg_torch.ops.gather import gather_rows_plain
+from pointseg_torch.train.state import STEP_GRAPHS, create_train_state, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -235,8 +238,6 @@ def test_edgeconv_keeps_nothing_of_the_gathered_size(device):
 def test_dgcnn_train_step_launches_edge_reduce_and_no_gather(device):
     """One DeepGraphCnn training step on the card: four kNN, 4 + 4 edge_reduce
     (forward and backward) and no batched row gather."""
-    from pointseg_torch.train.state import create_train_state, train_step
-
     torch.manual_seed(0)
     state = create_train_state(create_model("DeepGraphCnn"), device=device, seed=0)
     rng = np.random.default_rng(7)
@@ -252,3 +253,146 @@ def test_dgcnn_train_step_launches_edge_reduce_and_no_gather(device):
     ran = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
     assert ran == {"knn": 4, "edge_reduce": 8}, ran
     assert np.isfinite(float(metrics["loss"]))
+
+
+# (B, M, N, k, C) with an offset: PointNeXt-XL's widths 128-1024 at k 32,
+# M != N, a level of 16 points under balls of 32 (repeated indices), and a
+# narrow C (vectors of one element)
+OFFSET_SHAPES = [(2, 1024, 1024, 32, 128), (2, 256, 1024, 32, 256), (2, 64, 256, 32, 512),
+                 (4, 16, 16, 32, 1024), (3, 100, 300, 7, 13)]
+
+
+def _offset(seed, B, M, C, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2, 3, (B, M, C)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("sums", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,N,k,C", OFFSET_SHAPES)
+def test_edge_reduce_with_an_offset_matches_plain(device, B, M, N, k, C, dtype, ties, sums):
+    """Over x = p[idx] + d (rounded to the table's dtype): max and min
+    bit-equal to the plain composition's, tie counts exact, sums within
+    1e-5, one launch."""
+    table, idx, _ = _inputs(11, B, M, N, k, C, ties, device)
+    d = _offset(12, B, M, C, device) if ties else torch.randn(B, M, C, device=device)
+    table, d = table.to(dtype), d.to(dtype)
+    before = dict(_kernels.LAUNCHES)
+    got = _edge_reduce_cuda(table, idx, sums, True, d)
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    want = edge_reduce_plain(table, idx, sums, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if sums:
+        for g, w in zip(got[2:4], want[2:4]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+    rows = gather_rows_plain(table, idx) + d[:, :, None, :]
+    cmax = (rows == want[0][:, :, None]).sum(2)
+    cmin = (rows == want[1][:, :, None]).sum(2)
+    assert torch.equal(got[4].long(), cmax) and torch.equal(got[5].long(), cmin)
+    if ties:
+        assert int(cmax.max()) > 1 and int(cmin.max()) > 1
+    for g, w in zip(edge_reduce(table, idx, sums, d), got):  # no gradient: no counts kept
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("sums", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("B,M,N,k,C", OFFSET_SHAPES)
+def test_edge_reduce_with_an_offset_backward_matches_autograd_of_plain(device, B, M, N, k, C,
+                                                                       ties, sums):
+    """The table's gradient (the backward kernel, each x recomputed with
+    the offset) and the offset's (`offset_grad`) against autograd of the
+    plain composition, within 1e-5 of their largest; one launch each way."""
+    table, idx, weights = _inputs(13, B, M, N, k, C, ties, device)
+    d = _offset(14, B, M, C, device) if ties else torch.randn(B, M, C, device=device)
+    n_out = 4 if sums else 2
+    t1, d1 = table.clone().requires_grad_(True), d.clone().requires_grad_(True)
+    before = _kernels.LAUNCHES["edge_reduce"]
+    got = edge_reduce(t1, idx, sums, d1)
+    sum((o * w).sum() for o, w in zip(got, weights[:n_out])).backward()
+    assert _kernels.LAUNCHES["edge_reduce"] == before + 2
+    t2, d2 = table.clone().requires_grad_(True), d.clone().requires_grad_(True)
+    want = edge_reduce_plain(t2, idx, sums, d2)
+    sum((o * w).sum() for o, w in zip(want, weights[:n_out])).backward()
+    for g, w in ((t1.grad, t2.grad), (d1.grad, d2.grad)):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("bias", [False, True])
+def test_invres_on_the_card_matches_the_cpu(device, train, bias):
+    """PointNeXt-XL's block form (published order) at width 128, K 32: on
+    the card through `edge_reduce` with the offset (one launch a forward,
+    one a backward, no grouped-row gather), on the CPU from the
+    materialised rows; output, running statistics and the features'
+    gradient within 1e-4, each parameter's gradient within 1e-4 of the
+    larger of its norm and the median parameter's (a bias before a
+    BatchNorm has a gradient of rounding alone), BatchNorm slopes of both
+    signs, the cloud 3 m from the origin."""
+    rng = np.random.default_rng(15)
+    coords = torch.from_numpy(rng.random((2, 1024, 3)).astype(np.float32) + 3.0)
+    feats = torch.from_numpy(rng.normal(size=(2, 1024, 128)).astype(np.float32))
+    torch.manual_seed(0)
+    cpu = InvResMLP(0.2, 128, 32, residual_act=True, bias=bias).train(train)
+    with torch.no_grad():
+        bn = cpu.neighbour_features_mlp.batch[0]
+        bn.weight.copy_(torch.from_numpy(rng.uniform(-1.5, 1.5, 128).astype(np.float32)))
+        bn.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, 128).astype(np.float32)))
+    card = InvResMLP(0.2, 128, 32, residual_act=True, bias=bias).train(train)
+    card.load_state_dict(cpu.state_dict())
+    card.to(device)
+    weight = torch.from_numpy(rng.normal(size=(2, 1024, 128)).astype(np.float32))
+    outs, grads = [], []
+    for block, where in ((cpu, torch.device("cpu")), (card, device)):
+        tf = feats.to(where, copy=True).requires_grad_(True)
+        before = dict(_kernels.LAUNCHES)
+        out = block(coords.to(where), tf)[1]
+        (out * weight.to(where)).sum().backward()
+        ran = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
+        assert ran == ({} if where.type == "cpu" else {"ball_query": 1, "edge_reduce": 2}), ran
+        outs.append(out.detach().cpu())
+        grads.append([tf.grad.cpu(), *(p.grad.cpu().double() for p in block.parameters())])
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(grads[0][0].abs().max())))
+    norms = [float(w.norm()) for w in grads[0][1:]]
+    median = sorted(norms)[len(norms) // 2]
+    for g, w, norm in zip(grads[1][1:], grads[0][1:], norms):
+        assert float((g - w).norm()) <= 1e-4 * max(norm, median)
+    for a, b in zip(card.buffers(), cpu.buffers()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_pointnext_xl_train_step_captures_and_replays_edge_reduce(device):
+    """PointNeXt-XL's train steps on the card at B 2 x 1,024: the captured
+    step launches from Python 4 FPS, 19 ball queries, 4 three-NN, 12 row
+    gathers (the 4 SAs' grouped rows, 4 centroid and 4 interpolation
+    gathers) and 15 + 15 `edge_reduce` (the 15 InvResMLPs' grouped layers,
+    forward and backward); the replays after it launch nothing from
+    Python, and the losses stay finite."""
+    torch.manual_seed(0)
+    state = create_train_state(create_model("PointNeXt-XL"), device=device, seed=0)
+    rng = np.random.default_rng(16)
+    points = torch.from_numpy(rng.random((2, 1024, 9)).astype(np.float32)).to(device)
+    labels = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, 14, (2, 1024))), 14).to(torch.uint8).to(device)
+    lengths = torch.full((2,), 1024, dtype=torch.int32, device=device)
+    train_step(state, points, labels, lengths)  # eager: the optimizer's first update
+    torch.cuda.synchronize()
+    launches, graphs = dict(_kernels.LAUNCHES), dict(STEP_GRAPHS)
+    losses = [train_step(state, points, labels, lengths)["loss"]]
+    torch.cuda.synchronize()
+    ran = {k: v - launches[k] for k, v in _kernels.LAUNCHES.items() if v != launches[k]}
+    assert ran == {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 12,
+                   "edge_reduce": 30}, ran
+    assert {k: v - graphs[k] for k, v in STEP_GRAPHS.items()} == {
+        "captured": 1, "replayed": 0, "eager": 0}
+    launches = dict(_kernels.LAUNCHES)
+    losses += [train_step(state, points, labels, lengths)["loss"] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES == launches
+    assert {k: v - graphs[k] for k, v in STEP_GRAPHS.items()} == {
+        "captured": 1, "replayed": 2, "eager": 0}
+    assert all(np.isfinite(float(loss)) for loss in losses)

@@ -44,6 +44,7 @@ from pointseg_torch.data import synthetic
 from pointseg_torch.models import MODELS, PointNeXtXL, create_model
 from pointseg_torch.nn import GroupedFirstLayer, InvResMLP
 from pointseg_torch.ops import _kernels
+from pointseg_torch.ops.edgereduce import edge_reduce_plain, offset_grad
 from pointseg_torch.train.state import create_train_state, train_step
 from portbench.reference.archs import pointnext_xl_s3dis as ref
 from portbench.reference.models import make_weights
@@ -266,6 +267,110 @@ def test_a_ball_wider_than_its_level_repeats_slot_0(filler):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _blocks_state(block, coords, feats, dtype, reduces):
+    """A copy of `block` in `dtype` run on (coords, feats), through
+    `GroupedFirstLayer.pool`'s reduction route where `reduces` (on the
+    CPU `ops.edge_reduce` is `edge_reduce_plain`, called with an offset
+    here: the spy checks it), else from the materialised rows: (output,
+    {parameter: gradient of a fixed readout}, the block's buffers)."""
+    block = deepcopy(block).to(dtype)
+    x, f = coords.to(dtype), feats.to(dtype)
+    calls = []
+
+    def spy(p_table, idx, sums, offset=None):
+        assert offset is not None and offset.shape == (*idx.shape[:2], p_table.shape[2])
+        calls.append(1)
+        return edge_reduce_plain(p_table, idx, sums, offset)
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(GroupedFirstLayer, "reduces", lambda self, features: reduces)
+        patch.setattr(ops, "edge_reduce", spy)
+        out = block(x, f)[1]
+    assert len(calls) == (1 if reduces else 0)
+    readout = torch.linspace(-1, 1, out.numel(), dtype=dtype).reshape(out.shape)
+    (out * readout).sum().backward()
+    return (out.detach().double(), {n: p.grad.double() for n, p in block.named_parameters()},
+            [t.double() for t in block.buffers()])
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("case", ["base", "shifted_25m", "wide_ball", "feature_mean_100"])
+def test_invres_reduction_route_equals_the_materialised_block(case, train, bias):
+    """The InvResMLP grouped layer as table + per-centre offset reduced by
+    `edge_reduce` (the card's route, here through `edge_reduce_plain`)
+    against the materialised rows on the same weights, BatchNorm slopes
+    of both signs (the min is pooled where the slope is negative). In
+    float64 the two are one function: output, running statistics and
+    every parameter's gradient within 1e-10 (read up to 2e-14; the
+    gradient over the larger of its and the median leaf's, as a bias
+    before a BatchNorm has one of rounding alone). In float32 against
+    float64 of the same float32 coordinates, the route is no farther than
+    3 times the materialised layer's own rounding, also with the cloud 25
+    m from the origin: there the anchor holds the error at 0.7-1.2 times
+    it, and without one (t_j = W_f·f_j + W_r·p_j / r) the rows cancel to
+    17-29 times it (three seeds). `wide_ball`: K 32 over a 12-point
+    cloud, so slot 0 repeats. `feature_mean_100`: features of mean 100
+    and spread 1, so the grouped layer's channel means lie about 100
+    times above their spread, as post-ReLU residual features may: the
+    batch statistics from s and q hold only because the rows are
+    centred before they are reduced."""
+    n, k = (12, 32) if case == "wide_ball" else (64, 16)
+    g = torch.Generator().manual_seed(5)
+    coords = torch.rand(2, n, 3, generator=g) + (25.0 if case == "shifted_25m" else 0.0)
+    feats = torch.randn(2, n, 16, generator=g, dtype=torch.float64)
+    if case == "feature_mean_100":
+        feats = feats + 100.0
+    torch.manual_seed(0)
+    block = InvResMLP(0.2, 16, k, residual_act=True, bias=bias).train(train)
+    with torch.no_grad():
+        bn = block.neighbour_features_mlp.batch[0]
+        sign = torch.where(torch.arange(16) % 2 == 0, 1.0, -1.0)
+        bn.weight.copy_(sign * (0.5 + torch.rand(16, generator=g)))
+        bn.bias.copy_(0.1 * torch.randn(16, generator=g))
+        bn.running_mean.copy_(0.1 * torch.randn(16, generator=g))
+        bn.running_var.copy_(0.5 + torch.rand(16, generator=g))
+    want, want_grads, want_bufs = _blocks_state(block, coords, feats, torch.float64, False)
+    got, got_grads, got_bufs = _blocks_state(block, coords, feats, torch.float64, True)
+    assert _rel_max(got, want) <= 1e-10
+    assert all(torch.allclose(a, b, rtol=1e-10, atol=0) for a, b in zip(got_bufs, want_bufs))
+    assert max(_leaf_gaps(got_grads, want_grads).values()) <= 1e-10
+    own, _, _ = _blocks_state(block, coords, feats, torch.float32, False)
+    route, _, _ = _blocks_state(block, coords, feats, torch.float32, True)
+    assert _rel_max(route, want) <= 3.0 * _rel_max(own, want)
+
+
+@pytest.mark.parametrize("sums", [True, False])
+@pytest.mark.parametrize("offset", [False, True])
+def test_edge_reduce_plain_with_and_without_an_offset(offset, sums):
+    """`edge_reduce_plain` over rows p[idx] (+ d): values against the
+    rows reduced by hand, and in float64 the offset's gradient against
+    `offset_grad`'s closed form (the card's backward), ties forced
+    (integer rows, a repeated index) so that max and min split theirs."""
+    g = torch.Generator().manual_seed(3)
+    table = torch.randint(-3, 4, (2, 20, 8), generator=g).double().requires_grad_(True)
+    idx = torch.randint(0, 20, (2, 10, 6), generator=g)
+    idx[..., 1] = idx[..., 0]
+    d = (torch.randint(-2, 3, (2, 10, 8), generator=g).double().requires_grad_(True)
+         if offset else None)
+    got = edge_reduce_plain(table, idx, sums, d)
+    rows = torch.stack([table[b][idx[b]] for b in range(2)])
+    if offset:
+        rows = rows + d[:, :, None, :]
+    want = [rows.amax(2), rows.amin(2)] + ([rows.sum(2), rows.square().sum(2)] if sums else [])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((rows == want[0][:, :, None]).sum(2).max()) > 1
+    weights = [torch.randn(a.shape, generator=g, dtype=torch.float64) for a in got]
+    sum((a * w).sum() for a, w in zip(got, weights)).backward()
+    if offset:
+        closed = offset_grad(*weights[:2], *(weights[2:] if sums else (None, None)),
+                             got[2].detach() if sums else None, idx.shape[2])
+        torch.testing.assert_close(d.grad, closed, rtol=1e-12, atol=1e-12)
+        assert table.grad is not None
+
+
 def test_each_invres_forward_is_a_span_inside_the_step_forward():
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,11 +416,13 @@ def test_cli_trains_pointnext_xl_one_step(five_blocks, tmp_path, capsys, monkeyp
 
 @pytest.mark.cuda
 def test_one_forward_launches_on_the_card(monkeypatch):
-    """One forward at B 2 x 4,096: 4 FPS, 19 ball queries, 4 three-NN, and
-    27 row gathers: the 19 grouped layers' coordinate gathers, 4 centroid
-    gathers and 4 interpolation gathers. A forward called directly, not a
-    train step, so every launch is from Python (a replayed train step's
-    are not counted; `chip_smoke.py` counts the captured one)."""
+    """One forward at B 2 x 4,096: 4 FPS, 19 ball queries, 4 three-NN, 12
+    row gathers (the 4 SAs' grouped rows with their coordinates, 4
+    centroid gathers and 4 interpolation gathers) and 15 `edge_reduce`,
+    the 15 InvResMLPs' grouped layers, which form no rows. A forward
+    called directly, not a train step, so every launch is from Python (a
+    replayed train step's are not counted; `chip_smoke.py` counts the
+    captured one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -332,5 +439,6 @@ def test_one_forward_launches_on_the_card(monkeypatch):
         model(x, generator=torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
-    assert ran == {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 27}
-    assert len(calls) == 19
+    assert ran == {"fps": 4, "ball_query": 19, "three_nn": 4, "gather_rows": 12,
+                   "edge_reduce": 15}
+    assert len(calls) == 4
